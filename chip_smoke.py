@@ -3,23 +3,35 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, drive, at the flagship model's full widths
-(256², 64..512 channels) with seeded random weights, through the entry points
-a user calls, and checks every hand-written kernel of that path:
+Drives the port's two main paths, fine-tune and drive, at the flagship
+model's full widths (256², generator 64..512 channels, embed 512, pose 256,
+discriminator 7 blocks) with seeded random weights, through the entry points
+a user calls, and checks every hand-written kernel of those paths:
 
 1. device: require CUDA, print ``nvidia-smi`` name and power limit, turn
-   TF32 off for the comparisons;
-2. build the CUDA kernels from ``latentpose_tpu_torch/csrc/``;
-3. each kernel against its plain PyTorch version on the card, at the
-   shapes the drive gives it (f32 and bf16), with both times;
-4. write a flagship-width fine-tuned checkpoint through the port's writer
-   (the JAX package's format);
-5. drive ``synthetic://3`` (32 frames) through the CLI's ``load_finetuned``,
-   ``load_driver_frames``, ``make_drive_fn`` and ``drive_sequence`` in bf16
-   and f32; check shapes, finite values and that every kernel of the path
-   launched; time bf16 frames/s at batch 32 and 128; peak memory;
-6. the same 4 frames on the card (f32, TF32 off) and on the CPU, where the
-   plain versions run: max abs difference within 1e-3.
+   TF32 off everywhere (cuBLAS and cuDNN) for the comparisons and timings;
+2. build the CUDA kernels from ``latentpose_tpu_torch/csrc/``, one nvcc per
+   source, all at once; print the compiler's report;
+3. AdaIN against its plain version at the generator's 7 shapes (f32 and
+   bf16), with both times;
+4. the fused BN->ReLU->1x1-conv->stats kernel against its plain version at
+   ResNeXt-50's four link shapes and a ragged M, 8 frames in f32 and bf16,
+   with both times at 64 frames;
+5. write a flagship-width fine-tuned checkpoint through the port's writer
+   (the JAX package's format) and drive ``synthetic://3`` (32 frames)
+   through the drive CLI's functions in bf16 and f32: shapes, finite
+   values, AdaIN launches; bf16 frames/s at batch 32 and 128; peak memory;
+   the same 4 frames on the card and on the CPU within 1e-3;
+6. write a flagship-width meta-trained checkpoint (16 labels) and fine-tune
+   it through the train CLI's functions on ``synthetic://`` avatar frames,
+   f32, batch 8: ê through ResNeXt-50 (16 kernel launches per forward),
+   then 10 GAN steps (17 AdaIN launches each): finite losses, moved
+   generator and identity embedding, advanced spectral-norm state; ê
+   frames/s, step ms, images/s and peak memory;
+7. save the fine-tuned checkpoint and drive it in bf16: finite frames;
+8. one fine-tune step on the card and on the CPU from the same state and
+   batch (batch 2, f32, eval-mode pose encoder): losses and the updated
+   identity embedding within 1e-3 relative.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
@@ -27,6 +39,8 @@ record; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import concurrent.futures
+import copy
 import json
 import subprocess
 import sys
@@ -45,10 +59,16 @@ import torch  # noqa: E402
 from latentpose_tpu_torch import checkpoint as ckpt_lib  # noqa: E402
 from latentpose_tpu_torch import convert, registry  # noqa: E402
 from latentpose_tpu_torch.cli import drive as cli  # noqa: E402
+from latentpose_tpu_torch.cli import train as train_cli  # noqa: E402
 from latentpose_tpu_torch.ops import adain as adain_op  # noqa: E402
+from latentpose_tpu_torch.ops import conv_bn  # noqa: E402
 from latentpose_tpu_torch.ops.cuda_build import (  # noqa: E402
     BUILD_DIR, build_log, load_library)
 from latentpose_tpu_torch.runners import drive as drive_lib  # noqa: E402
+from latentpose_tpu_torch.runners import finetune as ft  # noqa: E402
+from latentpose_tpu_torch.runners import holycow  # noqa: E402
+from latentpose_tpu_torch.runners.state import (  # noqa: E402
+    TrainState, ema_of)
 
 FLAGSHIP = dict(
     generator="vector_pose_unsupervised_segmentation_noBottleneck",
@@ -65,6 +85,21 @@ ADAIN_CALLS = [(16, 512, 5), (64, 512, 2), (256, 512, 2), (1024, 512, 2),
                (4096, 256, 2), (16384, 128, 2), (65536, 64, 2)]
 TOL = {torch.float32: 2e-4, torch.bfloat16: 1.6e-2}   # bf16: ~2 ulps
 DRIVE_BATCH = 32
+# (rows per frame at 256², Cin, Cout, bottlenecks) of ResNeXt-50's
+# bn2 -> ReLU -> conv3 links
+CONV_LINKS = [(4096, 128, 256, 3), (1024, 256, 512, 4), (256, 512, 1024, 6),
+              (64, 1024, 2048, 3)]
+# the flagship meta-trained state: the discriminator has 16 identities
+META = dict(FLAGSHIP, finetune=False, num_labels=16, dis_num_blocks=7,
+            dis_padding="zero", dataloader="synthetic",
+            criterions="idt_embed, perceptual, adversarial, featmat, "
+                       "dis_embed, dice",
+            optimizer="Adam", lr_gen=5e-5, lr_dis=2e-4, beta1=0.0,
+            perc_weight=3e-2, idt_embed_weight=0.6e-2, batch_size=8,
+            synthetic_num_labels=16)
+FT_BATCH = 8
+FT_EPOCHS = 5          # 2 batches an epoch (16 identities // batch 8)
+STEP_TOL = 1e-3        # card vs CPU, one fine-tune step, relative
 
 
 def require(cond, message):
@@ -126,6 +161,243 @@ def phase_kernels(device):
     print(f"adain: 17 calls of one bf16 frame batch of {DRIVE_BATCH}: "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
     return max_err, ms, plain_ms
+
+
+def link_inputs(m, cin, cout, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(m, cin, generator=g, device=device) * 2 + 0.5
+    w = torch.randn(cout, cin, generator=g, device=device) / cin ** 0.5
+    scale = torch.rand(cin, generator=g, device=device) + 0.5
+    offset = torch.randn(cin, generator=g, device=device) * 0.1
+    return x.to(dtype), scale, offset, w.to(dtype).t()    # w: conv3's view
+
+
+@torch.no_grad()
+def phase_conv_bn(device):
+    """The fused kernel against its plain version at every link shape of
+    ResNeXt-50 (8 frames, f32 and bf16, plus a ragged M), timed at 64
+    frames beside the plain version; returns (max_abs_err, ms, plain_ms)
+    with the times summed over the 16 links of one f32 forward."""
+    max_err, ms, plain_ms = 0.0, 0.0, 0.0
+    cases = [(8 * rows, cin, cout, dtype) for rows, cin, cout, _ in CONV_LINKS
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(1000, 256, 512, torch.float32), (1000, 256, 512,
+                                                torch.bfloat16)]
+    for m, cin, cout, dtype in cases:
+        x, scale, offset, w = link_inputs(m, cin, cout, dtype, device, m)
+        y, stats = conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w)
+        want_y, want_stats = conv_bn.bn_relu_conv1x1_stats_reference(
+            x, scale, offset, w)
+        torch.cuda.synchronize()
+        err = (y.float() - want_y.float()).abs().max().item()
+        ref = want_y.float().abs().max().item()
+        torch.testing.assert_close(y.float() / ref, want_y.float() / ref,
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+        torch.testing.assert_close(stats, want_stats, rtol=1e-4,
+                                   atol=1e-4 * want_stats.abs().max().item())
+        max_err = max(max_err, err)
+        print(f"conv_bn M={m} {cin}->{cout} {str(dtype)[6:]}: max_abs_err="
+              f"{err:.3g} (max |y| {ref:.3g})", flush=True)
+    for rows, cin, cout, count in CONV_LINKS:
+        for dtype in (torch.float32, torch.bfloat16):
+            m = 64 * rows
+            x, scale, offset, w = link_inputs(m, cin, cout, dtype, device, 1)
+            k = cuda_ms(lambda: conv_bn.bn_relu_conv1x1_stats(
+                x, scale, offset, w), 20)
+            p = cuda_ms(lambda: conv_bn.bn_relu_conv1x1_stats_reference(
+                x, scale, offset, w), 20)
+            tflops = 2 * m * cin * cout / k / 1e9
+            print(f"conv_bn 64 frames M={m} {cin}->{cout} {str(dtype)[6:]}: "
+                  f"kernel_ms={k:.4f} plain_ms={p:.4f} kernel_TFLOP/s="
+                  f"{tflops:.1f} (x{count} per forward)", flush=True)
+            if dtype == torch.float32:
+                ms += count * k
+                plain_ms += count * p
+    print(f"conv_bn: 16 links of one f32 forward of 64 frames: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    return max_err, ms, plain_ms
+
+
+def phase_meta_checkpoint(workdir):
+    """Seeded flagship-width meta-trained state (identity and pose encoders,
+    generator, a 16-label discriminator; EMA off the live weights, non-trivial
+    BatchNorm statistics) -> the port's writer."""
+    args = types.SimpleNamespace(**META)
+    g = torch.Generator().manual_seed(1)
+    models = train_cli.build_models(args, generator=g)
+    for mod in models["embedder"].modules():
+        if isinstance(mod, torch.nn.BatchNorm2d):
+            mod.running_mean.uniform_(-0.1, 0.1, generator=g)
+            mod.running_var.uniform_(0.5, 1.5, generator=g)
+    ema = {}
+    for part in ("embedder", "generator"):
+        ema[part] = {k: v * (1 + 0.01 * (2 * torch.rand(v.shape, generator=g)
+                                         - 1))
+                     for k, v in ema_of(models[part]).items()}
+    flat = convert.export_train_state(TrainState(models=models,
+                                                 ema_params=ema))
+    path = ckpt_lib.save_checkpoint(workdir, flat, META, iteration=0,
+                                    finetune=False)
+    size = (path / "arrays.npz").stat().st_size
+    print(f"meta checkpoint: {len(flat)} arrays, {size / 2**20:.1f} MiB",
+          flush=True)
+    return path
+
+
+def _sample(p):
+    """A few entries of a tensor, copied (to see whether it moved)."""
+    return p.detach().flatten()[:4096].clone()
+
+
+def phase_finetune(meta_ckpt, workdir, device):
+    """The train CLI's fine-tune path on the card; returns (args, state,
+    criteria, dataloader, fine-tuned checkpoint, launches)."""
+    args = train_cli.resolve_args([
+        "--finetune", "--checkpoint_path", str(meta_ckpt), "--dataloader",
+        "synthetic", "--device", str(device), "--allow_random_vgg",
+        "--batch_size", str(FT_BATCH), "--num_epochs", str(FT_EPOCHS),
+        "--experiments_dir", str(workdir)])
+    args.experiment_dir = str(workdir)
+    loader = train_cli.build_dataloader(args)
+    state = train_cli.load_meta_trained(args, device)
+    criteria = train_cli.build_criteria(args, device)
+    gen = state.models["generator"]
+    before = {"head_conv": _sample(gen.head_conv.weight),
+              "block0.conv0": _sample(gen.block0.conv0.weight),
+              "dis.stem_conv0.u": _sample(
+                  state.models["discriminator"].stem_conv0.u),
+              "gen.block0.conv0.u": _sample(gen.block0.conv0.u)}
+
+    torch.cuda.synchronize()
+    conv_bn.bn_relu_conv1x1_stats.launches = 0
+    adain_op.adain.launches = 0
+    t0 = time.perf_counter()
+    state = train_cli.start_finetuning(args, state, loader, device)
+    torch.cuda.synchronize()
+    ehat_s = time.perf_counter() - t0
+    e_hat = state.finetune_embedding.detach().clone()
+    forwards = len(loader)
+    require(conv_bn.bn_relu_conv1x1_stats.launches == 16 * forwards,
+            f"conv_bn launched {conv_bn.bn_relu_conv1x1_stats.launches} times "
+            f"in the ê pass, expected 16 x {forwards} ResNeXt forwards")
+    require(torch.isfinite(e_hat).all() and e_hat.shape == (1, 512),
+            f"ê {tuple(e_hat.shape)} not finite")
+
+    args.iteration = state.step
+    step_fn = holycow.make_finetune_step(
+        criteria, args, dropout_generator=torch.Generator(device)
+        .manual_seed(args.random_seed))
+    losses = []
+
+    def step(st, batch):
+        scalars = step_fn(st, batch)
+        losses.append({k: float(v) for k, v in scalars.items()})
+        return scalars
+
+    for _ in range(args.num_epochs):
+        train_cli.run_epoch(loader, step, state, args, device)
+    torch.cuda.synchronize()
+    launches = {"bn_relu_conv1x1_stats": conv_bn.bn_relu_conv1x1_stats.launches,
+                "adain_fused": adain_op.adain.launches}
+    steps = len(losses)
+    per_step = len(gen.adain_features)          # 17 at 256²
+    require(steps >= 10, f"only {steps} fine-tune steps ran")
+    require(launches["adain_fused"] == per_step * steps,
+            f"adain launched {launches['adain_fused']} times in {steps} "
+            f"steps, expected {per_step} per step")
+    require(launches["bn_relu_conv1x1_stats"] == 16 * forwards,
+            "conv_bn launched during the steps")
+    require(all(np.isfinite(v) for s in losses for v in s.values()),
+            f"non-finite losses: {losses[-1]}")
+    after = {"head_conv": _sample(gen.head_conv.weight),
+             "block0.conv0": _sample(gen.block0.conv0.weight),
+             "dis.stem_conv0.u": _sample(
+                 state.models["discriminator"].stem_conv0.u),
+             "gen.block0.conv0.u": _sample(gen.block0.conv0.u)}
+    for key in before:
+        require(not torch.equal(before[key], after[key]), f"{key} did not "
+                "change in fine-tuning")
+    require(not torch.equal(e_hat, state.finetune_embedding.detach()),
+            "finetune_embedding did not change")
+    print(f"finetune: {steps} steps, step {state.step}; first losses "
+          f"{losses[0]}; last {losses[-1]}; launches {launches}", flush=True)
+
+    # timings: ê over one epoch of host batches; the step on a staged batch
+    frames = forwards * FT_BATCH * args.num_enc_frames
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ft.compute_averaged_identity_embedding(state, loader, device)
+    torch.cuda.synchronize()
+    ehat_fps = frames / (time.perf_counter() - t0)
+    batch = holycow.to_device(loader.get_batch(0), device)
+    step_fn(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step_fn(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 5 * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"finetune f32 batch {FT_BATCH} {args.image_size}²: ehat_frames/s="
+          f"{ehat_fps:.1f} ({frames} frames from the host; first pass with ê setup "
+          f"{ehat_s:.2f} s) step_ms={step_ms:.2f} images/s="
+          f"{FT_BATCH / step_ms * 1e3:.2f} peak_mem_MiB={peak:.0f}",
+          flush=True)
+    path = train_cli.save(args, state)
+    print(f"fine-tuned checkpoint: {path.name}", flush=True)
+    return args, state, criteria, loader, path, launches
+
+
+def _copy_state(state, args, device):
+    """A copy of a fine-tune TrainState on ``device`` (optimizer moments
+    included)."""
+    models = {k: copy.deepcopy(m).to(device) for k, m in state.models.items()}
+    ema = {part: ({k: v.to(device, copy=True) for k, v in t.items()}
+                  if isinstance(t, dict) else t.to(device, copy=True))
+           for part, t in state.ema_params.items()}
+    new = TrainState(models=models, ema_params=ema, step=state.step,
+                     finetune_embedding=state.finetune_embedding.detach()
+                     .to(device, copy=True).requires_grad_())
+    new.opt_g, new.opt_d = ft.optimizers(new, args)
+    for src, dst in ((state.opt_g, new.opt_g), (state.opt_d, new.opt_d)):
+        dst.count = src.count
+        for a, b in zip(dst.mu + dst.nu, src.mu + src.nu):
+            a.copy_(b)
+    return new
+
+
+def phase_step_card_vs_cpu(args, state, loader, device):
+    """One step from the same state and batch on the card and on the CPU
+    (batch 2, f32, TF32 off, eval-mode pose encoder: dropout masks differ
+    between devices)."""
+    args = copy.copy(args)
+    args.set_eval_mode_in_train = True
+    data, target = loader.get_batch(0)
+    host = ({k: v[:2] for k, v in data.items()},
+            {k: v[:2] for k, v in target.items()})
+    out = {}
+    for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        st = _copy_state(state, args, dev)
+        step_fn = holycow.make_finetune_step(
+            train_cli.build_criteria(args, dev), args)
+        t0 = time.perf_counter()
+        scalars = step_fn(st, holycow.to_device(host, dev))
+        emb = st.finetune_embedding.detach().cpu()
+        out[name] = ({k: float(v) for k, v in scalars.items()}, emb,
+                     time.perf_counter() - t0)
+        del st
+    (card, card_emb, card_s), (cpu, cpu_emb, cpu_s) = out["card"], out["cpu"]
+    worst = max(abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-6) for k in cpu)
+    emb_rel = ((card_emb - cpu_emb).abs().max()
+               / cpu_emb.abs().max()).item()
+    print(f"finetune step card vs cpu, batch 2 {args.image_size}² f32 (TF32 "
+          f"off): losses max_rel_diff={worst:.3g}, finetune_embedding "
+          f"max_rel_diff="
+          f"{emb_rel:.3g}; card {card_s:.2f} s, cpu {cpu_s:.2f} s", flush=True)
+    require(worst <= STEP_TOL and emb_rel <= STEP_TOL,
+            f"card and CPU fine-tune steps differ: losses {worst}, "
+            f"embedding {emb_rel}")
 
 
 def phase_checkpoint(workdir):
@@ -240,11 +512,19 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.perf_counter()
-    adain_op.kernel_entry()
-    print(f"build: adain_fused in {time.perf_counter() - t0:.1f} s", flush=True)
-    print(build_log(load_library(*adain_op.LIBRARY)), flush=True)
+    kernels = {"adain_fused": adain_op, "conv_bn_fused": conv_bn}
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+        built = {name: pool.submit(mod.kernel_entry)
+                 for name, mod in kernels.items()}
+        for future in built.values():
+            future.result()
+    print(f"build: {', '.join(kernels)} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for mod in kernels.values():
+        print(build_log(load_library(*mod.LIBRARY)), flush=True)
 
-    max_err, ms, plain_ms = phase_kernels(device)
+    adain_err, adain_ms, adain_plain_ms = phase_kernels(device)
+    conv_err, conv_ms, conv_plain_ms = phase_conv_bn(device)
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as workdir:
@@ -252,17 +532,30 @@ def main():
         size = FLAGSHIP["image_size"]
         frames = cli.load_driver_frames("synthetic://3", size)
         require(frames.shape == (32, size, size, 3), f"frames {frames.shape}")
-        args, models, state, launches = drive_once(ckpt, [], frames)
+        args, models, state, _ = drive_once(ckpt, [], frames)
         drive_once(ckpt, ["--compute_dtype", "float32"], frames)
         phase_throughput(models, args, state, frames)
         phase_card_vs_cpu(ckpt, models, state, frames[:4])
+        del models, state
+
+        meta_ckpt = phase_meta_checkpoint(Path(workdir) / "meta")
+        ft_args, ft_state, _, loader, ft_ckpt, launches = phase_finetune(
+            meta_ckpt, Path(workdir) / "finetune", device)
+        drive_once(ft_ckpt, [], frames)
+        phase_step_card_vs_cpu(ft_args, ft_state, loader, device)
 
     print(json.dumps({"kernels": [{
         "name": "adain_fused", "route": "cuda",
         "source": "latentpose_tpu_torch/csrc/adain_fused.cu",
         "replaces": "latentpose_tpu/ops/pallas/adain_fused.py:78",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "launches": launches["adain_fused"], "max_abs_err": adain_err,
+        "ms": adain_ms, "plain_ms": adain_plain_ms}, {
+        "name": "bn_relu_conv1x1_stats", "route": "cuda",
+        "source": "latentpose_tpu_torch/csrc/conv_bn_fused.cu",
+        "replaces": "latentpose_tpu/ops/pallas/conv_bn_fused.py:58",
+        "launches": launches["bn_relu_conv1x1_stats"],
+        "max_abs_err": conv_err, "ms": conv_ms,
+        "plain_ms": conv_plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

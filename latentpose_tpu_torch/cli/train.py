@@ -1,0 +1,278 @@
+"""Fine-tuning entry point of the PyTorch port (port of
+``latentpose_tpu/cli/train.py`` in its fine-tune regime):
+
+    python -m latentpose_tpu_torch.cli.train --finetune \
+        --checkpoint_path META_CKPT --dataloader synthetic [--device cuda] ...
+
+From a meta-trained checkpoint of either package: ê (the mean identity
+embedding over the avatar's frames, through ResNeXt-50 and the fused
+BN->ReLU->1x1-conv kernel), the fine-tune re-parameterisation, then
+``num_epochs`` epochs of GAN steps with RAdam and an EMA of 0.972, logging
+the loss scalars; the fine-tuned checkpoint is written in the JAX layout,
+which both packages' drive read.
+
+Arguments resolve as in the JAX package, lowest to highest: the JAX core
+defaults (:data:`DEFAULTS`), the checkpoint's saved args, the values of
+``configs/finetuning-base.yaml`` (:data:`FINETUNE_CONFIG`; yaml is not
+installed where the card is), then the flags given here.  What the port
+does not run yet is refused with the ROADMAP.md item that will bring it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import types
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from latentpose_tpu_torch import checkpoint as ckpt_lib
+from latentpose_tpu_torch import convert, registry
+from latentpose_tpu_torch.runners import finetune as ft
+from latentpose_tpu_torch.runners import holycow
+from latentpose_tpu_torch.runners.state import TrainState
+
+logger = logging.getLogger("latentpose_tpu_torch.train")
+
+# The JAX package's defaults for the args this path reads (config/core_args.py
+# and the plugins' get_args), below the checkpoint's saved args.
+DEFAULTS = dict(
+    in_channels=3, out_channels=3, num_channels=64, max_num_channels=512,
+    embed_channels=512, pose_embedding_size=136, image_size=256,
+    optimizer="Adam", lr_gen=5e-5, lr_dis=2e-4, beta1=0.0, batch_size=8,
+    num_labels=0, num_devices=0, compute_dtype="float32", random_seed=123,
+    experiments_dir="data/experiments", experiment_name="",
+    vgg_weights_dir="data/weights", allow_random_vgg=False, num_epochs=10 ** 9,
+    set_eval_mode_in_train=False, save_frequency=1, skip_eval=True,
+    weights_running_average=True, finetune=False,
+    average_function="sum", gen_padding="zero", gen_constant_input_size=4,
+    gen_num_residual_blocks=2, dis_padding="zero", dis_num_blocks=7,
+    gan_type="gan", fm_weight=10.0, perc_weight=1e-2, idt_embed_weight=2e-3,
+    dice_weight=1.0, num_enc_frames=8, synthetic_num_labels=16,
+    synthetic_frames_per_video=32, transfer_dtype="float32",
+    grad_accum_steps=1, grad_dtype="float32", explicit_grad_reduce=False,
+    use_pixelwise_augs=False, use_affine_scale=False, use_affine_shift=False,
+    log_frequency_loss=1, iteration=0, dataloader="", criterions="")
+
+# configs/finetuning-base.yaml.  Deviation: the fine-tune config turns the
+# three augmentations on; the port has no augmentation yet (ROADMAP.md A.12),
+# so they stay off here and a flag that turns one on is refused.
+AUGMENTATION_SWITCHES = ("use_pixelwise_augs", "use_affine_scale",
+                         "use_affine_shift")
+FINETUNE_CONFIG = dict(
+    use_pixelwise_augs=False, use_affine_scale=False, use_affine_shift=False,
+    finetune=True, optimizer="RAdam", lr_gen=5e-4, lr_dis=8e-4,
+    criterions="adversarial, featmat, idt_embed, perceptual, dice",
+    img_dir="images-cropped", kp_dir="keypoints-cropped",
+    segm_dir="segmentation-cropped", bboxes_dir="/non/existent/file",
+    num_devices=1, num_workers=1, log_frequency_images=9999999,
+    log_frequency_fixed_images=15, fixed_val_ids=[0], num_epochs=140,
+    save_frequency=0)
+
+CRITERIA = ("adversarial", "featmat", "idt_embed", "perceptual", "dice")
+# the criteria that run a VGG tower and take the device to build it on
+_VGG_CRITERIA = ("idt_embed", "perceptual")
+
+
+def build_parser():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    flag = argparse.BooleanOptionalAction
+    parser.add_argument("--checkpoint_path", default=None)
+    parser.add_argument("--finetune", action=flag, default=None)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to train on")
+    for name in ("dataloader", "generator", "embedder", "discriminator",
+                 "criterions", "experiments_dir", "experiment_name",
+                 "vgg_weights_dir", "compute_dtype", "transfer_dtype",
+                 "grad_dtype", "optimizer"):
+        parser.add_argument(f"--{name}", default=None)
+    for name in ("batch_size", "num_epochs", "random_seed", "save_frequency",
+                 "num_devices", "grad_accum_steps", "synthetic_num_labels",
+                 "num_enc_frames", "log_frequency_loss",
+                 "log_frequency_images", "log_frequency_fixed_images"):
+        parser.add_argument(f"--{name}", type=int, default=None)
+    for name in ("lr_gen", "lr_dis", "beta1"):
+        parser.add_argument(f"--{name}", type=float, default=None)
+    for name in ("allow_random_vgg", "set_eval_mode_in_train", "skip_eval",
+                 "explicit_grad_reduce", "weights_running_average",
+                 *AUGMENTATION_SWITCHES):
+        parser.add_argument(f"--{name}", action=flag, default=None)
+    return parser
+
+
+def _refuse(what, item):
+    raise NotImplementedError(f"{what} is not ported to PyTorch yet "
+                              f"(ROADMAP.md {item})")
+
+
+def resolve_args(argv=None):
+    """The args namespace of a fine-tune run (see the module docstring),
+    with everything the port does not run refused."""
+    cli = build_parser().parse_args(argv)
+    if not cli.finetune:
+        _refuse("meta-training (train without --finetune)", "A.12")
+    if not cli.checkpoint_path:
+        raise ValueError("--finetune needs --checkpoint_path, a meta-trained "
+                         "checkpoint")
+    meta_path = Path(cli.checkpoint_path) / "meta.json"
+    if not meta_path.exists():
+        raise FileNotFoundError(f"Checkpoint `{cli.checkpoint_path}` not "
+                                "found")
+    if json.loads(meta_path.read_text()).get("finetune", False):
+        _refuse("resuming a fine-tuned checkpoint (its optimizer state does "
+                "not cross between the packages)", "A.12")
+    args = dict(DEFAULTS)
+    args.update(ckpt_lib.peek_args(cli.checkpoint_path))
+    args.update(FINETUNE_CONFIG)
+    args.update({k: v for k, v in vars(cli).items() if v is not None})
+    args = types.SimpleNamespace(**args)
+
+    for name in AUGMENTATION_SWITCHES:
+        if getattr(args, name):
+            _refuse(f"--{name} (augmentation)", "A.12")
+    if args.compute_dtype != "float32":
+        _refuse(f"--compute_dtype {args.compute_dtype} in training", "A.14")
+    if args.transfer_dtype != "float32":
+        _refuse(f"--transfer_dtype {args.transfer_dtype}", "A.14")
+    if args.grad_accum_steps > 1:
+        _refuse("--grad_accum_steps > 1", "A.12")
+    if args.grad_dtype != "float32" or args.explicit_grad_reduce \
+            or (args.num_devices or 1) > 1:
+        _refuse("multi-device training (--num_devices > 1, --grad_dtype, "
+                "--explicit_grad_reduce)", "A.17")
+    if args.dataloader != "synthetic":
+        _refuse(f"--dataloader {args.dataloader!r} (the port has "
+                "'synthetic')", "A.13")
+    for kind, name in (("embedders", args.embedder),
+                       ("generators", args.generator),
+                       ("discriminators", args.discriminator)):
+        registry.load_wrapper(kind, name)      # raises for other families
+    names = [n.strip() for n in args.criterions.split(",") if n.strip()]
+    for name in names:
+        if name not in CRITERIA:
+            _refuse(f"criterion {name!r}", "A.12")
+    if not args.skip_eval:
+        _refuse("validation (--no-skip_eval)", "A.13")
+    if cli.log_frequency_images is not None \
+            or cli.log_frequency_fixed_images is not None:
+        _refuse("image visuals (--log_frequency_images, "
+                "--log_frequency_fixed_images)", "A.13")
+    return args
+
+
+def build_dataloader(args):
+    from latentpose_tpu_torch.data.synthetic import SyntheticDataLoader
+    return SyntheticDataLoader(
+        args.image_size, args.batch_size,
+        num_labels=args.synthetic_num_labels,
+        num_enc_frames=args.num_enc_frames,
+        frames_per_video=args.synthetic_frames_per_video,
+        seed=args.random_seed)
+
+
+def build_models(args, generator=None):
+    return {
+        "embedder": registry.load_wrapper("embedders", args.embedder)
+        .get_net(args, generator=generator),
+        "generator": registry.load_wrapper("generators", args.generator)
+        .get_net(args, generator=generator),
+        "discriminator": registry.load_wrapper(
+            "discriminators", args.discriminator)
+        .get_net(args, generator=generator),
+    }
+
+
+def load_meta_trained(args, device) -> TrainState:
+    """The meta-trained train state of ``args.checkpoint_path`` on
+    ``device`` (the discriminator with the checkpoint's ``num_labels``)."""
+    flat = ckpt_lib.load_arrays(args.checkpoint_path)
+    args.num_labels = int(flat[f"params{ckpt_lib.SEP}discriminator"
+                               f"{ckpt_lib.SEP}embed{ckpt_lib.SEP}"
+                               f"embedding"].shape[0])
+    models = build_models(args)
+    ema, step = convert.load_train_state(flat, models)
+    models = {k: m.to(device) for k, m in models.items()}
+    ema = {part: {k: v.to(device) for k, v in tensors.items()}
+           for part, tensors in ema.items()}
+    logger.info("Loaded meta-trained checkpoint %s (iteration %d)",
+                args.checkpoint_path, step)
+    return TrainState(models=models, ema_params=ema, step=step)
+
+
+def build_criteria(args, device):
+    out = []
+    for name in (n.strip() for n in args.criterions.split(",")):
+        if not name:
+            continue
+        wrapper = registry.load_wrapper("criterions", name)
+        out.append(wrapper.get_net(args, device=device)
+                   if name in _VGG_CRITERIA else wrapper.get_net(args))
+    return out
+
+
+def start_finetuning(args, state, dataloader, device):
+    """ê over one pass of ``dataloader``, then the fine-tune state."""
+    logger.info("Fine-tuning: computing averaged identity embedding from the "
+                "avatar's frames")
+    e_hat = ft.compute_averaged_identity_embedding(state, dataloader, device)
+    generator = torch.Generator().manual_seed(args.random_seed)
+    state = ft.enable_finetuning(state, args, e_hat, generator=generator)
+    args.num_labels = 1
+    return state
+
+
+def run_epoch(dataloader, step_fn, state, args, device):
+    """One epoch of steps; logs the loss scalars every
+    ``log_frequency_loss`` steps."""
+    for batch in dataloader:
+        scalars = step_fn(state, holycow.to_device(batch, device))
+        if args.iteration % args.log_frequency_loss == 0:
+            logger.info("iteration %d: %s", args.iteration, " ".join(
+                f"{k}={float(v):.5g}" for k, v in scalars.items()))
+        args.iteration += 1
+    return state
+
+
+def save(args, state):
+    meta = {k: (str(v) if isinstance(v, Path) else v)
+            for k, v in vars(args).items()}
+    return ckpt_lib.save_checkpoint(args.experiment_dir,
+                                    convert.export_train_state(state), meta,
+                                    iteration=state.step,
+                                    finetune=state.finetune)
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO)
+    args = resolve_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available")
+    np.random.seed(args.random_seed)
+    args.experiment_dir = str(Path(args.experiments_dir)
+                              / args.experiment_name) \
+        if args.experiment_name else str(args.experiments_dir)
+    dataloader = build_dataloader(args)
+    state = load_meta_trained(args, device)
+    criteria = build_criteria(args, device)
+    state = start_finetuning(args, state, dataloader, device)
+    args.iteration = state.step
+    step_fn = holycow.make_finetune_step(
+        criteria, args, dropout_generator=torch.Generator(device)
+        .manual_seed(args.random_seed))
+    path = None
+    for epoch in range(args.num_epochs):
+        state = run_epoch(dataloader, step_fn, state, args, device)
+        will_save = epoch == args.num_epochs - 1
+        if args.save_frequency != 0:
+            will_save |= epoch % args.save_frequency == 0
+        if will_save:
+            path = save(args, state)
+    return state, path
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,12 @@
-"""Procedural "talking head" frames for hermetic driving (``synthetic://K``),
-numpy only: the renderer of ``latentpose_tpu/data/synthetic.py``, bit for bit,
-without its training-time cache and augmentation.
+"""Procedural "talking head" frames, numpy only (port of the renderer and the
+fine-tune loader of ``latentpose_tpu/data/synthetic.py``, bit for bit; the
+JAX module cannot be imported where the card is, since it imports the
+augmentation code and with it jax).
 
 Each (identity, frame) renders an elliptical head whose colour and size
 encode identity and whose offset, eyes and mouth encode a pose that varies
-smoothly with the frame index (period 32).
+smoothly with the frame index (period 32).  ``synthetic://K`` drives with
+identity K; :class:`SyntheticDataLoader` feeds a fine-tune run.
 """
 
 from __future__ import annotations
@@ -67,3 +69,68 @@ def render_face(label: int, frame: int, image_size: int):
     # the style scalars are float64, so the math above upcasts; cast once
     return (img.astype(np.float32), np.ascontiguousarray(
         head[..., None], dtype=np.float32))
+
+
+class SyntheticDataLoader:
+    """Iterable of (data_dict, target_dict) numpy batches, fine-tune mode:
+    one identity (label 0), one frame per sample serving as the K identity
+    frames, the driving frame and the target (reference
+    ``voxceleb2_segmentation_nolandmarks.py:187-209``), drawn with the JAX
+    loader's ``RandomState`` sequence:
+
+      data_dict:   enc_rgbs (B, K, H, W, 3), pose_input_rgbs (B, 1, H, W, 3)
+      target_dict: target_rgbs (B, 1, H, W, 3) = image * segm,
+                   real_segm (B, 1, H, W, 1), label (B,) int32
+
+    An epoch has ``max(1, num_labels // batch_size)`` batches (the JAX
+    loader counts them from the meta set's size).  Renders are cached: the
+    pose has period 32, so a run touches at most 32 frames.  The meta-train
+    mode comes with the meta-train slice (ROADMAP.md A.12).
+    """
+
+    def __init__(self, image_size, batch_size, num_labels=16,
+                 num_enc_frames=8, frames_per_video=32, seed=0):
+        self.image_size = image_size
+        self.batch_size = batch_size
+        self.num_enc_frames = num_enc_frames
+        self.frames_per_video = frames_per_video
+        self.seed = seed
+        self.steps_per_epoch = max(1, num_labels // batch_size)
+        self.num_labels = 1      # the discriminator's W has one row
+        self.epoch = 0
+        self._cache = {}
+
+    def __len__(self):
+        return self.steps_per_epoch
+
+    def _render(self, label, frame):
+        key = (label, frame % 32)
+        if key not in self._cache:
+            self._cache[key] = render_face(label, frame, self.image_size)
+        return self._cache[key]
+
+    def get_batch(self, it: int):
+        rng = np.random.RandomState(self.seed + it + 100003 * self.epoch)
+        labels = rng.randint(0, self.num_labels, size=self.batch_size)
+        encs, imgs, segms = [], [], []
+        for label in labels:
+            frames = rng.randint(0, self.frames_per_video,
+                                 size=self.num_enc_frames + 2)
+            img, segm = self._render(int(label), int(frames[0]))
+            encs.append(np.stack([img] * self.num_enc_frames))
+            imgs.append(img)
+            segms.append(segm)
+        imgs, segms = np.stack(imgs), np.stack(segms)
+        data_dict = {"enc_rgbs": np.stack(encs),
+                     "pose_input_rgbs": imgs[:, None]}
+        target_dict = {
+            "target_rgbs": (imgs * segms)[:, None].astype(np.float32),
+            "real_segm": segms[:, None],
+            "label": labels.astype(np.int32),
+        }
+        return data_dict, target_dict
+
+    def __iter__(self):
+        for it in range(self.steps_per_epoch):
+            yield self.get_batch(it)
+        self.epoch += 1

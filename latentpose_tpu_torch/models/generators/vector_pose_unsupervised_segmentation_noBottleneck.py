@@ -96,11 +96,14 @@ class Generator(nn.Module):
     def num_affine_params(self) -> int:
         return sum(2 * f for f in self.adain_features)
 
-    def forward(self, embeds, pose_embedding):
+    def forward(self, embeds, pose_embedding, update_stats: bool = False):
         """embeds (B, E), pose_embedding (B, P) ->
-        (fake_rgbs (B, H, W, 3), fake_segm (B, H, W, 1))."""
+        (fake_rgbs (B, H, W, 3), fake_segm (B, H, W, 1)).
+        ``update_stats``: one spectral-norm power iteration per layer."""
+        upd = update_stats
         joint = torch.cat([embeds, pose_embedding], dim=-1)
-        affine = self.projector_1(torch.relu(self.projector_0(joint)))
+        affine = self.projector_1(torch.relu(self.projector_0(joint, upd)),
+                                  upd)
         ada_params, offset = [], 0
         for f in self.adain_features:  # bias first, then weight
             ada_params.append((affine[:, offset + f:offset + 2 * f],
@@ -111,9 +114,10 @@ class Generator(nn.Module):
             pose_embedding.shape[0], -1, -1, -1)
         for i in range(self.num_blocks):
             x = getattr(self, f"block{i}")(x, ada0=ada_params[2 * i],
-                                           ada1=ada_params[2 * i + 1])
+                                           ada1=ada_params[2 * i + 1],
+                                           update_stats=upd)
         x = norm_relu(x, *ada_params[-1])
-        x = torch.tanh(self.head_conv(x)).permute(0, 2, 3, 1)
+        x = torch.tanh(self.head_conv(x, upd)).permute(0, 2, 3, 1)
         rgb = x[..., :-1] * 0.75 + 0.5    # tanh range -> (-0.25, 1.25)
         segm = x[..., -1:] * 0.5 + 0.5    # tanh range -> (0, 1)
         return rgb * segm, segm

@@ -1,12 +1,24 @@
-"""MobileNetV2 latent-pose encoder, eval form (port of ``InvertedResidual``
-and ``MobileNetV2`` in ``latentpose_tpu/nn/backbones.py``).
+"""Identity and pose encoder backbones: ResNeXt-50 (32x4d) and MobileNetV2
+(port of ``latentpose_tpu/nn/backbones.py``).
 
 torchvision's structure with the JAX package's attribute names (``stem_conv``,
-``block3.conv1``, ``head_bn``, ``classifier``), so a checkpoint converts by
-renaming and transposing.  BatchNorm uses its running statistics (eps 1e-5);
-ReLU6 is ``min(relu(x), 6)``; dropout before the classifier is inactive at
-eval and therefore absent.  The ResNeXt-50 identity tower is not ported yet:
-drive takes identity from the fine-tuned embedding.
+``block3.conv1``, ``head_bn``, ``classifier``; ``layer2_0.conv3``,
+``downsample_bn``, ``fc``), so a checkpoint converts by renaming and
+transposing.  BatchNorm has eps 1e-5 and runs in one of two forms, chosen by
+the ``train`` argument as in the JAX modules:
+
+- eval: normalise with the running statistics;
+- train: normalise with the batch's mean and biased variance (one pass,
+  clamped at 0, in f32, as flax computes them) and update the running
+  statistics in place with flax's momentum 0.9 (torch's 0.1) and the
+  **biased** variance, where ``F.batch_norm(training=True)`` would take the
+  unbiased one.
+
+ReLU6 is ``min(relu(x), 6)``; MobileNetV2's Dropout(0.2) before the
+classifier is live only in train mode.  ResNeXt-50 runs in eval form only
+(the fine-tune slice computes the identity embedding with it); its
+bottleneck's bn2 -> ReLU -> conv3 link is one call of the fused kernel in
+``ops/conv_bn.py``.  Its train form comes with the meta-train slice.
 
 Parameters stay f32; under bf16 a forward casts conv and linear weights to
 the input's dtype and BatchNorm runs with f32 statistics on bf16 input.
@@ -17,6 +29,9 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from latentpose_tpu_torch.ops import initializers as tinit
+from latentpose_tpu_torch.ops.conv_bn import bn_relu_conv1x1_stats, fold_bn
 
 
 def _relu6(x):
@@ -40,12 +55,36 @@ class Conv(nn.Conv2d):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm2d(eps=1e-5) that always normalises with its running
-    statistics (the eval form; training is a later slice)."""
+    """BatchNorm2d(eps=1e-5) in flax's two forms (see the module docstring);
+    ``train`` is an argument of the forward, not the module's mode."""
 
-    def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+    MOMENTUM = 0.9      # flax: running = 0.9 * running + 0.1 * batch
+
+    def forward(self, x, train: bool = False):
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        x32 = x.float()
+        mean = x32.mean(dim=(0, 2, 3))
+        var = torch.clamp(x32.square().mean(dim=(0, 2, 3)) - mean.square(),
+                          min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(self.MOMENTUM).add_(
+                mean, alpha=1 - self.MOMENTUM)
+            self.running_var.mul_(self.MOMENTUM).add_(
+                var, alpha=1 - self.MOMENTUM)
+        shape = (1, -1, 1, 1)
+        y = (x32 - mean.view(shape)) * (
+            torch.rsqrt(var + self.eps) * self.weight).view(shape)
+        return (y + self.bias.view(shape)).to(x.dtype)
+
+
+def _dropout(x, rate: float, generator=None):
+    """Inverted dropout: keep with probability 1 - rate, scale by
+    1 / (1 - rate); the mask is drawn from ``generator``."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def _bn(features):
@@ -72,10 +111,11 @@ class InvertedResidual(nn.Module):
             self.add_module(f"conv{idx}", conv)
             self.add_module(f"bn{idx}", _bn(conv.out_channels))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         h = x
         for idx in range(self.depth):
-            h = getattr(self, f"bn{idx}")(getattr(self, f"conv{idx}")(h))
+            h = getattr(self, f"bn{idx}")(getattr(self, f"conv{idx}")(h),
+                                          train)
             if idx < self.depth - 1:
                 h = _relu6(h)
         return x + h if self.use_res else h
@@ -106,12 +146,105 @@ class MobileNetV2(nn.Module):
         nn.init.normal_(self.classifier.weight, 0.0, 0.01, generator=generator)
         nn.init.zeros_(self.classifier.bias)
 
-    def forward(self, x):
-        """x: (B, C, H, W) -> (B, num_classes)."""
-        h = _relu6(self.stem_bn(self.stem_conv(x)))
+    def forward(self, x, train: bool = False, dropout_generator=None):
+        """x: (B, C, H, W) -> (B, num_classes).  ``train``: batch statistics
+        (updating the running ones) and live dropout, whose mask is drawn
+        from ``dropout_generator``."""
+        h = _relu6(self.stem_bn(self.stem_conv(x), train))
         for idx in range(self.num_blocks):
-            h = getattr(self, f"block{idx}")(h)
-        h = _relu6(self.head_bn(self.head_conv(h)))
+            h = getattr(self, f"block{idx}")(h, train)
+        h = _relu6(self.head_bn(self.head_conv(h), train))
         h = h.mean(dim=(2, 3))
+        if train:
+            h = _dropout(h, 0.2, dropout_generator)
         return F.linear(h, self.classifier.weight.to(h.dtype),
                         self.classifier.bias.to(h.dtype))
+
+
+class Bottleneck(nn.Module):
+    """torchvision's ResNeXt bottleneck (groups 32, base width 4), eval form:
+
+        conv1 1x1 -> bn1 -> ReLU -> conv2 3x3 (groups, stride) -> [bn2 -> ReLU
+        -> conv3 1x1] -> bn3, + shortcut (downsample conv 1x1 + bn), ReLU
+
+    The bracketed link is one call of ``bn_relu_conv1x1_stats`` with bn2
+    folded into its scale and offset.  conv2 is cuDNN's native grouped conv
+    (the JAX package's block-diagonal ``GroupedConv`` is a TPU layout trick
+    with the same parameter layout)."""
+
+    def __init__(self, in_features, planes, stride=1, groups=32,
+                 base_width=4, has_downsample=False, generator=None):
+        super().__init__()
+        width = int(planes * (base_width / 64.0)) * groups
+        out_features = planes * 4
+        self.conv1 = Conv(in_features, width, 1, generator=generator)
+        self.bn1 = _bn(width)
+        self.conv2 = Conv(width, width, 3, stride, groups=groups,
+                          generator=generator)
+        self.bn2 = _bn(width)
+        self.conv3 = Conv(width, out_features, 1, generator=generator)
+        self.bn3 = _bn(out_features)
+        self.has_downsample = has_downsample
+        if has_downsample:
+            self.downsample_conv = Conv(in_features, out_features, 1, stride,
+                                        generator=generator)
+            self.downsample_bn = _bn(out_features)
+
+    def forward(self, x):
+        h = torch.relu(self.bn1(self.conv1(x)))
+        h = self.conv2(h).contiguous(memory_format=torch.channels_last)
+        scale, offset = fold_bn(self.bn2.running_mean, self.bn2.running_var,
+                                self.bn2.weight, self.bn2.bias, self.bn2.eps)
+        w = self.conv3.weight.to(h.dtype)
+        w = w.view(w.shape[0], w.shape[1]).t()         # (Cin, Cout) view
+        y, _ = bn_relu_conv1x1_stats(h.permute(0, 2, 3, 1), scale, offset, w)
+        h = self.bn3(y.permute(0, 3, 1, 2))
+        if self.has_downsample:
+            x = self.downsample_bn(self.downsample_conv(x))
+        return torch.relu(h + x)
+
+
+class ResNeXt50(nn.Module):
+    """resnext50_32x4d with a ``num_classes`` fc (512 for identity), eval
+    form.  Modules work in ``channels_last``, so the fused link sees a
+    contiguous NHWC buffer without a copy."""
+
+    LAYERS = (3, 4, 6, 3)
+
+    def __init__(self, num_classes=512, generator=None):
+        super().__init__()
+        self.conv1 = Conv(3, 64, 7, 2, generator=generator)
+        self.bn1 = _bn(64)
+        in_features, self.names = 64, []
+        for stage, (planes, blocks) in enumerate(zip((64, 128, 256, 512),
+                                                     self.LAYERS)):
+            for i in range(blocks):
+                stride = 1 if stage == 0 or i else 2
+                name = f"layer{stage + 1}_{i}"
+                self.add_module(name, Bottleneck(
+                    in_features, planes, stride,
+                    has_downsample=stride != 1 or in_features != planes * 4,
+                    generator=generator))
+                self.names.append(name)
+                in_features = planes * 4
+        self.fc = nn.Linear(in_features, num_classes)
+        with torch.no_grad():
+            self.fc.weight.copy_(tinit.torch_conv_kernel_init(
+                (num_classes, in_features), generator))
+            self.fc.bias.zero_()
+
+    def forward(self, x, train: bool = False):
+        """x: (B, C, H, W) -> (B, num_classes)."""
+        if train:
+            raise NotImplementedError(
+                "ResNeXt-50 in train mode (train-mode BatchNorm, the fused "
+                "kernel's backward) comes with the meta-train slice "
+                "(ROADMAP.md A.10-A.11)")
+        h = x.contiguous(memory_format=torch.channels_last)
+        h = torch.relu(self.bn1(self.conv1(h)))
+        h = F.max_pool2d(h, 3, 2, padding=1)
+        for name in self.names:
+            h = getattr(self, name)(h)
+        h = h.mean(dim=(2, 3))
+        return F.linear(h, self.fc.weight.to(h.dtype),
+                        self.fc.bias.to(h.dtype))

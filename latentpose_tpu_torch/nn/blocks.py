@@ -94,21 +94,22 @@ class ResBlock(nn.Module):
     def _pad(self, h):
         return F.pad(h, (1, 1, 1, 1), mode="reflect") if self.reflect else h
 
-    def forward(self, x, ada0=None, ada1=None):
+    def forward(self, x, ada0=None, ada1=None, update_stats: bool = False):
+        """``update_stats``: one spectral-norm power iteration per conv."""
         h = self._norm_relu(x, 0, ada0)
         # without a norm the reference's in-place ReLU also rewrote the
         # block input, so the shortcut sees relu(x); with a norm it sees x
         shortcut_in = h if self.norm_layer == "none" else x
         if self.upsample:
             h = upsample_nearest_2x(h)
-        h = self.conv0(self._pad(h))
+        h = self.conv0(self._pad(h), update_stats)
         h = self._norm_relu(h, 1, ada1)
-        h = self.conv1(self._pad(h))
+        h = self.conv1(self._pad(h), update_stats)
         if self.downsample:
             h = avg_pool_2x(h)
         if self.skip is None:
             return h + shortcut_in
-        s = self.skip(shortcut_in)
+        s = self.skip(shortcut_in, update_stats)
         if self.upsample:
             s = upsample_nearest_2x(s)
         if self.downsample:

@@ -12,7 +12,8 @@ pass streams x again and applies them with the ReLU fused.  The chunk plan
 A CPU tensor goes to :func:`adain_reference`; a CUDA tensor launches the
 kernel or raises.  ``adain.launches`` counts the calls that launched the
 kernel (three CUDA launches each), so a run can show that its main path went
-through it.
+through it.  Training differentiates through a ``torch.autograd.Function``
+whose backward (:func:`adain_backward`) is plain PyTorch in f32.
 """
 
 from __future__ import annotations
@@ -96,12 +97,60 @@ def kernel_entry():
 
 def adain(x, weight, bias, relu: bool = True, eps: float = 1e-4):
     """IN(x) * weight + bias [+ ReLU] for x (B, H, W, C) contiguous NHWC,
-    weight and bias (B, C) in x's dtype; returns a new (B, H, W, C) tensor."""
+    weight and bias (B, C) in x's dtype; returns a new (B, H, W, C) tensor.
+
+    Differentiable in x, weight and bias: the forward is the kernel (or the
+    plain version on the CPU), the backward :func:`adain_backward`."""
     _check(x, weight, bias)
-    if x.device.type == "cpu":
-        return adain_reference(x, weight, bias, relu, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"adain: unsupported device {x.device}")
+    return _AdaIN.apply(x, weight, bias, relu, eps)
+
+
+def adain_backward(x, weight, bias, grad, relu: bool, eps: float):
+    """Gradients of :func:`adain_reference` for ``grad`` (B, H, W, C), in
+    plain PyTorch and f32: mean and rstd are recomputed from x, the ReLU mask
+    from the pre-activation.  Returns (dx, dweight, dbias) in the inputs'
+    dtypes."""
+    x32 = x.float()
+    n = x.shape[1] * x.shape[2]
+    mean, var = norms.moments(x32)     # as the plain forward computes them
+    rstd = torch.rsqrt(var + eps)
+    xhat = (x32 - mean) * rstd
+    w32 = weight.float()[:, None, None, :]
+    g = grad.float()
+    if relu:
+        g = g * (xhat * w32 + bias.float()[:, None, None, :] > 0)
+    dweight = (g * xhat).sum(dim=(1, 2))
+    dbias = g.sum(dim=(1, 2))
+    gx = g * w32
+    dx = rstd * (gx - gx.sum(dim=(1, 2), keepdim=True) / n
+                 - xhat * (gx * xhat).sum(dim=(1, 2), keepdim=True) / n)
+    return dx.to(x.dtype), dweight.to(weight.dtype), dbias.to(bias.dtype)
+
+
+class _AdaIN(torch.autograd.Function):
+    """The kernel's forward under autograd; the backward is plain PyTorch
+    (the TPU package trains through XLA's ``norms.adain`` and has no backward
+    kernel either)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, relu, eps):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.relu, ctx.eps = relu, eps
+        if x.device.type == "cpu":
+            return adain_reference(x, weight, bias, relu, eps)
+        return _launch(x, weight, bias, relu, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight, bias = ctx.saved_tensors
+        return (*adain_backward(x, weight, bias, grad, ctx.relu, ctx.eps),
+                None, None)
+
+
+def _launch(x, weight, bias, relu, eps):
+    """The kernel on a CUDA tensor: three launches, counted as one call."""
     check_kernel_layout(x)
     b, h, w, c = x.shape
     chunk_pixels, chunks = plan_chunks(b, h * w, c, x.element_size())

@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 
 
-def _moments(x32):
+def moments(x32):
+    """Per-(sample, channel) mean and clamped one-pass variance of f32 x."""
     mean = x32.mean(dim=(1, 2), keepdim=True)
     meansq = x32.square().mean(dim=(1, 2), keepdim=True)
     return mean, torch.clamp(meansq - mean.square(), min=0.0)
@@ -22,7 +23,7 @@ def _moments(x32):
 def instance_norm(x, eps: float = 1e-4):
     """InstanceNorm2d(affine=False) over (H, W) of x (B, H, W, C)."""
     x32 = x.float()
-    mean, var = _moments(x32)
+    mean, var = moments(x32)
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 

@@ -1,14 +1,17 @@
-"""Spectral-normalised conv and linear layers, eval form (port of
-``SNConv`` / ``SNDense`` in ``latentpose_tpu/ops/spectral_norm.py``).
+"""Spectral-normalised conv, linear and embedding layers (port of
+``SNConv`` / ``SNDense`` / ``SNEmbed`` in ``latentpose_tpu/ops/spectral_norm.py``).
 
 The weight is viewed as the 2-D matrix W of torch's ``spectral_norm``:
-(O, I·kh·kw) of the OIHW conv kernel, (out, in) of the linear weight.  The
-power-iteration state (u, v) is a pair of buffers loaded from the
-checkpoint's ``spectral`` collection, and at eval σ = uᵀ(W v) is taken from
-it in f32 with no further iteration.  Serving could fold W/σ into the weight
-once at load time; this port recomputes σ in each forward (one matrix-vector
-product per layer), so the same module serves before and after a load and
-the training slices can add the power iteration in place.
+(O, I·kh·kw) of the OIHW conv kernel, (out, in) of the linear weight,
+(num, dim) of the embedding table.  The power-iteration state (u, v) is a
+pair of buffers (the checkpoint's ``spectral`` collection).  A forward with
+``update_stats=True`` first runs one power iteration, ``v = normalize(Wᵀu);
+u = normalize(W v)``, without gradient and in place on the buffers (the
+JAX package returns the new state instead), as torch's training-mode hook
+does; without it the stored (u, v) are used as they are.  Then W is divided
+by σ = uᵀ(W v), computed in f32, through which the gradient reaches W.
+Serving could fold W/σ into the weight once at load time; this port
+recomputes σ in each forward (one matrix-vector product per layer).
 
 Parameters stay f32; a forward casts the normalised weight to the input's
 dtype, as the JAX layers do under bf16.
@@ -39,10 +42,18 @@ class _SpectralNorm(nn.Module):
         self.register_buffer("u", u)
         self.register_buffer("v", v)
 
-    def weight_sn(self):
-        """W / σ with σ = uᵀ (W v) in f32 from the stored (u, v)."""
+    def weight_sn(self, update_stats: bool = False):
+        """W / σ with σ = uᵀ (W v) in f32 from the stored (u, v), after one
+        power iteration on them if ``update_stats``."""
         w2d = self.weight.reshape(self.weight.shape[0], -1).float()
-        sigma = self.u @ (w2d @ self.v)
+        if update_stats:
+            with torch.no_grad():
+                v = _l2_normalize(w2d.T @ self.u, self.sn_eps)
+                self.u.copy_(_l2_normalize(w2d @ v, self.sn_eps))
+                self.v.copy_(v)
+        # copies: a later forward updates the buffers in place, and autograd
+        # keeps these for the backward of this one
+        sigma = self.u.clone() @ (w2d @ self.v.clone())
         return self.weight / sigma.to(self.weight.dtype)
 
 
@@ -62,9 +73,9 @@ class SNConv(_SpectralNorm):
             fan_in, (features,), generator)) if use_bias else None
         self._init_spectral(features, sn_eps, generator)
 
-    def forward(self, x):
+    def forward(self, x, update_stats: bool = False):
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight_sn().to(x.dtype), bias,
+        return F.conv2d(x, self.weight_sn(update_stats).to(x.dtype), bias,
                         padding=self.padding, groups=self.groups)
 
 
@@ -80,6 +91,21 @@ class SNDense(_SpectralNorm):
             in_features, (features,), generator)) if use_bias else None
         self._init_spectral(features, sn_eps, generator)
 
-    def forward(self, x):
+    def forward(self, x, update_stats: bool = False):
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight_sn().to(x.dtype), bias)
+        return F.linear(x, self.weight_sn(update_stats).to(x.dtype), bias)
+
+
+class SNEmbed(_SpectralNorm):
+    """Embedding table (num, dim) with spectral norm over the whole table;
+    init U(-0.1, 0.1) (the reference discriminator's projection matrix)."""
+
+    def __init__(self, num_embeddings, features, sn_eps=1e-4, generator=None):
+        super().__init__()
+        table = torch.empty(num_embeddings, features)
+        table.uniform_(-0.1, 0.1, generator=generator)
+        self.weight = nn.Parameter(table)
+        self._init_spectral(num_embeddings, sn_eps, generator)
+
+    def forward(self, labels, update_stats: bool = False):
+        return self.weight_sn(update_stats)[labels]

@@ -2,7 +2,7 @@
 
 Each model family is a module named after its config string, exposing a
 ``Wrapper`` with ``get_net(args, generator=None)``.  The port holds the
-flagship's drive modules; other names are reported as not ported yet.
+flagship's modules; other names are reported as not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +14,11 @@ _KINDS = {
                   ("unsupervised_pose_separate_embResNeXt_segmentation",)),
     "generators": ("latentpose_tpu_torch.models.generators",
                    ("vector_pose_unsupervised_segmentation_noBottleneck",)),
+    "discriminators": ("latentpose_tpu_torch.models.discriminators",
+                       ("no_landmarks",)),
+    "criterions": ("latentpose_tpu_torch.losses",
+                   ("adversarial", "featmat", "idt_embed", "perceptual",
+                    "dice")),
 }
 
 

@@ -1,0 +1,79 @@
+"""Few-shot fine-tuning as a re-parameterisation (port of
+``latentpose_tpu/runners/finetune.py``):
+
+1. ê = the mean identity embedding over all of the avatar's frames, with the
+   EMA embedder weights, the live BatchNorm statistics and eval mode;
+2. the generator's identity input becomes the trainable (1, E) parameter
+   ``finetune_embedding`` = ê, in params and in the EMA;
+3. the discriminator's label-embedding matrix W becomes one row = ê, with
+   spectral-norm eps 1e-12 and the (u, v) of a fresh one-row init;
+4. both optimizers start fresh (RAdam from the fine-tune config).
+"""
+
+from __future__ import annotations
+
+import copy
+import logging
+
+import torch
+from torch.func import functional_call
+
+from latentpose_tpu_torch.ops.spectral_norm import SNEmbed
+from latentpose_tpu_torch.runners.optim import RAdam
+from latentpose_tpu_torch.runners.state import (TrainState, d_trainable,
+                                                g_trainable)
+
+logger = logging.getLogger("latentpose_tpu_torch.finetune")
+
+
+@torch.no_grad()
+def compute_averaged_identity_embedding(state: TrainState, dataloader,
+                                        device):
+    """ê (1, E) over every ``enc_rgbs`` frame of one pass of
+    ``dataloader``, through the EMA embedder in eval mode."""
+    embedder = state.models["embedder"]
+    weights = state.ema_params["embedder"]
+    chunks = []
+    for data_dict, _ in dataloader:
+        enc = torch.as_tensor(data_dict["enc_rgbs"]).to(device)
+        _, elemwise, _ = functional_call(embedder, weights, (enc,))
+        chunks.append(elemwise.reshape(-1, elemwise.shape[-1]))
+    logger.info("Averaged identity embedding over %d frame-chunks",
+                len(chunks))
+    return torch.cat(chunks).mean(dim=0, keepdim=True)
+
+
+def optimizers(state: TrainState, args):
+    """Fresh RAdam / Adam-family optimizers over the two trainable sets
+    (reference betas (beta1, 0.999), eps 1e-5)."""
+    if args.optimizer != "RAdam":
+        raise NotImplementedError(
+            f"--optimizer {args.optimizer}: only RAdam (the fine-tune "
+            "config's) is ported; Adam comes with the meta-train slice "
+            "(ROADMAP.md A.12)")
+    return (RAdam(g_trainable(state), args.lr_gen, b1=args.beta1,
+                  b2=0.999, eps=1e-5),
+            RAdam(d_trainable(state), args.lr_dis, b1=args.beta1,
+                  b2=0.999, eps=1e-5))
+
+
+def enable_finetuning(state: TrainState, args, identity_embedding,
+                      generator=None) -> TrainState:
+    """The fine-tune state from a meta-trained one (which stays as it was).
+
+    ``identity_embedding``: ê (1, E).  ``generator``: a ``torch.Generator``
+    for the fresh one-row embedding's (u, v) init."""
+    ident = identity_embedding.detach().float()
+    models = dict(state.models)
+    dis = copy.deepcopy(state.models["discriminator"])
+    embed = SNEmbed(1, ident.shape[1], sn_eps=1e-12, generator=generator)
+    with torch.no_grad():
+        embed.weight.copy_(ident.cpu())
+    dis.embed = embed.to(ident.device)
+    models["discriminator"] = dis
+    ema = dict(state.ema_params)
+    ema["finetune_embedding"] = ident.clone()
+    new = TrainState(models=models, ema_params=ema, step=state.step,
+                     finetune_embedding=ident.clone().requires_grad_())
+    new.opt_g, new.opt_d = optimizers(new, args)
+    return new

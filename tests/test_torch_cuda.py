@@ -63,3 +63,70 @@ def test_adain_kernel_refuses_unvectorisable_channels(device):
     x, w, b = _inputs(2, 16, 6, torch.float32, device)
     with pytest.raises(ValueError, match="multiple"):
         adain_op.adain(x, w, b)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("hw,c", [(256, 512), (4096, 64)])
+def test_adain_autograd_matches_autograd_through_plain(device, hw, c, relu):
+    """Gradients of the kernel's autograd.Function against autograd through
+    adain_reference (f32, TF32 off)."""
+    x, w, b = _inputs(2, hw, c, torch.float32, device)
+    grad = torch.randn_like(x)
+    got, want = [], []
+    for fn, out in ((adain_op.adain, got), (adain_op.adain_reference, want)):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+        (fn(*leaves, relu=relu) * grad).sum().backward()
+        out += [t.grad for t in leaves]
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-3)
+
+
+# conv_bn_fused: (M, Cin, Cout) of the ResNeXt-50 bottleneck links at 256²
+# for 2 frames, plus ragged M and ragged Cout tiles
+LINKS = [(2 * 4096, 128, 256), (2 * 1024, 256, 512), (2 * 256, 512, 1024),
+         (2 * 64, 1024, 2048), (1000, 64, 200), (7, 8, 8)]
+CONV_TOL = {torch.float32: 2e-4, torch.bfloat16: 1.6e-2}
+
+
+def _link_inputs(m, cin, cout, dtype, device):
+    g = torch.Generator(device=device).manual_seed(m + cin + cout)
+    x = torch.randn(m, cin, generator=g, device=device) * 2 + 0.5
+    w = torch.randn(cout, cin, generator=g, device=device) / cin ** 0.5
+    scale = torch.rand(cin, generator=g, device=device) + 0.5
+    offset = torch.randn(cin, generator=g, device=device) * 0.1
+    return x.to(dtype), scale, offset, w.to(dtype).t()
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,cin,cout", LINKS)
+def test_conv_bn_kernel_matches_plain(device, m, cin, cout, dtype, relu):
+    from latentpose_tpu_torch.ops import conv_bn
+    x, scale, offset, w = _link_inputs(m, cin, cout, dtype, device)
+    before = conv_bn.bn_relu_conv1x1_stats.launches
+    y, stats = conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w, relu=relu)
+    torch.cuda.synchronize()
+    assert conv_bn.bn_relu_conv1x1_stats.launches == before + 1
+    want_y, want_stats = conv_bn.bn_relu_conv1x1_stats_reference(
+        x, scale, offset, w, relu=relu)
+    assert y.shape == (m, cout) and y.dtype == dtype
+    tol = CONV_TOL[dtype]
+    ref = want_y.float().abs().max().item()
+    torch.testing.assert_close(y.float() / ref, want_y.float() / ref,
+                               rtol=tol, atol=tol)
+    # the sums come from f32 accumulators in both versions
+    torch.testing.assert_close(stats, want_stats, rtol=1e-4,
+                               atol=1e-4 * want_stats.abs().max().item())
+
+
+def test_conv_bn_kernel_refuses_what_it_does_not_take(device):
+    from latentpose_tpu_torch.ops import conv_bn
+    x, scale, offset, w = _link_inputs(64, 12, 16, torch.bfloat16, device)
+    with pytest.raises(ValueError, match="multiple"):
+        conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w)
+    x, scale, offset, w = _link_inputs(64, 16, 16, torch.float32, device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv_bn.bn_relu_conv1x1_stats(x, scale, offset,
+                                        w.clone().requires_grad_())
+    with torch.no_grad():
+        conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w)

@@ -124,3 +124,146 @@ def test_mobilenetv2_pose_encoder_matches_jax_full_width():
     with torch.no_grad():
         got = tnet(_nchw(x))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+# --- the fine-tune slice: identity tower, train-mode pose BN, discriminator --
+
+def _jitter_variables(variables, seed):
+    """Non-trivial running statistics (so eval-mode BN is tested) and
+    weights moved off their init."""
+    rng = np.random.RandomState(seed)
+    stats = jax.tree_util.tree_map(
+        lambda v: rng.uniform(0.5, 1.5, v.shape).astype(np.float32),
+        variables["batch_stats"])
+    params = jax.tree_util.tree_map(
+        lambda v: np.asarray(v) + rng.uniform(-0.05, 0.05, v.shape)
+        .astype(np.float32), variables["params"])
+    return {"params": params, "batch_stats": stats}
+
+
+@pytest.fixture(scope="module")
+def embedders():
+    """The flagship embedder at full width (ResNeXt-50 + MobileNetV2), JAX
+    init (jitted), jittered, converted into the port's module."""
+    from latentpose_tpu.models.embedders import (
+        unsupervised_pose_separate_embResNeXt_segmentation as jemb_mod)
+    from latentpose_tpu_torch.models.embedders import (
+        unsupervised_pose_separate_embResNeXt_segmentation as temb_mod)
+    jemb = jemb_mod.Embedder(identity_embedding_size=512,
+                             pose_embedding_size=256)
+    frames = jnp.zeros((1, 1, 32, 32, 3))
+    variables = _jitter_variables(
+        jax.jit(jemb.init)(jax.random.PRNGKey(7), frames, frames), seed=8)
+    temb = temb_mod.Embedder(identity_embedding_size=512,
+                             pose_embedding_size=256)
+    convert.load_into(temb, _flatten(variables), "")
+    return jemb, variables, temb
+
+
+@pytest.mark.parametrize("average", ["sum", "max"])
+def test_identity_embedding_matches_jax_full_width(embedders, average):
+    """ResNeXt-50 in eval form (its 16 bn2 -> ReLU -> conv3 links through
+    the fused kernel's plain version) and the mean / max over K frames, on
+    32² frames; f32, 1e-4."""
+    from latentpose_tpu_torch.ops import conv_bn
+    jemb, variables, temb = embedders
+    jemb = jemb.clone(average_function=average)
+    temb.average_function = average
+    enc = np.random.RandomState(9).rand(2, 3, 32, 32, 3).astype(np.float32)
+    want_agg, want_elem = jax.jit(lambda v, x: jemb.apply(
+        v, x, method="get_identity_embedding"))(variables, jnp.asarray(enc))
+    calls = []
+    real = conv_bn.bn_relu_conv1x1_stats
+    with torch.no_grad(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr("latentpose_tpu_torch.nn.backbones.bn_relu_conv1x1_stats",
+                   lambda *a, **k: calls.append(a[0].shape) or real(*a, **k))
+        agg, elem = temb.get_identity_embedding(torch.from_numpy(enc))
+    assert len(calls) == 16            # one per bottleneck
+    assert elem.shape == (2, 3, 512) and agg.shape == (2, 512)
+    np.testing.assert_allclose(elem.numpy(), np.asarray(want_elem), **TOL)
+    np.testing.assert_allclose(agg.numpy(), np.asarray(want_agg), **TOL)
+
+
+def test_identity_tower_refuses_train_mode(embedders):
+    temb = embedders[2]
+    with pytest.raises(NotImplementedError, match="meta-train"):
+        temb.get_identity_embedding(torch.zeros(1, 1, 32, 32, 3), train=True)
+
+
+def test_pose_encoder_train_mode_batch_norm_matches_jax(embedders):
+    """Train-mode BatchNorm: the updated running statistics (flax momentum
+    0.9, biased batch variance) equal the JAX module's.  They are computed
+    before the dropout, whose masks cannot match across frameworks.
+    Tolerance 1e-3 relative: the deepest blocks see 2x2 maps, and the
+    one-pass variance over 16 values per channel, 17 train-mode blocks
+    deep, magnifies f32 summation-order differences to ~2e-4."""
+    jemb, variables, temb = embedders
+    pose = np.random.RandomState(10).rand(4, 1, 32, 32, 3).astype(np.float32)
+    _, mut = jax.jit(lambda v, x: jemb.apply(
+        v, x, train=True, method="get_pose_embedding",
+        rngs={"dropout": jax.random.PRNGKey(0)},
+        mutable=["batch_stats"]))(variables, jnp.asarray(pose))
+    with torch.no_grad():
+        out = temb.get_pose_embedding(torch.from_numpy(pose), train=True,
+                                      dropout_generator=torch.Generator()
+                                      .manual_seed(0))
+    assert out.shape == (4, 256) and torch.isfinite(out).all()
+    want = _flatten({"batch_stats": mut["batch_stats"]})
+    got = convert.export(temb, "", params=())
+    pose_keys = [k for k in want if "pose_encoder" in k]
+    assert len(pose_keys) == 2 * 52       # 52 BatchNorms, mean and var each
+    for key in pose_keys:
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-3, atol=1e-5,
+                                   err_msg=key)
+    # the identity tower did not run, so its statistics did not move
+    for key in (k for k in want if "identity_encoder" in k):
+        np.testing.assert_array_equal(got[key], want[key])
+    # restore the eval-mode statistics for the other tests of this module
+    convert.load_into(temb, _flatten(variables), "")
+
+
+def test_discriminator_matches_jax_with_power_iterations():
+    """The embedding lookup and two passes with update_stats: scores,
+    every feature map (the ReLU'd aliases included), and the spectral state
+    after each; f32, tiny widths."""
+    from latentpose_tpu.models.discriminators import no_landmarks as jdis_mod
+    from latentpose_tpu_torch.models.discriminators import (
+        no_landmarks as tdis_mod)
+    kw = dict(num_channels=4, max_num_channels=16, embed_channels=16,
+              num_blocks=3, image_size=16, num_labels=4)
+    jdis = jdis_mod.Discriminator(**kw)
+    rng = np.random.RandomState(11)
+    x = rng.rand(2, 16, 16, 3).astype(np.float32)
+    labels = np.array([3, 1], np.int32)
+    variables = jax.jit(jdis.init)(jax.random.PRNGKey(12), jnp.asarray(x),
+                                   jnp.asarray(labels))
+    tdis = tdis_mod.Discriminator(**kw)
+    convert.load_into(tdis, _flatten(dict(variables)), "")
+    assert tdis_mod.plan(4, 16, 16, 3, 16) == jdis._plan()
+
+    rows, mut = jdis.apply(variables, jnp.asarray(labels), update_stats=True,
+                           method="embed_labels", mutable=["spectral"])
+    spectral = mut["spectral"]
+    trows = tdis.embed_labels(torch.from_numpy(labels).long(),
+                              update_stats=True)
+    np.testing.assert_allclose(trows.detach().numpy(), np.asarray(rows),
+                               **TOL)
+    for _ in range(2):
+        (score, feats), mut = jdis.apply(
+            {"params": variables["params"], "spectral": spectral},
+            jnp.asarray(x), rows, update_stats=True, method="pass_inputs",
+            mutable=["spectral"])
+        spectral = mut["spectral"]
+        tscore, tfeats = tdis.pass_inputs(torch.from_numpy(x), trows,
+                                          update_stats=True)
+        np.testing.assert_allclose(tscore.detach().numpy(),
+                                   np.asarray(score), **TOL)
+        assert len(tfeats) == len(feats) == 3       # stem + 2 blocks
+        for f, tf in zip(feats, tfeats):
+            np.testing.assert_allclose(_nhwc(tf), np.asarray(f), **TOL)
+    want = _flatten({"spectral": spectral})
+    got = convert.export(tdis, "", params=())
+    assert set(want) <= set(got)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-5, atol=1e-6,
+                                   err_msg=key)

@@ -188,3 +188,221 @@ def test_image_ops_match_jax(name):
     got = getattr(timage, name)(torch.from_numpy(x).permute(0, 3, 1, 2))
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,
                                rtol=1e-6, atol=1e-6)
+
+
+# --- the fused BN -> ReLU -> 1x1 conv -> stats kernel's plain version ------
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("shape,cout", [((2, 8, 8, 256), 128),
+                                        ((1, 16, 16, 128), 256)])
+def test_conv_bn_matches_pallas_kernel_interpret(shape, cout, relu):
+    """The port's wrapper (CPU -> plain version) against the TPU kernel it
+    replaces, in interpret mode, at the shapes of
+    tests/test_pallas_kernels.py; f32, tolerance 2e-4."""
+    from jax.experimental.pallas import tpu as pltpu
+    from latentpose_tpu.ops.pallas import conv_bn_fused as jconv
+    from latentpose_tpu_torch.ops import conv_bn
+
+    rng = np.random.RandomState(10)
+    cin = shape[-1]
+    x = (rng.standard_normal(shape) * 2 + 0.5).astype(np.float32)
+    w = (rng.standard_normal((cin, cout)) * 0.06).astype(np.float32)
+    bn = [rng.uniform(lo, hi, cin).astype(np.float32)
+          for lo, hi in ((-0.5, 0.5), (0.5, 4.0), (0.8, 1.2), (-0.1, 0.1))]
+    scale, offset = jconv.fold_bn(*map(jnp.asarray, bn))
+    with pltpu.force_tpu_interpret_mode():
+        want_y, want_stats = jconv.bn_relu_conv1x1_stats(
+            jnp.asarray(x), scale, offset, jnp.asarray(w), relu=relu,
+            m_tile=32)
+    tscale, toffset = conv_bn.fold_bn(*map(torch.from_numpy, bn))
+    np.testing.assert_allclose(tscale.numpy(), np.asarray(scale), rtol=1e-6)
+    np.testing.assert_allclose(toffset.numpy(), np.asarray(offset),
+                               rtol=1e-6, atol=1e-7)
+    y, stats = conv_bn.bn_relu_conv1x1_stats(
+        torch.from_numpy(x), tscale, toffset, torch.from_numpy(w), relu=relu)
+    assert y.shape == shape[:-1] + (cout,) and stats.shape == (2, cout)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(stats.numpy(), np.asarray(want_stats),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_conv_bn_wrapper_refuses_what_it_does_not_take():
+    from latentpose_tpu_torch.ops import conv_bn
+    x = torch.randn(4, 16)
+    scale, offset, w = torch.ones(16), torch.zeros(16), torch.randn(16, 8)
+    with pytest.raises(TypeError):
+        conv_bn.bn_relu_conv1x1_stats(x.half(), scale, offset, w.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_bn.bn_relu_conv1x1_stats(x.t().contiguous().t(), scale, offset,
+                                      w)
+    with pytest.raises(ValueError, match="Cin"):
+        conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w[:8])
+    # a gradient cannot flow through the kernel yet
+    with pytest.raises(RuntimeError, match="no backward"):
+        conv_bn.bn_relu_conv1x1_stats(x, scale.requires_grad_(), offset, w)
+    with torch.no_grad():
+        conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w)
+    # channels the kernel cannot vectorise, checked before a launch
+    conv_bn.check_kernel_layout(x, w)
+    for bad_x, bad_w in ((x[:, :6].contiguous(), w[:6]),
+                         (x.bfloat16(), w[:, :4].contiguous().bfloat16()),
+                         (x, w[:, :6].contiguous())):
+        with pytest.raises(ValueError, match="multiple"):
+            conv_bn.check_kernel_layout(bad_x, bad_w)
+    with torch.no_grad(), pytest.raises(ValueError, match="device"):
+        conv_bn.bn_relu_conv1x1_stats(x.to("meta"), scale.to("meta"),
+                                      offset.to("meta"), w.to("meta"))
+    assert conv_bn.bn_relu_conv1x1_stats.launches == 0
+
+
+# --- AdaIN under autograd ---------------------------------------------------
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("shape", SHAPES[:2])
+def test_adain_gradient_matches_jax_grad(shape, relu):
+    """The autograd.Function's backward against jax.grad through
+    norms.adain (+ ReLU) for the same cotangent; f32 on the CPU."""
+    x, w, b = _adain_inputs(shape, seed=11)
+    cot = np.random.RandomState(12).standard_normal(shape).astype(np.float32)
+
+    def jloss(x, w, b):
+        y = jnorms.adain(x, w, b)
+        return ((jnp.maximum(y, 0.0) if relu else y) * cot).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (x, w, b)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, w, b)]
+    (tadain.adain(*leaves, relu=relu) * torch.from_numpy(cot)).sum() \
+        .backward()
+    for got, ref in zip(leaves, want):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref),
+                                   rtol=1e-4, atol=1e-4)
+
+
+# --- spectral norm in train form --------------------------------------------
+
+def _sn_flat(variables):
+    return _flatten(jax.device_get(dict(variables)))
+
+
+@pytest.mark.parametrize("layer", ["conv", "dense", "embed"])
+def test_sn_power_iteration_matches_jax(layer):
+    """Two forwards with update_stats: outputs and the (u, v) state after
+    each agree with the JAX layer threading its 'spectral' collection."""
+    rng = np.random.RandomState(13)
+    if layer == "conv":
+        x = rng.standard_normal((2, 6, 6, 5)).astype(np.float32)
+        jmod, tmod = jsn.SNConv(7, (3, 3), padding=1), tsn.SNConv(5, 7, 3, 1)
+        tx = torch.from_numpy(x).permute(0, 3, 1, 2)
+        back = lambda t: t.permute(0, 2, 3, 1)   # noqa: E731
+    elif layer == "dense":
+        x = rng.standard_normal((3, 9)).astype(np.float32)
+        jmod, tmod = jsn.SNDense(4), tsn.SNDense(9, 4)
+        tx, back = torch.from_numpy(x), (lambda t: t)
+    else:
+        x = np.array([2, 0, 2], np.int32)
+        jmod, tmod = jsn.SNEmbed(3, 6), tsn.SNEmbed(3, 6)
+        tx, back = torch.from_numpy(x).long(), (lambda t: t)
+    variables = jmod.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    convert.load_into(tmod, _sn_flat(variables), "")
+    for _ in range(2):
+        want, mut = jmod.apply(variables, jnp.asarray(x), update_stats=True,
+                               mutable=["spectral"])
+        variables = {**variables, "spectral": mut["spectral"]}
+        got = back(tmod(tx, update_stats=True))
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+        flat = _sn_flat(mut)
+        np.testing.assert_allclose(tmod.u.numpy(), flat["spectral::u"],
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(tmod.v.numpy(), flat["spectral::v"],
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_sn_gradient_flows_through_sigma():
+    """σ keeps its gradient through W (the JAX layer stops it only at u, v)."""
+    rng = np.random.RandomState(14)
+    x = rng.standard_normal((3, 9)).astype(np.float32)
+    jmod = jsn.SNDense(4)
+    variables = jmod.init(jax.random.PRNGKey(2), jnp.asarray(x))
+
+    def jloss(params):
+        out = jmod.apply({**variables, "params": params}, jnp.asarray(x))
+        return (out ** 2).sum()
+
+    want = jax.grad(jloss)(variables["params"])["kernel"]
+    tmod = tsn.SNDense(9, 4)
+    convert.load_into(tmod, _sn_flat(variables), "")
+    (tmod(torch.from_numpy(x)) ** 2).sum().backward()
+    np.testing.assert_allclose(tmod.weight.grad.numpy().T, np.asarray(want),
+                               rtol=1e-4, atol=1e-5)
+
+
+# --- crop_and_resize ----------------------------------------------------------
+
+def test_crop_and_resize_matches_jax_with_gradient():
+    from latentpose_tpu.ops import resample as jres
+    from latentpose_tpu_torch.ops import resample as tres
+    rng = np.random.RandomState(15)
+    img = rng.rand(2, 18, 14, 3).astype(np.float32)
+    boxes = np.array([[2.5, 15.0, 1.0, 12.5], [-3.0, 20.0, 4.0, 9.0]],
+                     np.float32)
+    cot = rng.standard_normal((2, 18, 14, 3)).astype(np.float32)
+
+    def jloss(i):
+        return (jres.crop_and_resize(i, jnp.asarray(boxes)) * cot).sum()
+
+    want = jres.crop_and_resize(jnp.asarray(img), jnp.asarray(boxes))
+    want_grad = jax.grad(jloss)(jnp.asarray(img))
+    timg = torch.from_numpy(img).requires_grad_()
+    got = tres.crop_and_resize(timg, torch.from_numpy(boxes))
+    (got * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(timg.grad.numpy(), np.asarray(want_grad),
+                               rtol=1e-5, atol=1e-5)
+
+
+# --- RAdam as optax computes it -----------------------------------------------
+
+@pytest.mark.parametrize("b1", [0.0, 0.5])
+def test_radam_matches_optax_over_ten_steps(b1, monkeypatch):
+    """Ten steps cover both of optax's branches: ρ_t < 5 (the plain,
+    bias-corrected momentum step) for t <= 5 and the rectified step after.
+    Gradients of the size of eps make eps's place count (torch.optim.RAdam
+    puts it elsewhere); parameters start at 0 so the comparison sees the
+    updates at full f32 precision.  XLA's f32 pow is 1-2 ulps off the
+    correctly rounded power the port takes, which moves ρ_t by ~0.02, so
+    both sides are handed XLA's powers here."""
+    import optax
+    from latentpose_tpu_torch.runners import optim
+    from latentpose_tpu_torch.runners.optim import RAdam
+    monkeypatch.setattr(optim, "_pow", lambda base, count: np.float32(
+        base ** jnp.int32(count)))
+    rng = np.random.RandomState(16)
+    p0 = np.zeros((5, 3), np.float32)
+    grads = (rng.standard_normal((10, 5, 3)) * 1e-5).astype(np.float32)
+    opt = optax.radam(5e-4, b1=b1, b2=0.999, eps=1e-5)
+    params = jnp.asarray(p0)
+    state = opt.init(params)
+    tp = torch.from_numpy(p0.copy())
+    topt = RAdam([tp], 5e-4, b1=b1, b2=0.999, eps=1e-5)
+    branches = set()
+    for g in grads:
+        updates, state = opt.update(jnp.asarray(g), state, params)
+        params = optax.apply_updates(params, updates)
+        branches.add(bool(topt.schedule(topt.count + 1)[0] >= 5))
+        topt.step([torch.from_numpy(g)])
+        np.testing.assert_allclose(tp.numpy(), np.asarray(params),
+                                   rtol=1e-5, atol=1e-10)
+    assert branches == {False, True}
+
+
+def test_ema_update_is_the_jax_formula():
+    from latentpose_tpu_torch.runners.optim import ema_update
+    rng = np.random.RandomState(17)
+    a, b = rng.standard_normal((2, 6)).astype(np.float32)
+    ta = torch.from_numpy(a.copy())
+    ema_update([ta], [torch.from_numpy(b)], 0.972)
+    want = jnp.asarray(a) * 0.972 + jnp.asarray(b) * (1.0 - 0.972)
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(want))
