@@ -15,8 +15,8 @@ a user calls, and checks every hand-written kernel of those paths:
 3. AdaIN against its plain version at the generator's 7 shapes (f32 and
    bf16), with both times;
 4. the fused BN->ReLU->1x1-conv->stats kernel against its plain version at
-   ResNeXt-50's four link shapes and a ragged M, 8 frames in f32 and bf16,
-   with both times at 64 frames;
+   ResNeXt-50's four link shapes, f32 and bf16: 8 frames, a ragged M, and
+   the ê pass's 64 frames, with both times at 64 frames;
 5. write a flagship-width fine-tuned checkpoint through the port's writer
    (the JAX package's format) and drive ``synthetic://3`` (32 frames)
    through the drive CLI's functions in bf16 and f32: shapes, finite
@@ -29,7 +29,9 @@ a user calls, and checks every hand-written kernel of those paths:
    generator and identity embedding, advanced spectral-norm state; ê
    frames/s, step ms, images/s and peak memory;
 7. save the fine-tuned checkpoint and drive it in bf16: finite frames;
-8. one fine-tune step on the card and on the CPU from the same state and
+8. ê of one loader batch (64 frames) on the card and on the CPU, f32:
+   within 1e-4 of max |ê|;
+9. one fine-tune step on the card and on the CPU from the same state and
    batch (batch 2, f32, eval-mode pose encoder): losses and the updated
    identity embedding within 1e-3 relative.
 
@@ -100,6 +102,7 @@ META = dict(FLAGSHIP, finetune=False, num_labels=16, dis_num_blocks=7,
 FT_BATCH = 8
 FT_EPOCHS = 5          # 2 batches an epoch (16 identities // batch 8)
 STEP_TOL = 1e-3        # card vs CPU, one fine-tune step, relative
+EHAT_TOL = 1e-4        # card vs CPU, ê of one batch, relative to max |ê|
 
 
 def require(cond, message):
@@ -172,29 +175,37 @@ def link_inputs(m, cin, cout, dtype, device, seed):
     return x.to(dtype), scale, offset, w.to(dtype).t()    # w: conv3's view
 
 
+def check_link(x, scale, offset, w):
+    """The kernel against its plain version on the same inputs: y within
+    TOL of max |y|, stats within 1e-4 relative; returns (max_abs_err,
+    max |y|)."""
+    y, stats = conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w)
+    want_y, want_stats = conv_bn.bn_relu_conv1x1_stats_reference(
+        x, scale, offset, w)
+    torch.cuda.synchronize()
+    err = (y.float() - want_y.float()).abs().max().item()
+    ref = want_y.float().abs().max().item()
+    torch.testing.assert_close(y.float() / ref, want_y.float() / ref,
+                               rtol=TOL[x.dtype], atol=TOL[x.dtype])
+    torch.testing.assert_close(stats, want_stats, rtol=1e-4,
+                               atol=1e-4 * want_stats.abs().max().item())
+    return err, ref
+
+
 @torch.no_grad()
 def phase_conv_bn(device):
     """The fused kernel against its plain version at every link shape of
-    ResNeXt-50 (8 frames, f32 and bf16, plus a ragged M), timed at 64
-    frames beside the plain version; returns (max_abs_err, ms, plain_ms)
-    with the times summed over the 16 links of one f32 forward."""
+    ResNeXt-50, f32 and bf16: at 8 frames, a ragged M, and the ê pass's 64
+    frames, which are also timed beside the plain version; returns
+    (max_abs_err, ms, plain_ms) with the times summed over the 16 links of
+    one f32 forward."""
     max_err, ms, plain_ms = 0.0, 0.0, 0.0
     cases = [(8 * rows, cin, cout, dtype) for rows, cin, cout, _ in CONV_LINKS
              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(1000, 256, 512, torch.float32), (1000, 256, 512,
                                                 torch.bfloat16)]
     for m, cin, cout, dtype in cases:
-        x, scale, offset, w = link_inputs(m, cin, cout, dtype, device, m)
-        y, stats = conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w)
-        want_y, want_stats = conv_bn.bn_relu_conv1x1_stats_reference(
-            x, scale, offset, w)
-        torch.cuda.synchronize()
-        err = (y.float() - want_y.float()).abs().max().item()
-        ref = want_y.float().abs().max().item()
-        torch.testing.assert_close(y.float() / ref, want_y.float() / ref,
-                                   rtol=TOL[dtype], atol=TOL[dtype])
-        torch.testing.assert_close(stats, want_stats, rtol=1e-4,
-                                   atol=1e-4 * want_stats.abs().max().item())
+        err, ref = check_link(*link_inputs(m, cin, cout, dtype, device, m))
         max_err = max(max_err, err)
         print(f"conv_bn M={m} {cin}->{cout} {str(dtype)[6:]}: max_abs_err="
               f"{err:.3g} (max |y| {ref:.3g})", flush=True)
@@ -202,12 +213,15 @@ def phase_conv_bn(device):
         for dtype in (torch.float32, torch.bfloat16):
             m = 64 * rows
             x, scale, offset, w = link_inputs(m, cin, cout, dtype, device, 1)
+            err, ref = check_link(x, scale, offset, w)
+            max_err = max(max_err, err)
             k = cuda_ms(lambda: conv_bn.bn_relu_conv1x1_stats(
                 x, scale, offset, w), 20)
             p = cuda_ms(lambda: conv_bn.bn_relu_conv1x1_stats_reference(
                 x, scale, offset, w), 20)
             tflops = 2 * m * cin * cout / k / 1e9
             print(f"conv_bn 64 frames M={m} {cin}->{cout} {str(dtype)[6:]}: "
+                  f"max_abs_err={err:.3g} (max |y| {ref:.3g}) "
                   f"kernel_ms={k:.4f} plain_ms={p:.4f} kernel_TFLOP/s="
                   f"{tflops:.1f} (x{count} per forward)", flush=True)
             if dtype == torch.float32:
@@ -347,6 +361,32 @@ def phase_finetune(meta_ckpt, workdir, device):
     path = train_cli.save(args, state)
     print(f"fine-tuned checkpoint: {path.name}", flush=True)
     return args, state, criteria, loader, path, launches
+
+
+@torch.no_grad()
+def phase_ehat_card_vs_cpu(state, loader, device):
+    """ê of one loader batch (8 samples x K=8 frames, the kernel's main-path
+    shapes) through the fine-tune runner on the card (ResNeXt-50 with the
+    fused kernel, channels_last, conv3's weight view) and on the CPU (the
+    plain version), f32, TF32 off."""
+    batch = [loader.get_batch(0)]
+    cpu_state = TrainState(
+        models={"embedder": copy.deepcopy(state.models["embedder"]).cpu()},
+        ema_params={"embedder": {k: v.cpu() for k, v in
+                                 state.ema_params["embedder"].items()}})
+    out = {}
+    for name, st, dev in (("card", state, device),
+                          ("cpu", cpu_state, torch.device("cpu"))):
+        t0 = time.perf_counter()
+        out[name] = ft.compute_averaged_identity_embedding(st, batch, dev).cpu()
+        b, k = batch[0][0]["enc_rgbs"].shape[:2]
+        print(f"ê of {b} x {k} frames on the {name}: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rel = ((out["card"] - out["cpu"]).abs().max()
+           / out["cpu"].abs().max()).item()
+    print(f"ê card vs cpu (TF32 off): max_rel_diff={rel:.3g}", flush=True)
+    require(out["card"].shape == (1, 512) and rel <= EHAT_TOL,
+            f"card and CPU ê differ: {rel} relative")
 
 
 def _copy_state(state, args, device):
@@ -542,6 +582,7 @@ def main():
         ft_args, ft_state, _, loader, ft_ckpt, launches = phase_finetune(
             meta_ckpt, Path(workdir) / "finetune", device)
         drive_once(ft_ckpt, [], frames)
+        phase_ehat_card_vs_cpu(ft_state, loader, device)
         phase_step_card_vs_cpu(ft_args, ft_state, loader, device)
 
     print(json.dumps({"kernels": [{

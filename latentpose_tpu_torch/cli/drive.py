@@ -23,18 +23,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from latentpose_tpu.utils.video import get_image_writer, to_uint8
 from latentpose_tpu_torch import checkpoint as ckpt_lib
 from latentpose_tpu_torch import convert, registry
 from latentpose_tpu_torch.runners import drive as drive_lib
+from latentpose_tpu_torch.utils.video import get_image_writer, to_uint8
 
 logger = logging.getLogger("latentpose_tpu_torch.drive")
 
 
 def load_driver_frames(path, image_size):
-    """A driver sequence as (N, H, W, 3): uint8 for decoded image and video
-    sources (the wire format, rescaled on the device), float32 in [0, 1]
-    for ``synthetic://K`` (32 frames)."""
+    """A driver sequence as (N, H, W, 3): uint8 for image directories and
+    videos, decoded with cv2 (the wire format, rescaled on the device),
+    float32 in [0, 1] for ``synthetic://K`` (32 frames)."""
     if str(path).startswith("synthetic://"):
         from latentpose_tpu_torch.data.synthetic import render_face
         label = int(str(path).split("://", 1)[1])
@@ -47,13 +47,6 @@ def load_driver_frames(path, image_size):
         files = sorted(p for p in path.iterdir()
                        if p.suffix.lower() in (".jpg", ".jpeg", ".png",
                                                ".bmp"))
-        # C++ thread-pool decode + resize (native/lpr_loader.cpp)
-        from latentpose_tpu.data import native_loader
-        if native_loader.is_available():
-            images, failed = native_loader.NativeBatchLoader().load(
-                [str(p) for p in files], image_size)
-            if failed == 0:
-                return images
         import cv2
         for p in files:
             img = cv2.imread(str(p))[..., ::-1]

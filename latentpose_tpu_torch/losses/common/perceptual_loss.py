@@ -10,8 +10,8 @@
 
 Weights are the JAX package's converted ``vgg19_caffe.npz`` /
 ``vgg_face.npz`` (keys ``conv<i>/kernel`` HWIO and ``conv<i>/bias``), found
-in the JAX package's order (explicit dir, ``$LATENTPOSE_WEIGHTS_DIR``,
-``<repo>/weights/``).  Without them construction fails unless
+by ``utils/weights.py`` in the JAX package's order (explicit dir,
+``$LATENTPOSE_WEIGHTS_DIR``, ``<repo>/weights/``).  Without them construction fails unless
 ``allow_random`` (``--allow_random_vgg``), which seeds a torch init (tests
 and smoke runs only; :func:`load_tower_arrays` loads other arrays later).
 The tower is frozen: its parameters never require grad.
@@ -24,8 +24,9 @@ import logging
 import numpy as np
 import torch
 
-from latentpose_tpu.utils.weights import find_weights_file, missing_weights_error
 from latentpose_tpu_torch.nn.vgg import VGG16_CFG, VGG19_CFG, VGGFeatures
+from latentpose_tpu_torch.utils.weights import (find_weights_file,
+                                                missing_weights_error)
 
 logger = logging.getLogger("latentpose_tpu_torch.losses.perceptual")
 

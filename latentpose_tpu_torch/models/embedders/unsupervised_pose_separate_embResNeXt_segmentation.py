@@ -42,12 +42,12 @@ class Embedder(nn.Module):
         self.pose_encoder = MobileNetV2(num_classes=pose_embedding_size,
                                         generator=generator)
 
-    def get_identity_embedding(self, enc_rgbs, train: bool = False):
+    def get_identity_embedding(self, enc_rgbs):
         """enc_rgbs (B, K, H, W, 3) -> (embeds (B, E), embeds_elemwise
-        (B, K, E))."""
+        (B, K, E)), eval form."""
         b, k, h, w, c = enc_rgbs.shape
         flat = enc_rgbs.reshape(b * k, h, w, c).permute(0, 3, 1, 2)
-        emb = self.identity_encoder(flat, train).reshape(
+        emb = self.identity_encoder(flat).reshape(
             b, k, self.identity_embedding_size)
         agg = emb.mean(dim=1) if self.average_function == "sum" \
             else emb.amax(dim=1)
@@ -62,9 +62,15 @@ class Embedder(nn.Module):
 
     def forward(self, enc_rgbs, pose_input_rgbs=None, train: bool = False):
         """(embeds, embeds_elemwise, pose embedding or None), as the JAX
-        module's ``__call__``; ``torch.func.functional_call`` runs it with
-        other weights (the EMA copy)."""
-        embeds, elemwise = self.get_identity_embedding(enc_rgbs, train)
+        module's ``__call__``, in eval form; ``torch.func.functional_call``
+        runs it with other weights (the EMA copy).  ``train=True`` is
+        meta-train's forward, which needs ResNeXt-50's train form."""
+        if train:
+            raise NotImplementedError(
+                "the embedder in train mode (ResNeXt-50's train-mode "
+                "BatchNorm, the fused kernel's backward) comes with the "
+                "meta-train slice (ROADMAP.md A.10-A.11)")
+        embeds, elemwise = self.get_identity_embedding(enc_rgbs)
         pose = None if pose_input_rgbs is None \
-            else self.get_pose_embedding(pose_input_rgbs, train)
+            else self.get_pose_embedding(pose_input_rgbs)
         return embeds, elemwise, pose

@@ -233,13 +233,8 @@ class ResNeXt50(nn.Module):
                 (num_classes, in_features), generator))
             self.fc.bias.zero_()
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x):
         """x: (B, C, H, W) -> (B, num_classes)."""
-        if train:
-            raise NotImplementedError(
-                "ResNeXt-50 in train mode (train-mode BatchNorm, the fused "
-                "kernel's backward) comes with the meta-train slice "
-                "(ROADMAP.md A.10-A.11)")
         h = x.contiguous(memory_format=torch.channels_last)
         h = torch.relu(self.bn1(self.conv1(h)))
         h = F.max_pool2d(h, 3, 2, padding=1)

@@ -215,12 +215,13 @@ def test_render_face_is_bit_identical(label, frame, size):
     np.testing.assert_array_equal(segm, want_segm)
 
 
-FORBIDDEN = ("jax", "flax", "optax", "yaml", "cv2", "PIL")
+FORBIDDEN = ("jax", "flax", "optax", "yaml", "cv2", "PIL", "latentpose_tpu")
 
 
 def test_card_path_imports_no_jax():
     """Every module of the port imports with jax, flax, optax, yaml, cv2 and
-    PIL made unimportable (the machine with the card has none of them)."""
+    PIL made unimportable (the machine with the card has none of them), and
+    with the JAX package unimportable too: the port stands on its own."""
     code = "\n".join([
         "import sys, pkgutil, importlib",
         *[f"sys.modules[{m!r}] = None" for m in FORBIDDEN],
@@ -240,6 +241,10 @@ def test_card_path_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     assert "imported" in proc.stdout
     # nor inside a function, where the import guard cannot see it
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax)\b", re.M)
-    for src in (REPO / "latentpose_tpu_torch").rglob("*.py"):
+    # (`latentpose_tpu\b` leaves `latentpose_tpu_torch` alone)
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|optax|latentpose_tpu)\b", re.M)
+    sources = [*(REPO / "latentpose_tpu_torch").rglob("*.py"),
+               REPO / "chip_smoke.py"]
+    for src in sources:
         assert not pattern.search(src.read_text()), src

@@ -187,7 +187,7 @@ def test_identity_embedding_matches_jax_full_width(embedders, average):
 def test_identity_tower_refuses_train_mode(embedders):
     temb = embedders[2]
     with pytest.raises(NotImplementedError, match="meta-train"):
-        temb.get_identity_embedding(torch.zeros(1, 1, 32, 32, 3), train=True)
+        temb(torch.zeros(1, 1, 32, 32, 3), train=True)
 
 
 def test_pose_encoder_train_mode_batch_norm_matches_jax(embedders):

@@ -401,6 +401,32 @@ def test_vgg_criteria_need_weights_or_the_opt_in():
         tperc.Criterion(1e-2, "/nonexistent", allow_random=False)
 
 
+@pytest.mark.parametrize("where", ["explicit", "env", "none"])
+def test_weights_search_order_matches_jax(where, tmp_path, monkeypatch):
+    """The port's weight discovery finds the file the JAX package's finds
+    (explicit dir before $LATENTPOSE_WEIGHTS_DIR) and words a miss alike."""
+    from latentpose_tpu.utils import weights as jweights
+    from latentpose_tpu_torch.utils import weights as tweights
+    name = "vgg_face.npz"
+    explicit, env = tmp_path / "explicit", tmp_path / "env"
+    explicit.mkdir()
+    env.mkdir()
+    (env / name).touch()
+    if where == "explicit":
+        (explicit / name).touch()
+    if where != "none":
+        monkeypatch.setenv("LATENTPOSE_WEIGHTS_DIR", str(env))
+    else:
+        monkeypatch.delenv("LATENTPOSE_WEIGHTS_DIR", raising=False)
+    want = {"explicit": str(explicit / name), "env": str(env / name),
+            "none": None}[where]
+    assert jweights.find_weights_file(name, explicit) == want
+    assert tweights.find_weights_file(name, explicit) == want
+    args = (name, "PerceptualLoss(face)", "--allow_random_vgg", explicit)
+    assert str(tweights.missing_weights_error(*args)) == \
+        str(jweights.missing_weights_error(*args))
+
+
 # --- the CLI -----------------------------------------------------------------
 
 def test_finetune_defaults_equal_the_config_file():
