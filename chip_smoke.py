@@ -13,10 +13,15 @@ a user calls, and checks every hand-written kernel of those paths:
 2. build the CUDA kernels from ``latentpose_tpu_torch/csrc/``, one nvcc per
    source, all at once; print the compiler's report;
 3. AdaIN against its plain version at the generator's 7 shapes (f32 and
-   bf16), with both times;
+   bf16); at the drive's batch of 32 its time, the plain version's, the
+   bound (x read and written once at 3.35 TB/s) and the share of it; the
+   wrapper's host microseconds per call (200 enqueues of a (16, 512) call);
+   the profiler's count of CUDA kernels in one call;
 4. the fused BN->ReLU->1x1-conv->stats kernel against its plain version at
    ResNeXt-50's four link shapes, f32 and bf16: 8 frames, a ragged M, and
-   the ê pass's 64 frames, with both times at 64 frames;
+   the ê pass's 64 frames, timed there beside the plain version, the product
+   alone (``torch.matmul`` of the normalised activation, TF32 off) and the
+   bound (bytes at 3.35 TB/s or FLOPs at 989 TFLOP/s bf16, 495 TF32);
 5. write a flagship-width fine-tuned checkpoint through the port's writer
    (the JAX package's format) and drive ``synthetic://3`` (32 frames)
    through the drive CLI's functions in bf16 and f32: shapes, finite
@@ -36,7 +41,8 @@ a user calls, and checks every hand-written kernel of those paths:
    identity embedding within 1e-3 relative.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
-record; the last line is ``{"ok": true, "device": {...}}``.
+record (launches on the main path, error, times, bound, the library call);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -86,6 +92,9 @@ FLAGSHIP = dict(
 ADAIN_CALLS = [(16, 512, 5), (64, 512, 2), (256, 512, 2), (1024, 512, 2),
                (4096, 256, 2), (16384, 128, 2), (65536, 64, 2)]
 TOL = {torch.float32: 2e-4, torch.bfloat16: 1.6e-2}   # bf16: ~2 ulps
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
+# dense tensor-core peaks by input type: bf16, and TF32 for f32 inputs
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12}
 DRIVE_BATCH = 32
 # (rows per frame at 256², Cin, Cout, bottlenecks) of ResNeXt-50's
 # bn2 -> ReLU -> conv3 links
@@ -132,10 +141,63 @@ def adain_inputs(batch, hw, c, dtype, device, seed):
     return x.to(dtype), w.to(dtype), b.to(dtype)
 
 
+def bound_ms(nbytes, flops=0.0, peak=None):
+    """The least time the card could take: bytes over 3.35 TB/s or FLOPs
+    over ``peak`` FLOP/s, whichever is larger; returns (ms, "bytes" or
+    "operations")."""
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flop_ms = flops / peak * 1e3 if peak else 0.0
+    return (byte_ms, "bytes") if byte_ms >= flop_ms else (flop_ms,
+                                                          "operations")
+
+
+def adain_bound_ms(x):
+    """x read once and written once, plus the (B, C) weight and bias;
+    a few operations per element, far below the ridge."""
+    b, _, _, c = x.shape
+    return bound_ms(2 * x.numel() * x.element_size()
+                    + 2 * b * c * x.element_size())[0]
+
+
+def adain_host_us(device):
+    """Host microseconds per AdaIN call: a host clock over 200 enqueues of
+    a (16, 512) call at batch 32, before the one synchronise that ends
+    them; and with it."""
+    x, w, b = adain_inputs(DRIVE_BATCH, 16, 512, torch.bfloat16, device, 7)
+    for _ in range(10):
+        adain_op.adain(x, w, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        adain_op.adain(x, w, b)
+    enqueue = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) / 200 * 1e6
+    return enqueue, total
+
+
+def adain_kernels_per_call(device):
+    """CUDA kernels the profiler sees in one AdaIN call (bf16, batch 32,
+    (65536, 64)); None where the profiler records no device activity."""
+    x, w, b = adain_inputs(DRIVE_BATCH, 65536, 64, torch.bfloat16, device, 8)
+    adain_op.adain(x, w, b)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        adain_op.adain(x, w, b)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (len(names), sorted(set(names))) if names else (None, [])
+
+
 def phase_kernels(device):
     """Kernel against its plain version at every AdaIN shape of the path:
-    B=8 in f32 and bf16, and the drive's own B=32 bf16, which is also timed."""
-    max_err, ms, plain_ms = 0.0, 0.0, 0.0
+    B=8 in f32 and bf16, and the drive's own B=32 bf16, which is also timed
+    beside its bound; then the wrapper's host cost and the profiler's count
+    of kernels in one call.  Returns (max_abs_err, ms, plain_ms, bound_ms)
+    summed over the 17 calls of one bf16 frame batch of 32."""
+    max_err, ms, plain_ms, bound = 0.0, 0.0, 0.0, 0.0
     cases = [(8, torch.float32), (8, torch.bfloat16),
              (DRIVE_BATCH, torch.bfloat16)]
     for batch, dtype in cases:
@@ -154,16 +216,28 @@ def phase_kernels(device):
                 iters = 50 if hw < 16384 else 20
                 k = cuda_ms(lambda: adain_op.adain(x, w, b), iters)
                 p = cuda_ms(lambda: adain_op.adain_reference(x, w, b), iters)
-                gbytes = 3 * x.numel() * x.element_size() / 1e9
+                lo = adain_bound_ms(x)
+                plan, _ = adain_op.card_plan(hw, c, dtype)
                 line += (f" kernel_ms={k:.4f} plain_ms={p:.4f} "
-                         f"kernel_GB/s={gbytes / k * 1e3:.0f} "
-                         f"(x{count} per frame batch)")
+                         f"bound_ms={lo:.4f} (bytes) share={lo / k:.3f} "
+                         f"cluster={plan.cluster} holds_sample="
+                         f"{plan.holds_sample} (x{count} per frame batch)")
                 ms += count * k
                 plain_ms += count * p
+                bound += count * lo
             print(line, flush=True)
     print(f"adain: 17 calls of one bf16 frame batch of {DRIVE_BATCH}: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    return max_err, ms, plain_ms
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+          f"(bytes, 3.35 TB/s), share {bound / ms:.3f}", flush=True)
+    enqueue, total = adain_host_us(device)
+    print(f"adain host cost, (16, 512) bf16 batch {DRIVE_BATCH}: "
+          f"{enqueue:.1f} us per call enqueued (200 calls), {total:.1f} us "
+          f"with the closing synchronise", flush=True)
+    kernels, names = adain_kernels_per_call(device)
+    print(f"adain: CUDA kernels in one call (torch.profiler): "
+          f"{kernels if kernels is not None else 'not measured'} {names}",
+          flush=True)
+    return max_err, ms, plain_ms, bound
 
 
 def link_inputs(m, cin, cout, dtype, device, seed):
@@ -192,14 +266,26 @@ def check_link(x, scale, offset, w):
     return err, ref
 
 
+def link_bound_ms(m, cin, cout, dtype):
+    """x, W, scale and offset read once, y and the (2, Cout) stats written
+    once; 2·M·Cin·Cout FLOPs at the tensor cores' rate for the input type
+    (bf16, or TF32 for f32 inputs, the card's fastest f32-input rate)."""
+    size = torch.finfo(dtype).bits // 8
+    nbytes = (m * cin + cin * cout + m * cout) * size + (2 * cin + 2 * cout) * 4
+    return bound_ms(nbytes, 2 * m * cin * cout, PEAK_FLOPS[dtype])
+
+
 @torch.no_grad()
 def phase_conv_bn(device):
     """The fused kernel against its plain version at every link shape of
     ResNeXt-50, f32 and bf16: at 8 frames, a ragged M, and the ê pass's 64
-    frames, which are also timed beside the plain version; returns
-    (max_abs_err, ms, plain_ms) with the times summed over the 16 links of
-    one f32 forward."""
-    max_err, ms, plain_ms = 0.0, 0.0, 0.0
+    frames, which are also timed beside the plain version, the bound and
+    the product alone (``torch.matmul`` of the already-normalised
+    activation in W's dtype, TF32 off); returns (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by, library_ms) with the times summed over the 16 links
+    of one f32 forward."""
+    max_err, ms, plain_ms, bound, library = 0.0, 0.0, 0.0, 0.0, 0.0
+    bound_by = set()
     cases = [(8 * rows, cin, cout, dtype) for rows, cin, cout, _ in CONV_LINKS
              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(1000, 256, 512, torch.float32), (1000, 256, 512,
@@ -219,17 +305,30 @@ def phase_conv_bn(device):
                 x, scale, offset, w), 20)
             p = cuda_ms(lambda: conv_bn.bn_relu_conv1x1_stats_reference(
                 x, scale, offset, w), 20)
+            h = torch.relu(x.float() * scale + offset).to(w.dtype)
+            lib = cuda_ms(lambda: torch.matmul(h, w), 20)
+            del h
+            lo, by = link_bound_ms(m, cin, cout, dtype)
             tflops = 2 * m * cin * cout / k / 1e9
             print(f"conv_bn 64 frames M={m} {cin}->{cout} {str(dtype)[6:]}: "
                   f"max_abs_err={err:.3g} (max |y| {ref:.3g}) "
-                  f"kernel_ms={k:.4f} plain_ms={p:.4f} kernel_TFLOP/s="
-                  f"{tflops:.1f} (x{count} per forward)", flush=True)
+                  f"kernel_ms={k:.4f} plain_ms={p:.4f} matmul_ms={lib:.4f} "
+                  f"bound_ms={lo:.4f} ({by}) share={lo / k:.3f} "
+                  f"kernel_TFLOP/s={tflops:.1f} (x{count} per forward)",
+                  flush=True)
             if dtype == torch.float32:
                 ms += count * k
                 plain_ms += count * p
+                bound += count * lo
+                library += count * lib
+                bound_by.add(by)
     print(f"conv_bn: 16 links of one f32 forward of 64 frames: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-    return max_err, ms, plain_ms
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, product alone "
+          f"{library:.4f} ms, bound {bound:.4f} ms, share {bound / ms:.3f}",
+          flush=True)
+    # the sum's bound is set by operations wherever the largest terms are
+    return (max_err, ms, plain_ms, bound,
+            "operations" if "operations" in bound_by else "bytes", library)
 
 
 def phase_meta_checkpoint(workdir):
@@ -343,6 +442,12 @@ def phase_finetune(meta_ckpt, workdir, device):
     ft.compute_averaged_identity_embedding(state, loader, device)
     torch.cuda.synchronize()
     ehat_fps = frames / (time.perf_counter() - t0)
+    enc = torch.as_tensor(loader.get_batch(0)[0]["enc_rgbs"]).to(device)
+    staged = [({"enc_rgbs": enc}, None)]      # one batch already on the card
+    ehat_card_ms = cuda_ms(lambda: ft.compute_averaged_identity_embedding(
+        state, staged, device), 5)
+    card_frames = enc.shape[0] * enc.shape[1]
+    del staged, enc
     batch = holycow.to_device(loader.get_batch(0), device)
     step_fn(state, batch)
     torch.cuda.synchronize()
@@ -355,7 +460,9 @@ def phase_finetune(meta_ckpt, workdir, device):
     peak = torch.cuda.max_memory_allocated() / 2**20
     print(f"finetune f32 batch {FT_BATCH} {args.image_size}²: ehat_frames/s="
           f"{ehat_fps:.1f} ({frames} frames from the host; first pass with ê setup "
-          f"{ehat_s:.2f} s) step_ms={step_ms:.2f} images/s="
+          f"{ehat_s:.2f} s) ehat_card_ms={ehat_card_ms:.3f} ({card_frames} "
+          f"frames on the card, {card_frames / ehat_card_ms * 1e3:.1f} "
+          f"frames/s) step_ms={step_ms:.2f} images/s="
           f"{FT_BATCH / step_ms * 1e3:.2f} peak_mem_MiB={peak:.0f}",
           flush=True)
     path = train_cli.save(args, state)
@@ -563,8 +670,9 @@ def main():
     for mod in kernels.values():
         print(build_log(load_library(*mod.LIBRARY)), flush=True)
 
-    adain_err, adain_ms, adain_plain_ms = phase_kernels(device)
-    conv_err, conv_ms, conv_plain_ms = phase_conv_bn(device)
+    adain_err, adain_ms, adain_plain_ms, adain_bound = phase_kernels(device)
+    (conv_err, conv_ms, conv_plain_ms, conv_bound, conv_bound_by,
+     conv_library_ms) = phase_conv_bn(device)
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as workdir:
@@ -590,13 +698,19 @@ def main():
         "source": "latentpose_tpu_torch/csrc/adain_fused.cu",
         "replaces": "latentpose_tpu/ops/pallas/adain_fused.py:78",
         "launches": launches["adain_fused"], "max_abs_err": adain_err,
-        "ms": adain_ms, "plain_ms": adain_plain_ms}, {
+        "ms": adain_ms, "plain_ms": adain_plain_ms, "bound_ms": adain_bound,
+        "bound_by": "bytes", "library_ms": None,
+        "library_call": "none: no single PyTorch call computes instance "
+                        "norm with a per-sample affine and ReLU"}, {
         "name": "bn_relu_conv1x1_stats", "route": "cuda",
         "source": "latentpose_tpu_torch/csrc/conv_bn_fused.cu",
         "replaces": "latentpose_tpu/ops/pallas/conv_bn_fused.py:58",
         "launches": launches["bn_relu_conv1x1_stats"],
         "max_abs_err": conv_err, "ms": conv_ms,
-        "plain_ms": conv_plain_ms}]}))
+        "plain_ms": conv_plain_ms, "bound_ms": conv_bound,
+        "bound_by": conv_bound_by, "library_ms": conv_library_ms,
+        "library_call": "torch.matmul(h, w), the product alone on the "
+                        "already-normalised activation, f32, TF32 off"}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

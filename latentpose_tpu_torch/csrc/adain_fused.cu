@@ -2,37 +2,55 @@
 //
 // Replaces the TPU kernel latentpose_tpu/ops/pallas/adain_fused.py
 // (adain_fused, body _adain_kernel).  The generator applies this op 17 times
-// per frame; each application reads x twice and writes it once, with almost
-// no arithmetic per byte, so the kernel is bound by device-memory bandwidth.
+// per frame.  It needs one read and one write of x with almost no arithmetic
+// per byte, so the card's bound is device-memory bandwidth: bytes(x) * 2 /
+// 3.35 TB/s.  At the small shapes (4x4 .. 16x16 at 512 channels) a call is
+// pure latency, so the design also keeps to one launch.
 //
-// The TPU kernel walks a sequential grid and carries the per-channel sums from
-// one grid step to the next.  Blocks on this card run in parallel and in no
-// order, so the work is split into three launches instead:
+// One launch, one thread-block cluster per sample (grid = (cluster, batch)):
 //
-//   1. adain_stats: blocks over (pixel chunk, sample).  Each thread owns one
-//      16-byte vector of channels and walks the chunk's pixels with f32 sum and
-//      sum of squares; the block folds its rows together and writes one f32
-//      partial per (sample, chunk, {sum, sumsq}, channel).  Many chunks keep
-//      all SMs busy even at the (65536, 64) shapes.
-//   2. adain_finalize: one thread per (sample, channel) reduces the chunks,
-//      clamps the one-pass variance at 0 (as ops/norms.py does, unlike the
-//      Pallas kernel) and folds IN and the affine into scale and shift.
-//   3. adain_apply: the same (chunk, sample) grid streams x again and writes
-//      x * scale + shift, with the ReLU fused, in x's dtype.
+//   1. Each block owns a contiguous slice of the sample's pixels.  It keeps
+//      the last `resident` pixels of its slice in shared memory: one thread
+//      issues TMA bulk copies (cp.async.bulk, one mbarrier per chunk), and
+//      the block streams the rest of the slice (the "overflow", only where
+//      the sample does not fit the cluster's shared memory) from device
+//      memory meanwhile.  Each thread owns one 16-byte vector of channels and
+//      accumulates f32 sum and sum of squares over its pixel rows.
+//   2. The block folds its rows into per-channel partials in shared memory;
+//      after cluster.sync() every block reads all blocks' partials through
+//      distributed shared memory in rank order (fixed order, no atomics: two
+//      runs are bitwise equal, and every block gets the same totals).  The
+//      one-pass variance is clamped at 0 as ops/norms.py does; IN and the
+//      affine fold into per-channel scale and shift.
+//   3. Each block writes x * scale + shift (ReLU fused) for its slice: the
+//      overflow first, re-read in reverse order so that the most recently
+//      read lines (still in L2) come first, then the resident pixels from
+//      shared memory.  So x is read from device memory once wherever the
+//      sample fits the cluster.
+//
+// The launch plan (cluster size, pixels per block, resident pixels, chunk
+// size, shared-memory bytes) comes from ops/adain.py plan_launch, which also
+// asks adain_max_active_clusters that the cluster fits the card.
 //
 // x and out are (B, HW, C) contiguous (NHWC).  weight and bias are (B, C) in
 // x's dtype with a row stride (0 broadcasts one row over the batch).  All
 // statistics are f32 for f32 and bf16 inputs alike.  The kernel allocates
-// nothing: the caller passes the f32 scratch `partial` (B, chunks, 2, C) and
-// `coef` (B, 2, C).
+// nothing and needs no scratch.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxChunks = 16;           // mbarriers, one per bulk-copy chunk
+constexpr int kBarBytes = kMaxChunks * 8;
+constexpr int kSmemLimit = 232448;       // opt-in shared memory per block on sm_90
+constexpr int kBatch = 8;                // overflow vectors in flight per thread
 
 template <typename T>
 struct Vec;
@@ -73,9 +91,9 @@ struct Vec<__nv_bfloat16> {
   __device__ static float scalar(__nv_bfloat16 x) { return __bfloat162float(x); }
 };
 
-// Thread layout shared by the stats and apply passes: thread t owns channel
-// vector g = t % groups and pixel row r = t / groups of each step of `rows`
-// pixels.  Threads with r >= rows (when groups does not divide kThreads) idle.
+// Thread t owns channel vector g = t % groups and pixel row r = t / groups of
+// each step of `rows` pixels.  Threads with r >= rows (when groups does not
+// divide kThreads) idle.
 struct Layout {
   int groups, rows, g, r;
   __device__ Layout(int c, int vec) {
@@ -86,138 +104,288 @@ struct Layout {
   }
 };
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra LAB_WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One TMA bulk copy of `bytes` (a multiple of 16) from device memory into this
+// block's shared memory; completion is counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-adain_stats(const T* __restrict__ x, float* __restrict__ partial, int hw, int c,
-            int chunk_pixels) {
+adain_cluster(const T* __restrict__ x, const T* __restrict__ weight, long long w_stride,
+              const T* __restrict__ bias, long long b_stride, T* __restrict__ out, int hw, int c,
+              int block_pixels, int resident_cap, int chunk_pixels, int relu, float eps) {
   using V = Vec<T>;
-  __shared__ float red_s[kThreads * V::N];
-  __shared__ float red_q[kThreads * V::N];
-  const int b = blockIdx.y, chunk = blockIdx.x, chunks = gridDim.x;
-  const Layout L(c, V::N);
+  constexpr int N = V::N;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  float* part = reinterpret_cast<float*>(smem + kBarBytes);       // (2, c): Σx, Σx²
+  float* red = part + 2 * c;                                      // (2, kThreads * N)
+  T* data = reinterpret_cast<T*>(red + 2 * kThreads * N);         // resident pixels
 
-  float s[V::N], q[V::N];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int blocks = (int)cluster.num_blocks();
+  const int b = blockIdx.y;
+  const int p0 = rank * block_pixels;
+  const int count = max(0, min(block_pixels, hw - p0));
+  const int resident = min(count, resident_cap);
+  const int overflow = count - resident;   // the slice's first pixels, streamed
+  const int chunks = (resident + chunk_pixels - 1) / chunk_pixels;
+  const T* xs = x + ((size_t)b * hw + p0) * c;
+  T* os = out + ((size_t)b * hw + p0) * c;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < chunks; ++i) mbar_init(&bars[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int i = 0; i < chunks; ++i) {
+      const int pa = i * chunk_pixels, pb = min(pa + chunk_pixels, resident);
+      bulk_load(data + (size_t)pa * c, xs + (size_t)(overflow + pa) * c,
+                (uint32_t)((size_t)(pb - pa) * c * sizeof(T)), &bars[i]);
+    }
+  }
+  __syncthreads();   // the barriers are initialised before anyone waits
+
+  const Layout L(c, N);
+  float s[N], q[N];
 #pragma unroll
-  for (int i = 0; i < V::N; ++i) s[i] = q[i] = 0.f;
+  for (int i = 0; i < N; ++i) s[i] = q[i] = 0.f;
   if (L.r < L.rows) {
-    const int p0 = chunk * chunk_pixels;
-    const int p1 = min(p0 + chunk_pixels, hw);
-    const T* xb = x + (size_t)b * hw * c + (size_t)L.g * V::N;
-    for (int p = p0 + L.r; p < p1; p += L.rows) {
-      float v[V::N];
-      V::load(xb + (size_t)p * c, v);
+    const int col = L.g * N;
+    // The overflow streams from device memory kBatch vectors at a time, so
+    // that each thread keeps kBatch loads in flight.
+    int p = L.r;
+    for (; p + (kBatch - 1) * L.rows < overflow; p += kBatch * L.rows) {
+      float v[kBatch][N];
 #pragma unroll
-      for (int i = 0; i < V::N; ++i) {
+      for (int u = 0; u < kBatch; ++u) V::load(xs + (size_t)(p + u * L.rows) * c + col, v[u]);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          s[i] += v[u][i];
+          q[i] += v[u][i] * v[u][i];
+        }
+    }
+    for (; p < overflow; p += L.rows) {
+      float v[N];
+      V::load(xs + (size_t)p * c + col, v);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
         s[i] += v[i];
         q[i] += v[i] * v[i];
+      }
+    }
+    for (int k = 0; k < chunks; ++k) {
+      mbar_wait(&bars[k], 0);
+      const int pb = min((k + 1) * chunk_pixels, resident);
+      for (int p = k * chunk_pixels + L.r; p < pb; p += L.rows) {
+        float v[N];
+        V::load(data + (size_t)p * c + col, v);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          s[i] += v[i];
+          q[i] += v[i] * v[i];
+        }
       }
     }
   }
   // Row r's value for channel ch = g * N + i lands at r * c + ch.
 #pragma unroll
-  for (int i = 0; i < V::N; ++i) {
-    red_s[threadIdx.x * V::N + i] = s[i];
-    red_q[threadIdx.x * V::N + i] = q[i];
+  for (int i = 0; i < N; ++i) {
+    red[threadIdx.x * N + i] = s[i];
+    red[kThreads * N + threadIdx.x * N + i] = q[i];
   }
   __syncthreads();
-  float* out = partial + ((size_t)b * chunks + chunk) * 2 * c;
   for (int ch = threadIdx.x; ch < c; ch += kThreads) {
     float ts = 0.f, tq = 0.f;
     for (int r = 0; r < L.rows; ++r) {
-      ts += red_s[r * c + ch];
-      tq += red_q[r * c + ch];
+      ts += red[r * c + ch];
+      tq += red[kThreads * N + r * c + ch];
     }
-    out[ch] = ts;
-    out[c + ch] = tq;
+    part[ch] = ts;
+    part[c + ch] = tq;
   }
-}
+  cluster.sync();   // every block's partials are written and visible
 
-template <typename T>
-__global__ void adain_finalize(const float* __restrict__ partial, const T* __restrict__ weight,
-                               long long w_stride, const T* __restrict__ bias, long long b_stride,
-                               float* __restrict__ coef, int hw, int c, int chunks, float eps) {
-  const int b = blockIdx.y;
-  const int ch = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ch >= c) return;
-  float s = 0.f, q = 0.f;
-  const float* p = partial + (size_t)b * chunks * 2 * c + ch;
-  for (int k = 0; k < chunks; ++k) {
-    s += p[(size_t)k * 2 * c];
-    q += p[(size_t)k * 2 * c + c];
-  }
+  // Totals over the cluster in rank order; scale and shift go where the
+  // row partials were.
+  float* coef = red;
   const float n = (float)hw;
-  const float mean = s / n;
-  const float var = fmaxf(q / n - mean * mean, 0.f);
-  const float scale = Vec<T>::scalar(weight[b * w_stride + ch]) * rsqrtf(var + eps);
-  coef[(size_t)b * 2 * c + ch] = scale;
-  coef[(size_t)b * 2 * c + c + ch] = Vec<T>::scalar(bias[b * b_stride + ch]) - mean * scale;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-adain_apply(const T* __restrict__ x, const float* __restrict__ coef, T* __restrict__ out,
-            int hw, int c, int chunk_pixels, int relu) {
-  using V = Vec<T>;
-  const int b = blockIdx.y, chunk = blockIdx.x;
-  const Layout L(c, V::N);
-  if (L.r >= L.rows) return;
-  float scale[V::N], shift[V::N];
-  const float* cb = coef + (size_t)b * 2 * c + L.g * V::N;
-#pragma unroll
-  for (int i = 0; i < V::N; ++i) {
-    scale[i] = cb[i];
-    shift[i] = cb[c + i];
+  for (int ch = threadIdx.x; ch < c; ch += kThreads) {
+    float ts = 0.f, tq = 0.f;
+    for (int k = 0; k < blocks; ++k) {
+      const float* remote = cluster.map_shared_rank(part, k);
+      ts += remote[ch];
+      tq += remote[c + ch];
+    }
+    const float mean = ts / n;
+    const float var = fmaxf(tq / n - mean * mean, 0.f);
+    const float scale = V::scalar(weight[b * w_stride + ch]) * rsqrtf(var + eps);
+    coef[ch] = scale;
+    coef[c + ch] = V::scalar(bias[b * b_stride + ch]) - mean * scale;
   }
-  const int p0 = chunk * chunk_pixels;
-  const int p1 = min(p0 + chunk_pixels, hw);
-  const size_t base = (size_t)b * hw * c + (size_t)L.g * V::N;
-  for (int p = p0 + L.r; p < p1; p += L.rows) {
-    float v[V::N];
-    V::load(x + base + (size_t)p * c, v);
+  cluster.sync();   // no block leaves while another still reads its partials
+
+  if (L.r >= L.rows) return;
+  const int col = L.g * N;
+  float scale[N], shift[N];
 #pragma unroll
-    for (int i = 0; i < V::N; ++i) {
+  for (int i = 0; i < N; ++i) {
+    scale[i] = coef[col + i];
+    shift[i] = coef[c + col + i];
+  }
+  int p = overflow - 1 - L.r;
+  for (; p - (kBatch - 1) * L.rows >= 0; p -= kBatch * L.rows) {
+    float v[kBatch][N];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) V::load(xs + (size_t)(p - u * L.rows) * c + col, v[u]);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        v[u][i] = v[u][i] * scale[i] + shift[i];
+        if (relu) v[u][i] = fmaxf(v[u][i], 0.f);
+      }
+      V::store(os + (size_t)(p - u * L.rows) * c + col, v[u]);
+    }
+  }
+  for (; p >= 0; p -= L.rows) {
+    float v[N];
+    V::load(xs + (size_t)p * c + col, v);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
       v[i] = v[i] * scale[i] + shift[i];
       if (relu) v[i] = fmaxf(v[i], 0.f);
     }
-    V::store(out + base + (size_t)p * c, v);
+    V::store(os + (size_t)p * c + col, v);
   }
+#pragma unroll 4
+  for (int p = L.r; p < resident; p += L.rows) {
+    float v[N];
+    V::load(data + (size_t)p * c + col, v);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      v[i] = v[i] * scale[i] + shift[i];
+      if (relu) v[i] = fmaxf(v[i], 0.f);
+    }
+    V::store(os + (size_t)(overflow + p) * c + col, v);
+  }
+}
+
+template <typename T>
+cudaError_t allow_large_clusters() {
+  static cudaError_t err = [] {
+    cudaError_t e = cudaFuncSetAttribute(adain_cluster<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(adain_cluster<T>,
+                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }();
+  return err;
+}
+
+template <typename T>
+cudaLaunchConfig_t config(int cluster, int batch, int smem, cudaStream_t stream,
+                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, batch, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* weight, long long w_stride, const void* bias,
-                   long long b_stride, void* out, float* partial, float* coef, int batch, int hw,
-                   int c, int chunk_pixels, int chunks, int relu, float eps, cudaStream_t stream) {
-  const dim3 grid(chunks, batch);
-  adain_stats<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), partial, hw, c,
-                                                 chunk_pixels);
-  cudaError_t err = cudaGetLastError();
+                   long long b_stride, void* out, int batch, int hw, int c, int cluster,
+                   int block_pixels, int resident_cap, int chunk_pixels, int smem, int relu,
+                   float eps, cudaStream_t stream) {
+  cudaError_t err = allow_large_clusters<T>();
   if (err != cudaSuccess) return err;
-  adain_finalize<T><<<dim3((c + kThreads - 1) / kThreads, batch), kThreads, 0, stream>>>(
-      partial, static_cast<const T*>(weight), w_stride, static_cast<const T*>(bias), b_stride,
-      coef, hw, c, chunks, eps);
-  err = cudaGetLastError();
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = config<T>(cluster, batch, smem, stream, attr);
+  err = cudaLaunchKernelEx(&cfg, adain_cluster<T>, static_cast<const T*>(x),
+                           static_cast<const T*>(weight), w_stride,
+                           static_cast<const T*>(bias), b_stride, static_cast<T*>(out), hw, c,
+                           block_pixels, resident_cap, chunk_pixels, relu, eps);
   if (err != cudaSuccess) return err;
-  adain_apply<T><<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), coef,
-                                                 static_cast<T*>(out), hw, c, chunk_pixels, relu);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t active_clusters(int cluster, int smem, int* count) {
+  cudaError_t err = allow_large_clusters<T>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = config<T>(cluster, 1, smem, 0, attr);
+  return cudaOccupancyMaxActiveClusters(count, adain_cluster<T>, &cfg);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 on success).
-// The caller has checked shapes, alignment and that c / (16 / itemsize)
-// divides into at most kThreads channel vectors.
+// plan: {hw, c, cluster, block_pixels, resident_cap, chunk_pixels, smem,
+// dtype} from ops/adain.py plan_launch (dtype: 0 = float32, 1 = bfloat16):
+// cluster blocks per sample, block_pixels per block, at most resident_cap of
+// them (in chunks of chunk_pixels, at most kMaxChunks) held in smem bytes of
+// shared memory.  Returns a cudaError_t (0 on success).  The caller has
+// checked shapes and alignment and that C / (16 / itemsize) is at most
+// kThreads channel vectors.
 extern "C" int adain_fused_forward(const void* x, const void* weight, long long w_stride,
-                                   const void* bias, long long b_stride, void* out,
-                                   float* partial, float* coef, int batch, int hw, int c,
-                                   int chunk_pixels, int chunks, int dtype, int relu, float eps,
-                                   void* stream) {
+                                   const void* bias, long long b_stride, void* out, int batch,
+                                   const int* plan, int relu, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int hw = plan[0], c = plan[1], cluster = plan[2], block_pixels = plan[3],
+            resident_cap = plan[4], chunk_pixels = plan[5], smem = plan[6], dtype = plan[7];
   if (dtype == 0)
-    return launch<float>(x, weight, w_stride, bias, b_stride, out, partial, coef, batch, hw, c,
-                         chunk_pixels, chunks, relu, eps, s);
+    return launch<float>(x, weight, w_stride, bias, b_stride, out, batch, hw, c, cluster,
+                         block_pixels, resident_cap, chunk_pixels, smem, relu, eps, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, weight, w_stride, bias, b_stride, out, partial, coef, batch,
-                                 hw, c, chunk_pixels, chunks, relu, eps, s);
+    return launch<__nv_bfloat16>(x, weight, w_stride, bias, b_stride, out, batch, hw, c,
+                                 cluster, block_pixels, resident_cap, chunk_pixels, smem, relu,
+                                 eps, s);
+  return cudaErrorInvalidValue;
+}
+
+// How many clusters of `cluster` blocks with `smem` bytes each the card can
+// hold at once (0: the plan cannot launch).
+extern "C" int adain_max_active_clusters(int cluster, int smem, int dtype, int* count) {
+  if (dtype == 0) return active_clusters<float>(cluster, smem, count);
+  if (dtype == 1) return active_clusters<__nv_bfloat16>(cluster, smem, count);
   return cudaErrorInvalidValue;
 }

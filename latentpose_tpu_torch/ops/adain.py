@@ -2,16 +2,17 @@
 
 The kernel (``csrc/adain_fused.cu``) replaces the TPU kernel
 ``latentpose_tpu/ops/pallas/adain_fused.py`` (``adain_fused``).  It is bound
-by device-memory bandwidth: per call it reads x twice and writes it once.
-The TPU kernel carried its sums along a sequential grid; on the card blocks
-run in no order, so a first pass writes f32 partial sums per (sample, pixel
-chunk), a tiny pass folds them into per-channel scale and shift, and a second
-pass streams x again and applies them with the ReLU fused.  The chunk plan
-(:func:`plan_chunks`) is chosen here, in Python, so the CPU tests reach it.
+by device-memory bandwidth: one read and one write of x per call.  The TPU
+kernel carried its sums along a sequential grid; on the card one launch runs
+a thread-block cluster per sample: each block holds its slice of the sample's
+pixels in shared memory (TMA bulk copies) while it sums them, the blocks
+exchange partial sums through distributed shared memory in a fixed order, and
+each block writes its slice normalised, with the ReLU fused.  The launch plan
+(:func:`plan_launch`) is chosen here, in Python, so the CPU tests reach it.
 
 A CPU tensor goes to :func:`adain_reference`; a CUDA tensor launches the
 kernel or raises.  ``adain.launches`` counts the calls that launched the
-kernel (three CUDA launches each), so a run can show that its main path went
+kernel (one CUDA launch each), so a run can show that its main path went
 through it.  Training differentiates through a ``torch.autograd.Function``
 whose backward (:func:`adain_backward`) is plain PyTorch in f32.
 """
@@ -20,15 +21,68 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from latentpose_tpu_torch.ops import norms
 
 THREADS = 256           # csrc/adain_fused.cu kThreads
-TARGET_BLOCKS = 1024    # ~8 resident 256-thread blocks on each of 132 SMs
+SMEM_LIMIT = 232448     # shared memory a block may opt into on sm_90
+MAX_CLUSTER = 16        # blocks per cluster (above 8: a non-portable size)
+SLICE_BYTES = 128 << 10  # pixels of a sample per block, aimed at
+# where a sample cannot stay on chip, each block keeps this much of its slice
+# resident, so that two or three blocks share an SM and more clusters run at
+# once (measured faster on the H100 than filling shared memory)
+STREAMED_RESIDENT_BYTES = 64 << 10
+CHUNKS = 8              # bulk copies (mbarriers) per block's resident part
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LIBRARY = ("adain_fused", ("adain_fused.cu",))   # name, sources under csrc/
+
+
+class Plan(NamedTuple):
+    """One launch: ``cluster`` blocks per sample, each over
+    ``block_pixels`` consecutive pixels, of which at most ``resident``
+    stay in shared memory (copied in chunks of ``chunk_pixels``);
+    ``smem`` bytes of dynamic shared memory per block."""
+    cluster: int
+    block_pixels: int
+    resident: int
+    chunk_pixels: int
+    smem: int
+
+    @property
+    def holds_sample(self) -> bool:
+        """x is read from device memory once: every pixel stays on chip."""
+        return self.resident >= self.block_pixels
+
+
+def smem_bytes(c: int, itemsize: int, resident: int) -> int:
+    """Shared memory of one block (csrc/adain_fused.cu layout): 16
+    mbarriers, the (2, C) f32 block partials, the f32 row partials of every
+    thread, then ``resident`` pixels of x."""
+    vec = 16 // itemsize
+    return 128 + 8 * c + 2 * 4 * THREADS * vec + resident * c * itemsize
+
+
+def plan_launch(hw: int, c: int, itemsize: int,
+                max_cluster: int = MAX_CLUSTER) -> Plan:
+    """The launch plan for samples of (hw, c) in one dtype (the batch only
+    sets the grid's second dimension).  A sample is cut into slices of about
+    SLICE_BYTES, one block each, at most ``max_cluster`` blocks.  A block
+    keeps its whole slice in shared memory where it fits beside the block's
+    fixed buffers; otherwise it keeps STREAMED_RESIDENT_BYTES of it and
+    streams the rest twice."""
+    row = c * itemsize
+    cluster = max(1, min(max_cluster, -(-hw * row // SLICE_BYTES), hw))
+    block_pixels = -(-hw // cluster)
+    cluster = -(-hw // block_pixels)          # no block without pixels
+    fits = (SMEM_LIMIT - smem_bytes(c, itemsize, 0)) // row
+    resident = block_pixels if block_pixels <= fits else \
+        max(1, min(fits, STREAMED_RESIDENT_BYTES // row))
+    chunk_pixels = max(1, -(-resident // CHUNKS))
+    return Plan(cluster, block_pixels, resident, chunk_pixels,
+                smem_bytes(c, itemsize, resident))
 
 
 def adain_reference(x, weight, bias, relu: bool = True, eps: float = 1e-4):
@@ -36,21 +90,6 @@ def adain_reference(x, weight, bias, relu: bool = True, eps: float = 1e-4):
     affine, as the kernel computes them), optional ReLU, cast to x's dtype."""
     y = norms.adain(x.float(), weight.float(), bias.float(), eps)
     return (torch.relu(y) if relu else y).to(x.dtype)
-
-
-def plan_chunks(batch: int, hw: int, c: int, itemsize: int):
-    """Pixels per chunk and chunk count for a (batch, hw, c) call.
-
-    Each thread owns one 16-byte vector of channels; a 256-thread block
-    covers ``rows`` pixels per step.  Chunks are sized so the grid has about
-    TARGET_BLOCKS blocks (one wave on the card) when the tensor allows it.
-    """
-    vec = 16 // itemsize
-    rows = THREADS // (c // vec)
-    per_sample = -(-TARGET_BLOCKS // batch)
-    chunk_pixels = max(rows, -(-hw // per_sample))
-    chunk_pixels = -(-chunk_pixels // rows) * rows
-    return chunk_pixels, -(-hw // chunk_pixels)
 
 
 def _check(x, weight, bias):
@@ -87,12 +126,41 @@ def check_kernel_layout(x):
 def kernel_entry():
     """Build (at first use) and bind the kernel's C entry point."""
     from latentpose_tpu_torch.ops.cuda_build import load_library
-    fn = load_library(*LIBRARY).adain_fused_forward
+    lib = load_library(*LIBRARY)
+    fn = lib.adain_fused_forward
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [p, p, ll, p, ll, p, p, p, i, i, i, i, i, i, i,
-                   ctypes.c_float, p]
+    fn.argtypes = [p, p, ll, p, ll, p, i, p, i, ctypes.c_float, p]
     fn.restype = ctypes.c_int
-    return fn
+    occupancy = lib.adain_max_active_clusters
+    occupancy.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
+    occupancy.restype = ctypes.c_int
+    return fn, occupancy
+
+
+_plans: dict = {}
+
+
+def card_plan(hw: int, c: int, dtype: torch.dtype):
+    """:func:`plan_launch` for the card, cached per (HW, C, dtype): the
+    largest cluster (16, 8, ... 1) that the card can hold at least once.
+    Returns the plan and its C form (hw, c, the plan's fields, dtype) as an
+    int array, so that a launch passes it as one pointer."""
+    key = (hw, c, dtype)
+    if key not in _plans:
+        _, occupancy = kernel_entry()
+        for max_cluster in (16, 8, 4, 2, 1):
+            plan = plan_launch(hw, c, torch.finfo(dtype).bits // 8,
+                               max_cluster)
+            count = ctypes.c_int(0)
+            err = occupancy(plan.cluster, plan.smem, _DTYPES[dtype],
+                            ctypes.byref(count))
+            if err == 0 and count.value > 0:
+                break
+        else:
+            raise RuntimeError(f"adain: no cluster fits the card for "
+                               f"HW={hw} C={c} {dtype} (cudaError_t {err})")
+        _plans[key] = plan, (ctypes.c_int * 8)(hw, c, *plan, _DTYPES[dtype])
+    return _plans[key]
 
 
 def adain(x, weight, bias, relu: bool = True, eps: float = 1e-4):
@@ -104,7 +172,10 @@ def adain(x, weight, bias, relu: bool = True, eps: float = 1e-4):
     _check(x, weight, bias)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"adain: unsupported device {x.device}")
-    return _AdaIN.apply(x, weight, bias, relu, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return _AdaIN.apply(x, weight, bias, relu, eps)
+    return _forward(x, weight, bias, relu, eps)     # no graph to record
 
 
 def adain_backward(x, weight, bias, grad, relu: bool, eps: float):
@@ -138,9 +209,7 @@ class _AdaIN(torch.autograd.Function):
     def forward(ctx, x, weight, bias, relu, eps):
         ctx.save_for_backward(x, weight, bias)
         ctx.relu, ctx.eps = relu, eps
-        if x.device.type == "cpu":
-            return adain_reference(x, weight, bias, relu, eps)
-        return _launch(x, weight, bias, relu, eps)
+        return _forward(x, weight, bias, relu, eps)
 
     @staticmethod
     def backward(ctx, grad):
@@ -149,22 +218,29 @@ class _AdaIN(torch.autograd.Function):
                 None, None)
 
 
+def _forward(x, weight, bias, relu, eps):
+    if x.device.type == "cpu":
+        return adain_reference(x, weight, bias, relu, eps)
+    return _launch(x, weight, bias, relu, eps)
+
+
 def _launch(x, weight, bias, relu, eps):
-    """The kernel on a CUDA tensor: three launches, counted as one call."""
+    """The kernel on a CUDA tensor: one launch, no scratch."""
     check_kernel_layout(x)
     b, h, w, c = x.shape
-    chunk_pixels, chunks = plan_chunks(b, h * w, c, x.element_size())
-    fn = kernel_entry()
+    _, plan = card_plan(h * w, c, x.dtype)
+    fn, _ = kernel_entry()
     out = torch.empty_like(x)
-    partial = torch.empty((b, chunks, 2, c), dtype=torch.float32,
-                          device=x.device)
-    coef = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):   # the launch goes to the current device
-        err = fn(x.data_ptr(), weight.data_ptr(), weight.stride(0),
-                 bias.data_ptr(), bias.stride(0), out.data_ptr(),
-                 partial.data_ptr(), coef.data_ptr(), b, h * w, c,
-                 chunk_pixels, chunks, _DTYPES[x.dtype], int(relu),
-                 float(eps), torch.cuda.current_stream().cuda_stream)
+    args = (x.data_ptr(), weight.data_ptr(), weight.stride(0),
+            bias.data_ptr(), bias.stride(0), out.data_ptr(), b, plan,
+            int(relu), float(eps))
+    # the launch goes to the current device, on its current stream (the raw
+    # handle: a Stream object per call costs microseconds of host time)
+    if x.device.index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(x.device.index))
+    else:
+        with torch.cuda.device(x.device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(x.device.index))
     if err:
         raise RuntimeError(f"adain_fused_forward failed: cudaError_t {err}")
     adain.launches += 1

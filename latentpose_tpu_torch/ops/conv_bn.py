@@ -9,23 +9,83 @@ after it would take as its batch statistics.  The ResNeXt-50 identity tower
 runs its bottleneck's bn2 -> ReLU -> conv3 link through it (``scale`` and
 ``offset`` fold bn2's running statistics; the eval form).
 
+On the card it is a Hopper GEMM: TMA loads x and W into a ring of
+shared-memory stages, the BN apply and ReLU run on the x fragment in
+registers, and ``wgmma`` multiplies (bf16 directly; f32 as 3xTF32 on the
+split :func:`split_tf32`, so the result keeps f32 accuracy).  The tile plan
+(:func:`plan_tiles`) is chosen here, in Python, so the CPU tests reach it.
+
 A CPU tensor goes to :func:`bn_relu_conv1x1_stats_reference`; a CUDA tensor
 launches the kernel or raises.  The kernel has no backward yet, so the
 wrapper refuses inputs that would need a gradient through it.
 ``bn_relu_conv1x1_stats.launches`` counts the calls that launched the kernel
-(two CUDA launches each).
+(two CUDA launches each: the product, then the in-order sum of the
+statistics' row-tile partials).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 BLOCK_M = 128            # csrc/conv_bn_fused.cu kBM: rows of y per block
+BLOCK_N = 128            # kBN: columns of y per block
+SLICE_BYTES = 128        # kSliceBytes: Cin bytes per stage (the TMA swizzle span)
+THREADS = 288            # two consumer warpgroups and a producer warp
+MAX_STAGES = 6
+SMEM_LIMIT = 232448      # shared memory a block may opt into on sm_90
+TF32_MASK = -(1 << 13)   # keeps sign, exponent and 10 mantissa bits
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LIBRARY = ("conv_bn_fused", ("conv_bn_fused.cu",))   # name, sources under csrc/
+
+
+class TilePlan(NamedTuple):
+    """One launch of the kernel: row_tiles x col_tiles tiles of y, each
+    BLOCK_M x BLOCK_N, walked by a persistent grid (one block an SM);
+    block_k channels a stage, ``stages`` of them in the ring; ``smem`` bytes
+    of dynamic shared memory."""
+    block_k: int
+    stages: int
+    row_tiles: int
+    col_tiles: int
+    smem: int
+    x_row_bytes: int     # the TMA maps' row strides
+    w_row_bytes: int
+
+
+def staging_bytes(itemsize: int) -> int:
+    """The epilogue's y tile in shared memory, rows padded by 16 bytes."""
+    return BLOCK_M * (BLOCK_N * itemsize + 16)
+
+
+def plan_tiles(m: int, cin: int, cout: int, itemsize: int) -> TilePlan:
+    """The tile plan for (M, Cin) @ (Cin, Cout) in one dtype.  A stage holds
+    the x slice and one (bf16) or two (f32: w_big, w_small) W slices of 128
+    rows x 128 bytes, the stage's slices of scale and offset and two
+    mbarriers; beside the ring sit the staged y tile and the per-warp column
+    sums; the ring takes as many stages as the block's shared memory
+    allows."""
+    w_tiles = 2 if itemsize == 4 else 1
+    # x and W slices, two mbarriers, the f32 slices of scale and offset
+    stage = (BLOCK_M + w_tiles * BLOCK_N) * SLICE_BYTES + 16 \
+        + 2 * 4 * SLICE_BYTES // itemsize
+    fixed = 1024 + staging_bytes(itemsize) + 8 * 2 * BLOCK_N * 4
+    stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) // stage)
+    return TilePlan(SLICE_BYTES // itemsize, stages, -(-m // BLOCK_M),
+                    -(-cout // BLOCK_N), fixed + stages * stage,
+                    cin * itemsize, cin * itemsize)
+
+
+def split_tf32(w):
+    """(w_big, w_small) for f32 ``w``: w_big keeps w's top 10 mantissa bits
+    (TF32, truncated), w_small the same of the remainder; w_big + w_small is
+    w to about 2^-21 relative."""
+    big = (w.view(torch.int32) & TF32_MASK).view(torch.float32)
+    small = ((w - big).view(torch.int32) & TF32_MASK).view(torch.float32)
+    return big, small
 
 
 def fold_bn(mean, var, gamma, beta, eps: float = 1e-5):
@@ -77,15 +137,16 @@ def _check(x, scale, offset, w):
 
 def check_kernel_layout(x, w):
     """What the kernel adds to :func:`_check`: Cin and Cout in whole 16-byte
-    vectors and an aligned x."""
+    vectors (the TMA maps' row strides) and aligned x and w."""
     cin, cout = w.shape
     vec = 16 // x.element_size()
     if cin % vec or cout % vec:
         raise ValueError(f"bn_relu_conv1x1_stats: Cin={cin} and Cout={cout} "
                          f"must be multiples of {vec} for {x.dtype} on the "
                          f"card")
-    if x.data_ptr() % 16:
-        raise ValueError("bn_relu_conv1x1_stats: x must be 16-byte aligned")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("bn_relu_conv1x1_stats: x and w must be 16-byte "
+                         "aligned")
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,7 +155,8 @@ def kernel_entry():
     from latentpose_tpu_torch.ops.cuda_build import load_library
     fn = load_library(*LIBRARY).bn_relu_conv1x1_stats_forward
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, p]
+    fn.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, i,
+                   i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -113,17 +175,25 @@ def bn_relu_conv1x1_stats(x, scale, offset, w, relu: bool = True):
     check_kernel_layout(x, w)
     cin, cout = w.shape
     m = x.numel() // cin
+    plan = plan_tiles(m, cin, cout, x.element_size())
     w_rows = w.t().contiguous()          # (Cout, Cin): a view for conv3's weight
-    scale, offset = scale.contiguous(), offset.contiguous()
+    w_small = w_rows
+    if x.dtype == torch.float32:
+        w_rows, w_small = split_tf32(w_rows)
+    # bulk copies read scale and offset in 16-byte pieces
+    scale, offset = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                     else t.clone(memory_format=torch.contiguous_format)
+                     for t in (scale, offset))
     fn = kernel_entry()
     y = torch.empty((*x.shape[:-1], cout), dtype=x.dtype, device=x.device)
-    partial = torch.empty((-(-m // BLOCK_M), 2, cout), dtype=torch.float32,
+    partial = torch.empty((plan.row_tiles, 2, cout), dtype=torch.float32,
                           device=x.device)
     stats = torch.empty((2, cout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):   # the launch goes to the current device
         err = fn(x.data_ptr(), scale.data_ptr(), offset.data_ptr(),
-                 w_rows.data_ptr(), y.data_ptr(), partial.data_ptr(),
-                 stats.data_ptr(), m, cin, cout, _DTYPES[x.dtype], int(relu),
+                 w_rows.data_ptr(), w_small.data_ptr(), y.data_ptr(),
+                 partial.data_ptr(), stats.data_ptr(), m, cin, cout,
+                 plan.stages, plan.smem, _DTYPES[x.dtype], int(relu),
                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"bn_relu_conv1x1_stats_forward failed: "

@@ -130,3 +130,47 @@ def test_conv_bn_kernel_refuses_what_it_does_not_take(device):
                                         w.clone().requires_grad_())
     with torch.no_grad():
         conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_adain_kernel_partly_resident_sample(device, batch, dtype):
+    """(16384, 128): the cluster holds part of each sample in shared memory
+    and streams the rest twice; batch 1 and 3 clusters."""
+    assert not adain_op.plan_launch(16384, 128, 2).holds_sample
+    x, w, b = _inputs(batch, 16384, 128, dtype, device)
+    torch.testing.assert_close(adain_op.adain(x, w, b).float(),
+                               adain_op.adain_reference(x, w, b).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [65, 129, 191])
+def test_conv_bn_kernel_ragged_edges(device, m, dtype):
+    """M just past a 64-row and a 128-row edge, and Cin below one K tile and
+    not a multiple of it (24 bf16, 12 f32)."""
+    from latentpose_tpu_torch.ops import conv_bn
+    cin, cout = (24, 16) if dtype == torch.bfloat16 else (12, 8)
+    x, scale, offset, w = _link_inputs(m, cin, cout, dtype, device)
+    y, stats = conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w)
+    want_y, want_stats = conv_bn.bn_relu_conv1x1_stats_reference(
+        x, scale, offset, w)
+    tol = CONV_TOL[dtype]
+    ref = want_y.float().abs().max().item()
+    torch.testing.assert_close(y.float() / ref, want_y.float() / ref,
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(stats, want_stats, rtol=1e-4,
+                               atol=1e-4 * want_stats.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_are_deterministic(device, dtype):
+    """Fixed-order reductions: two calls give bitwise-equal results."""
+    from latentpose_tpu_torch.ops import conv_bn
+    x, w, b = _inputs(2, 65536, 64, dtype, device)
+    assert torch.equal(adain_op.adain(x, w, b), adain_op.adain(x, w, b))
+    x, scale, offset, w = _link_inputs(2 * 4096, 128, 256, dtype, device)
+    with torch.no_grad():
+        y1, s1 = conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w)
+        y2, s2 = conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)

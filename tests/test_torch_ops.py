@@ -141,13 +141,29 @@ def test_adain_wrapper_rejects_what_the_kernel_does_not_take():
 @pytest.mark.parametrize("itemsize", [4, 2])
 @pytest.mark.parametrize("hw,c", FLAGSHIP_HWC)
 @pytest.mark.parametrize("batch", [1, 8, 32])
-def test_chunk_plan_covers_every_pixel(batch, hw, c, itemsize):
-    chunk_pixels, chunks = tadain.plan_chunks(batch, hw, c, itemsize)
-    rows = tadain.THREADS // (c // (16 // itemsize))
-    assert chunk_pixels % rows == 0
-    assert (chunks - 1) * chunk_pixels < hw <= chunks * chunk_pixels
-    # enough blocks to fill the card wherever the tensor has the pixels
-    assert batch * chunks >= min(tadain.TARGET_BLOCKS, batch * hw // rows) // 2
+def test_launch_plan_covers_every_pixel(batch, hw, c, itemsize):
+    """One cluster per sample: its blocks' slices cover the sample's pixels
+    once, the cluster and each block's shared memory fit the card, the
+    resident part fits its mbarriers, and in bf16 every sample up to
+    (4096, 256) stays on chip (x read from device memory once)."""
+    plan = tadain.plan_launch(hw, c, itemsize)
+    assert 1 <= plan.cluster <= 16
+    slices = [(r * plan.block_pixels, min((r + 1) * plan.block_pixels, hw))
+              for r in range(plan.cluster)]
+    covered = np.zeros(hw, np.int64)
+    for lo, hi in slices:
+        assert lo < hi                      # no block without pixels
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    assert plan.smem <= tadain.SMEM_LIMIT
+    assert plan.smem == tadain.smem_bytes(c, itemsize, plan.resident)
+    assert 1 <= plan.resident <= plan.block_pixels
+    assert -(-plan.resident // plan.chunk_pixels) <= 16   # kMaxChunks
+    assert plan.chunk_pixels * c * itemsize % 16 == 0      # bulk-copy sizes
+    if itemsize == 2 and hw * c <= 4096 * 256:
+        assert plan.holds_sample
+    # the grid: batch clusters of plan.cluster blocks
+    assert batch * plan.cluster <= 65535 * 16
 
 
 def _jax_sn_layer(module, x):
@@ -225,6 +241,72 @@ def test_conv_bn_matches_pallas_kernel_interpret(shape, cout, relu):
                                atol=2e-4)
     np.testing.assert_allclose(stats.numpy(), np.asarray(want_stats),
                                rtol=2e-4, atol=2e-4)
+
+
+# (M, Cin, Cout): ResNeXt-50's bn2 -> ReLU -> conv3 links at 64 frames of
+# 256², and ragged shapes
+CONV_PLAN_SHAPES = [(64 * 4096, 128, 256), (64 * 1024, 256, 512),
+                    (64 * 256, 512, 1024), (64 * 64, 1024, 2048),
+                    (1000, 64, 200), (7, 8, 8)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("m,cin,cout", CONV_PLAN_SHAPES)
+def test_conv_bn_tile_plan(m, cin, cout, itemsize):
+    """The kernel's tiles cover y, its ring has at least 3 stages within
+    the shared memory a block may take beside the staged y tile, and the TMA
+    maps' row strides are multiples of 16 bytes."""
+    from latentpose_tpu_torch.ops import conv_bn
+    plan = conv_bn.plan_tiles(m, cin, cout, itemsize)
+    assert plan.block_k * itemsize == 128          # the 128-byte swizzle span
+    assert (plan.row_tiles - 1) * conv_bn.BLOCK_M < m <= \
+        plan.row_tiles * conv_bn.BLOCK_M
+    assert (plan.col_tiles - 1) * conv_bn.BLOCK_N < cout <= \
+        plan.col_tiles * conv_bn.BLOCK_N
+    assert 3 <= plan.stages <= conv_bn.MAX_STAGES
+    assert plan.smem <= conv_bn.SMEM_LIMIT == 232448
+    w_tiles = 2 if itemsize == 4 else 1
+    ring = plan.stages * (conv_bn.BLOCK_M + w_tiles * conv_bn.BLOCK_N) * 128
+    assert plan.smem >= ring + conv_bn.staging_bytes(itemsize)
+    assert plan.x_row_bytes % 16 == 0 and plan.w_row_bytes % 16 == 0
+    assert plan.x_row_bytes == cin * itemsize
+
+
+def _tf32(a):
+    """numpy: keep sign, exponent and the top 10 mantissa bits (truncate)."""
+    return (np.ascontiguousarray(a, np.float32).view(np.int32)
+            & np.int32(-(1 << 13))).view(np.float32)
+
+
+@pytest.mark.parametrize("m,cin,cout", [(256, 128, 256), (64, 512, 1024),
+                                        (16, 1024, 2048)])
+def test_three_tf32_products_keep_f32_accuracy(m, cin, cout):
+    """The f32 kernel's arithmetic, emulated in numpy: the activation split
+    in registers (a_big = tf32(a), a_small = tf32(a - a_big)), W split by
+    the wrapper (split_tf32), three products summed in f32.  It stays within
+    the card gate (2e-4 of max |y|) of the plain f32 version; one TF32
+    product does not, which is why the kernel takes three."""
+    from latentpose_tpu_torch.ops import conv_bn
+    rng = np.random.RandomState(m + cin)
+    x = (rng.standard_normal((m, cin)) * 2 + 0.5).astype(np.float32)
+    w = (rng.standard_normal((cin, cout)) / cin ** 0.5).astype(np.float32)
+    scale = (rng.rand(cin) + 0.5).astype(np.float32)
+    offset = (rng.standard_normal(cin) * 0.1).astype(np.float32)
+    want, _ = conv_bn.bn_relu_conv1x1_stats_reference(
+        *map(torch.from_numpy, (x, scale, offset, w)))
+    want = want.numpy()
+    a = np.maximum(x * scale + offset, np.float32(0))
+    a_big = _tf32(a)
+    a_small = _tf32(a - a_big)
+    w_big, w_small = (t.numpy() for t in conv_bn.split_tf32(
+        torch.from_numpy(np.ascontiguousarray(w.T))))
+    w_big, w_small = w_big.T, w_small.T
+    np.testing.assert_array_equal(w_big, _tf32(w))
+    three = a_small @ w_big + a_big @ w_small + a_big @ w_big
+    one = a_big @ w_big
+    gate = 2e-4 * np.abs(want).max()
+    assert np.abs(three - want).max() <= gate
+    assert np.abs(one - want).max() > gate
 
 
 def test_conv_bn_wrapper_refuses_what_it_does_not_take():
