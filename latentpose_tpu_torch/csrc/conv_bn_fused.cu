@@ -16,9 +16,11 @@
 // by the tensor cores.
 //
 // The design is a Hopper GEMM with the BN prologue in registers:
-//   * each block owns a 128 x 128 tile of y (two consumer warpgroups of 64
-//     rows) and walks Cin in 128-byte slices (64 bf16 or 32 f32 channels);
-//   * one producer warp issues TMA loads of the x slice and the W slice
+//   * a tile of y is 128 rows (two consumer warpgroups of 64) by 256 columns
+//     in bf16 (wgmma m64n256) or 128 in f32 (m64n128: three products need
+//     the registers), and the block walks Cin in 128-byte slices (64 bf16 or
+//     32 f32 channels);
+//   * one producer thread issues TMA loads of the x slice and the W slice
 //     (both K-major, 128-byte swizzle) and bulk copies of the slices of scale
 //     and offset into a ring of `stages` shared-memory stages; mbarriers
 //     signal arrival (full) and release (empty);
@@ -59,12 +61,15 @@
 
 namespace {
 
-constexpr int kBM = 128;                    // rows of y per block
-constexpr int kBN = 128;                    // columns of y per block
+constexpr int kBM = 128;                    // rows of y per tile
 constexpr int kSliceBytes = 128;            // K bytes per stage: the swizzle span
 constexpr int kConsumers = 2;               // warpgroups, 64 rows each
-constexpr int kThreads = 128 * kConsumers + 32;   // + one producer warp
-constexpr int kTileBytes = kBM * kSliceBytes;     // one operand tile of a stage (kBN == kBM)
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
+// Registers a thread after setmaxnreg: 128 x 40 + 256 x 232 <= 65536, the
+// 384 x 168 the block starts with.
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kTileBytes = kBM * kSliceBytes;     // the x slice of a stage
+constexpr int kStageCols = 128;             // columns of y staged at a time in the epilogue
 constexpr int kSmemLimit = 232448;
 
 template <typename T>
@@ -72,6 +77,7 @@ struct Traits;
 
 template <>
 struct Traits<__nv_bfloat16> {
+  static constexpr int kBN = 256;         // columns of y per tile
   static constexpr int kBK = 64;          // channels per stage
   static constexpr int kStep = 16;        // K of one wgmma
   static constexpr int kWTiles = 1;       // W
@@ -80,6 +86,7 @@ struct Traits<__nv_bfloat16> {
 
 template <>
 struct Traits<float> {
+  static constexpr int kBN = 128;
   static constexpr int kBK = 32;
   static constexpr int kStep = 8;
   static constexpr int kWTiles = 2;       // w_big, w_small
@@ -153,14 +160,14 @@ __device__ __forceinline__ void wgmma_wait_all() {
 __device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 __device__ __forceinline__ void pin(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
 
-// acc (64 rows x 128 columns of f32, this thread's 64) += A (64 x 16, this
-// thread's fragment a[4]) * B (128 x 16, K-major in shared memory, `desc`).
+// acc (64 rows x 256 columns of f32, this thread's 128) += A (64 x 16, this
+// thread's fragment a[4]) * B (256 x 16, K-major in shared memory, `desc`).
 __device__ __forceinline__ void wgmma_bf16(float* acc, const uint32_t* a, uint64_t desc) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7,"
       " %8, %9, %10, %11, %12, %13, %14, %15,"
       " %16, %17, %18, %19, %20, %21, %22, %23,"
@@ -168,8 +175,16 @@ __device__ __forceinline__ void wgmma_bf16(float* acc, const uint32_t* a, uint64
       " %32, %33, %34, %35, %36, %37, %38, %39,"
       " %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
       "}\n"
       : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3]),
         "+f"(acc[4]), "+f"(acc[5]), "+f"(acc[6]), "+f"(acc[7]),
@@ -186,7 +201,23 @@ __device__ __forceinline__ void wgmma_bf16(float* acc, const uint32_t* a, uint64
         "+f"(acc[48]), "+f"(acc[49]), "+f"(acc[50]), "+f"(acc[51]),
         "+f"(acc[52]), "+f"(acc[53]), "+f"(acc[54]), "+f"(acc[55]),
         "+f"(acc[56]), "+f"(acc[57]), "+f"(acc[58]), "+f"(acc[59]),
-        "+f"(acc[60]), "+f"(acc[61]), "+f"(acc[62]), "+f"(acc[63])
+        "+f"(acc[60]), "+f"(acc[61]), "+f"(acc[62]), "+f"(acc[63]),
+        "+f"(acc[64]), "+f"(acc[65]), "+f"(acc[66]), "+f"(acc[67]),
+        "+f"(acc[68]), "+f"(acc[69]), "+f"(acc[70]), "+f"(acc[71]),
+        "+f"(acc[72]), "+f"(acc[73]), "+f"(acc[74]), "+f"(acc[75]),
+        "+f"(acc[76]), "+f"(acc[77]), "+f"(acc[78]), "+f"(acc[79]),
+        "+f"(acc[80]), "+f"(acc[81]), "+f"(acc[82]), "+f"(acc[83]),
+        "+f"(acc[84]), "+f"(acc[85]), "+f"(acc[86]), "+f"(acc[87]),
+        "+f"(acc[88]), "+f"(acc[89]), "+f"(acc[90]), "+f"(acc[91]),
+        "+f"(acc[92]), "+f"(acc[93]), "+f"(acc[94]), "+f"(acc[95]),
+        "+f"(acc[96]), "+f"(acc[97]), "+f"(acc[98]), "+f"(acc[99]),
+        "+f"(acc[100]), "+f"(acc[101]), "+f"(acc[102]), "+f"(acc[103]),
+        "+f"(acc[104]), "+f"(acc[105]), "+f"(acc[106]), "+f"(acc[107]),
+        "+f"(acc[108]), "+f"(acc[109]), "+f"(acc[110]), "+f"(acc[111]),
+        "+f"(acc[112]), "+f"(acc[113]), "+f"(acc[114]), "+f"(acc[115]),
+        "+f"(acc[116]), "+f"(acc[117]), "+f"(acc[118]), "+f"(acc[119]),
+        "+f"(acc[120]), "+f"(acc[121]), "+f"(acc[122]), "+f"(acc[123]),
+        "+f"(acc[124]), "+f"(acc[125]), "+f"(acc[126]), "+f"(acc[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
@@ -291,7 +322,9 @@ struct Frag {
 template <typename T>
 struct Ring {
   using Tr = Traits<T>;
-  static constexpr int kStageBytes = kTileBytes * (1 + Tr::kWTiles);
+  static constexpr int kWBytes = Tr::kBN * kSliceBytes;   // a W slice of a stage
+  static constexpr int kStageBytes = kTileBytes + Tr::kWTiles * kWBytes;
+  static constexpr int kAcc = Tr::kBN / 2;                // accumulators a thread
   static constexpr int kSteps = Frag<T>::kSteps;
   unsigned char* smem;
   const float* coef;
@@ -334,7 +367,7 @@ struct Ring {
   // Ring step `at` (k tile kt) on fragment `cur`: issue its products,
   // build the next step's fragment in `next` while they run, wait for them,
   // release the stage.
-  __device__ __forceinline__ void step(int at, int kt, float (&acc)[64], Frag<T>& cur,
+  __device__ __forceinline__ void step(int at, int kt, float (&acc)[kAcc], Frag<T>& cur,
                                        Frag<T>& next) const {
     const int s = at % stages;
     const unsigned char* stage = smem + s * kStageBytes;
@@ -345,7 +378,7 @@ struct Ring {
       if constexpr (Tr::kWTiles == 1) {
         wgmma_bf16(acc, cur.big[ks], w_desc + 2 * ks);
       } else {
-        const uint64_t w_small_desc = tile_desc(stage + 2 * kTileBytes);
+        const uint64_t w_small_desc = tile_desc(stage + kTileBytes + kWBytes);
         wgmma_tf32(acc, cur.small[ks], w_desc + 2 * ks);
         wgmma_tf32(acc, cur.big[ks], w_small_desc + 2 * ks);
         wgmma_tf32(acc, cur.big[ks], w_desc + 2 * ks);
@@ -355,7 +388,7 @@ struct Ring {
     if (kt + 1 < ktiles) load(at + 1, kt + 1, next);
     wgmma_wait_all();
 #pragma unroll
-    for (int i = 0; i < 64; ++i) pin(acc[i]);
+    for (int i = 0; i < kAcc; ++i) pin(acc[i]);
 #pragma unroll
     for (int ks = 0; ks < kSteps; ++ks)
 #pragma unroll
@@ -376,8 +409,11 @@ bn_relu_conv1x1(const __grid_constant__ CUtensorMap x_map,
                 const float* __restrict__ offset, T* __restrict__ y, float* __restrict__ partial,
                 long long m, int cin, int cout, int col_tiles, int stages, int relu) {
   using Tr = Traits<T>;
-  constexpr int kStageBytes = kTileBytes * (1 + Tr::kWTiles);
-  constexpr int kPitch = kBN * (int)sizeof(T) + 16;   // a staged row of y, padded
+  constexpr int kBN = Tr::kBN;
+  constexpr int kWBytes = Ring<T>::kWBytes;
+  constexpr int kStageBytes = Ring<T>::kStageBytes;
+  constexpr int kAcc = Ring<T>::kAcc;
+  constexpr int kPitch = kStageCols * (int)sizeof(T) + 16;   // a staged row of y, padded
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzle atoms need 1024-byte alignment
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -404,8 +440,11 @@ bn_relu_conv1x1(const __grid_constant__ CUtensorMap x_map,
   // (column tiles fastest, so the blocks that share an x slice run
   // together).  The ring's stage counter runs on across tiles, so the
   // producer loads the next tile while the consumers finish this one.
-  if (warp == 4 * kConsumers) {
-    if (lane == 0) {
+  if (warp >= 4 * kConsumers) {
+    // The producer warpgroup gives its registers to the consumers; one
+    // thread issues the loads.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (warp == 4 * kConsumers && lane == 0) {
       int it = 0;
       for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         const int m0 = (int)(tile / col_tiles) * kBM;
@@ -420,7 +459,8 @@ bn_relu_conv1x1(const __grid_constant__ CUtensorMap x_map,
           mbar_expect(&full[s], kStageBytes + 2 * coef_bytes);
           tma_load(stage, &x_map, k0, m0, &full[s]);
           tma_load(stage + kTileBytes, &w_map, k0, n0, &full[s]);
-          if (Tr::kWTiles == 2) tma_load(stage + 2 * kTileBytes, &w_small_map, k0, n0, &full[s]);
+          if (Tr::kWTiles == 2)
+            tma_load(stage + kTileBytes + kWBytes, &w_small_map, k0, n0, &full[s]);
           bulk_load(coef + s * 2 * Tr::kBK, scale + k0, coef_bytes, &full[s]);
           bulk_load(coef + (s * 2 + 1) * Tr::kBK, offset + k0, coef_bytes, &full[s]);
         }
@@ -431,6 +471,7 @@ bn_relu_conv1x1(const __grid_constant__ CUtensorMap x_map,
 
   // Consumers: warpgroup wg owns rows [wg * 64, wg * 64 + 64) of a tile;
   // this thread's fragment rows are g and g + 8 of its warp's 16.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
   const int wg = warp / 4, wwarp = warp % 4, g = lane / 4, t = lane % 4;
   const int tile_row = wg * 64 + wwarp * 16 + g;
   unsigned char* stage_y = staged + wg * 64 * kPitch;
@@ -441,9 +482,9 @@ bn_relu_conv1x1(const __grid_constant__ CUtensorMap x_map,
     const int n0 = (int)(tile % col_tiles) * kBN;
     const bool row_ok[2] = {m0 + tile_row < m, m0 + tile_row + 8 < m};
 
-    float acc[64];
+    float acc[kAcc];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
 
     // Two fragments in turn: step kt's products run while step kt + 1's
     // fragment is built.
@@ -459,9 +500,9 @@ bn_relu_conv1x1(const __grid_constant__ CUtensorMap x_map,
 
     // Column sums of the tile from the f32 accumulators.  acc[4j + e] is
     // row g + 8 * (e >> 1), column 8j + 2t + (e & 1) of this warp's
-    // 16 x 128.  Rows past M hold exact zeros.
+    // 16 x kBN.  Rows past M hold exact zeros.
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kBN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float a = acc[4 * j + e], b = acc[4 * j + 2 + e];
@@ -477,47 +518,55 @@ bn_relu_conv1x1(const __grid_constant__ CUtensorMap x_map,
         }
       }
     }
-    // y: the warpgroup's 64 x 128 tile in x's dtype into its staging rows
-    // (padded by 16 bytes against bank conflicts), then 16-byte stores.
+    // y, kStageCols columns at a time: the warpgroup's 64 rows in x's dtype
+    // into its staging rows (padded by 16 bytes against bank conflicts), then
+    // 16-byte stores.  The first barrier also publishes the column sums.
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int part = 0; part < kBN / kStageCols; ++part) {
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        unsigned char* p = stage_y + (wwarp * 16 + g + 8 * half) * kPitch +
-                           (8 * j + 2 * t) * (int)sizeof(T);
-        const float a = acc[4 * j + 2 * half], b = acc[4 * j + 2 * half + 1];
-        if constexpr (sizeof(T) == 2) {
-          *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-        } else {
-          *reinterpret_cast<float2*>(p) = make_float2(a, b);
+      for (int jj = 0; jj < kStageCols / 8; ++jj) {
+        const int j = part * (kStageCols / 8) + jj;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          unsigned char* p = stage_y + (wwarp * 16 + g + 8 * half) * kPitch +
+                             (8 * jj + 2 * t) * (int)sizeof(T);
+          const float a = acc[4 * j + 2 * half], b = acc[4 * j + 2 * half + 1];
+          if constexpr (sizeof(T) == 2) {
+            *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+          } else {
+            *reinterpret_cast<float2*>(p) = make_float2(a, b);
+          }
         }
       }
-    }
-    named_sync(1, 128 * kConsumers);   // sums and staged y are written
+      named_sync(1, 128 * kConsumers);   // staged y (and the sums) are written
 
-    if (threadIdx.x < kBN && n0 + threadIdx.x < cout) {
-      float sum = 0.f, sq = 0.f;
+      if (part == 0) {
+        for (int col = threadIdx.x; col < kBN; col += 128 * kConsumers) {
+          if (n0 + col >= cout) break;
+          float sum = 0.f, sq = 0.f;
 #pragma unroll
-      for (int w = 0; w < 4 * kConsumers; ++w) {
-        sum += red[(w * 2) * kBN + threadIdx.x];
-        sq += red[(w * 2 + 1) * kBN + threadIdx.x];
+          for (int w = 0; w < 4 * kConsumers; ++w) {
+            sum += red[(w * 2) * kBN + col];
+            sq += red[(w * 2 + 1) * kBN + col];
+          }
+          float* out = partial + (size_t)row_tile * 2 * cout;
+          out[n0 + col] = sum;
+          out[cout + n0 + col] = sq;
+        }
       }
-      float* out = partial + (size_t)row_tile * 2 * cout;
-      out[n0 + threadIdx.x] = sum;
-      out[cout + n0 + threadIdx.x] = sq;
+      constexpr int kChunksPerRow = kStageCols * (int)sizeof(T) / 16;
+      constexpr int kPerChunk = 16 / (int)sizeof(T);
+      const int tid = threadIdx.x % 128;
+      for (int idx = tid; idx < 64 * kChunksPerRow; idx += 128) {
+        const int row = idx / kChunksPerRow, chunk = idx % kChunksPerRow;
+        const long long gm = m0 + wg * 64 + row;
+        const int gn = n0 + part * kStageCols + chunk * kPerChunk;
+        if (gm < m && gn < cout)   // cout % kPerChunk == 0: a chunk is all in or all out
+          *reinterpret_cast<uint4*>(y + gm * cout + gn) =
+              *reinterpret_cast<const uint4*>(stage_y + row * kPitch + chunk * 16);
+      }
+      named_sync(1, 128 * kConsumers);   // staged y (and the sums) are read: reusable
     }
-    constexpr int kChunksPerRow = kBN * (int)sizeof(T) / 16;
-    constexpr int kPerChunk = 16 / (int)sizeof(T);
-    const int tid = threadIdx.x % 128;
-    for (int idx = tid; idx < 64 * kChunksPerRow; idx += 128) {
-      const int row = idx / kChunksPerRow, chunk = idx % kChunksPerRow;
-      const long long gm = m0 + wg * 64 + row;
-      const int gn = n0 + chunk * kPerChunk;
-      if (gm < m && gn < cout)   // cout % kPerChunk == 0: a chunk is all in or all out
-        *reinterpret_cast<uint4*>(y + gm * cout + gn) =
-            *reinterpret_cast<const uint4*>(stage_y + row * kPitch + chunk * 16);
-    }
-    named_sync(1, 128 * kConsumers);   // sums and staged y are read: reusable
   }
 }
 
@@ -611,6 +660,7 @@ cudaError_t launch(const void* x, const float* scale, const float* offset, const
       bn_relu_conv1x1<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   if (attr != cudaSuccess) return attr;
   CUtensorMap x_map, w_map, w_small_map;
+  constexpr int kBN = Traits<T>::kBN;
   if (!encode<T>(&x_map, x, m, cin, kBM) || !encode<T>(&w_map, w, cout, cin, kBN) ||
       !encode<T>(&w_small_map, Traits<T>::kWTiles == 2 ? w_small : w, cout, cin, kBN))
     return cudaErrorInvalidValue;

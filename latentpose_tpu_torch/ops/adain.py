@@ -93,20 +93,22 @@ def adain_reference(x, weight, bias, relu: bool = True, eps: float = 1e-4):
 
 
 def _check(x, weight, bias):
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"adain: x must be float32 or bfloat16, got {x.dtype}")
-    if x.dim() != 4:
-        raise ValueError(f"adain: x must be (B, H, W, C), got {tuple(x.shape)}")
-    b, _, _, c = x.shape
+    # (written for host time: the wrapper runs 17 times a generator forward)
+    dtype, shape = x.dtype, x.shape
+    if dtype not in _DTYPES:
+        raise TypeError(f"adain: x must be float32 or bfloat16, got {dtype}")
+    if len(shape) != 4:
+        raise ValueError(f"adain: x must be (B, H, W, C), got {tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError("adain: x must be a contiguous NHWC buffer "
                          "(an NCHW tensor in channels_last, permuted)")
+    bc, device = (shape[0], shape[3]), x.device
     for name, t in (("weight", weight), ("bias", bias)):
-        if t.dtype != x.dtype or t.device != x.device:
+        if t.dtype != dtype or t.device != device:
             raise TypeError(f"adain: {name} must match x's dtype and device, "
                             f"got {t.dtype} on {t.device}")
-        if t.dim() != 2 or tuple(t.shape) != (b, c) or t.stride(1) != 1:
-            raise ValueError(f"adain: {name} must be (B, C) = {(b, c)} with "
+        if t.shape != bc or t.stride(1) != 1:
+            raise ValueError(f"adain: {name} must be (B, C) = {bc} with "
                              f"unit channel stride, got {tuple(t.shape)} "
                              f"strides {t.stride()}")
 

@@ -31,10 +31,11 @@ from typing import NamedTuple
 
 import torch
 
-BLOCK_M = 128            # csrc/conv_bn_fused.cu kBM: rows of y per block
-BLOCK_N = 128            # kBN: columns of y per block
+BLOCK_M = 128            # csrc/conv_bn_fused.cu kBM: rows of y per tile
+BLOCK_N = {2: 256, 4: 128}   # Traits::kBN by itemsize: columns of y per tile
+STAGE_COLS = 128         # kStageCols: columns of y the epilogue stages at a time
 SLICE_BYTES = 128        # kSliceBytes: Cin bytes per stage (the TMA swizzle span)
-THREADS = 288            # two consumer warpgroups and a producer warp
+THREADS = 384            # two consumer warpgroups and a producer warpgroup
 MAX_STAGES = 6
 SMEM_LIMIT = 232448      # shared memory a block may opt into on sm_90
 TF32_MASK = -(1 << 13)   # keeps sign, exponent and 10 mantissa bits
@@ -44,9 +45,10 @@ LIBRARY = ("conv_bn_fused", ("conv_bn_fused.cu",))   # name, sources under csrc/
 
 class TilePlan(NamedTuple):
     """One launch of the kernel: row_tiles x col_tiles tiles of y, each
-    BLOCK_M x BLOCK_N, walked by a persistent grid (one block an SM);
+    BLOCK_M x block_n, walked by a persistent grid (one block an SM);
     block_k channels a stage, ``stages`` of them in the ring; ``smem`` bytes
     of dynamic shared memory."""
+    block_n: int
     block_k: int
     stages: int
     row_tiles: int
@@ -57,26 +59,28 @@ class TilePlan(NamedTuple):
 
 
 def staging_bytes(itemsize: int) -> int:
-    """The epilogue's y tile in shared memory, rows padded by 16 bytes."""
-    return BLOCK_M * (BLOCK_N * itemsize + 16)
+    """The epilogue's staged y, STAGE_COLS columns of a tile's rows, padded
+    by 16 bytes a row."""
+    return BLOCK_M * (STAGE_COLS * itemsize + 16)
 
 
 def plan_tiles(m: int, cin: int, cout: int, itemsize: int) -> TilePlan:
     """The tile plan for (M, Cin) @ (Cin, Cout) in one dtype.  A stage holds
-    the x slice and one (bf16) or two (f32: w_big, w_small) W slices of 128
-    rows x 128 bytes, the stage's slices of scale and offset and two
-    mbarriers; beside the ring sit the staged y tile and the per-warp column
-    sums; the ring takes as many stages as the block's shared memory
-    allows."""
+    the x slice (128 rows x 128 bytes), one (bf16) or two (f32: w_big,
+    w_small) W slices (block_n rows x 128 bytes), the stage's slices of
+    scale and offset and two mbarriers; beside the ring sit the staged y and
+    the per-warp column sums; the ring takes as many stages as the block's
+    shared memory allows."""
     w_tiles = 2 if itemsize == 4 else 1
-    # x and W slices, two mbarriers, the f32 slices of scale and offset
-    stage = (BLOCK_M + w_tiles * BLOCK_N) * SLICE_BYTES + 16 \
+    block_n = BLOCK_N[itemsize]
+    stage = (BLOCK_M + w_tiles * block_n) * SLICE_BYTES + 16 \
         + 2 * 4 * SLICE_BYTES // itemsize
-    fixed = 1024 + staging_bytes(itemsize) + 8 * 2 * BLOCK_N * 4
+    # alignment slack, staged y, per-warp column sums
+    fixed = 1024 + staging_bytes(itemsize) + 8 * 2 * block_n * 4
     stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) // stage)
-    return TilePlan(SLICE_BYTES // itemsize, stages, -(-m // BLOCK_M),
-                    -(-cout // BLOCK_N), fixed + stages * stage,
-                    cin * itemsize, cin * itemsize)
+    return TilePlan(block_n, SLICE_BYTES // itemsize, stages,
+                    -(-m // BLOCK_M), -(-cout // block_n),
+                    fixed + stages * stage, cin * itemsize, cin * itemsize)
 
 
 def split_tf32(w):

@@ -261,12 +261,13 @@ def test_conv_bn_tile_plan(m, cin, cout, itemsize):
     assert plan.block_k * itemsize == 128          # the 128-byte swizzle span
     assert (plan.row_tiles - 1) * conv_bn.BLOCK_M < m <= \
         plan.row_tiles * conv_bn.BLOCK_M
-    assert (plan.col_tiles - 1) * conv_bn.BLOCK_N < cout <= \
-        plan.col_tiles * conv_bn.BLOCK_N
+    assert plan.block_n == conv_bn.BLOCK_N[itemsize] <= 256   # a TMA box
+    assert (plan.col_tiles - 1) * plan.block_n < cout <= \
+        plan.col_tiles * plan.block_n
     assert 3 <= plan.stages <= conv_bn.MAX_STAGES
     assert plan.smem <= conv_bn.SMEM_LIMIT == 232448
     w_tiles = 2 if itemsize == 4 else 1
-    ring = plan.stages * (conv_bn.BLOCK_M + w_tiles * conv_bn.BLOCK_N) * 128
+    ring = plan.stages * (conv_bn.BLOCK_M + w_tiles * plan.block_n) * 128
     assert plan.smem >= ring + conv_bn.staging_bytes(itemsize)
     assert plan.x_row_bytes % 16 == 0 and plan.w_row_bytes % 16 == 0
     assert plan.x_row_bytes == cin * itemsize
