@@ -284,8 +284,8 @@ def phase_conv_bn(device):
     activation in W's dtype, TF32 off); returns (max_abs_err, ms, plain_ms,
     bound_ms, bound_by, library_ms) with the times summed over the 16 links
     of one f32 forward."""
-    max_err, ms, plain_ms, bound, library = 0.0, 0.0, 0.0, 0.0, 0.0
-    bound_by = set()
+    max_err, ms, plain_ms, library = 0.0, 0.0, 0.0, 0.0
+    bound = {"bytes": 0.0, "operations": 0.0}
     cases = [(8 * rows, cin, cout, dtype) for rows, cin, cout, _ in CONV_LINKS
              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(1000, 256, 512, torch.float32), (1000, 256, 512,
@@ -319,16 +319,17 @@ def phase_conv_bn(device):
             if dtype == torch.float32:
                 ms += count * k
                 plain_ms += count * p
-                bound += count * lo
+                bound[by] += count * lo
                 library += count * lib
-                bound_by.add(by)
+    total = sum(bound.values())
     print(f"conv_bn: 16 links of one f32 forward of 64 frames: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, product alone "
-          f"{library:.4f} ms, bound {bound:.4f} ms, share {bound / ms:.3f}",
-          flush=True)
-    # the sum's bound is set by operations wherever the largest terms are
-    return (max_err, ms, plain_ms, bound,
-            "operations" if "operations" in bound_by else "bytes", library)
+          f"{library:.4f} ms, bound {total:.4f} ms ({bound['bytes']:.4f} "
+          f"from bytes, {bound['operations']:.4f} from operations), share "
+          f"{total / ms:.3f}", flush=True)
+    # the sum's bound_by: the kind that contributes more of it
+    return (max_err, ms, plain_ms, total, max(bound, key=bound.get),
+            library)
 
 
 def phase_meta_checkpoint(workdir):

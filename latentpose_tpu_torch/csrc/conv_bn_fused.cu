@@ -20,10 +20,12 @@
 //     in bf16 (wgmma m64n256) or 128 in f32 (m64n128: three products need
 //     the registers), and the block walks Cin in 128-byte slices (64 bf16 or
 //     32 f32 channels);
-//   * one producer thread issues TMA loads of the x slice and the W slice
-//     (both K-major, 128-byte swizzle) and bulk copies of the slices of scale
-//     and offset into a ring of `stages` shared-memory stages; mbarriers
-//     signal arrival (full) and release (empty);
+//   * one thread of a producer warpgroup issues TMA loads of the x slice and
+//     the W slice (both K-major, 128-byte swizzle) and bulk copies of the
+//     slices of scale and offset into a ring of `stages` shared-memory
+//     stages; mbarriers signal arrival (full) and release (empty).  The
+//     producer warpgroup hands its registers to the consumers (setmaxnreg),
+//     which the 128 accumulators of a bf16 thread need;
 //   * each consumer thread loads its raw x fragment from shared memory into
 //     registers, applies x * scale[k] + offset[k] and the ReLU in f32, rounds
 //     to W's dtype (as the plain version and the Pallas kernel do), and feeds

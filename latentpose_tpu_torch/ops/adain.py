@@ -139,30 +139,22 @@ def kernel_entry():
     return fn, occupancy
 
 
-_plans: dict = {}
-
-
+@functools.lru_cache(maxsize=None)
 def card_plan(hw: int, c: int, dtype: torch.dtype):
     """:func:`plan_launch` for the card, cached per (HW, C, dtype): the
     largest cluster (16, 8, ... 1) that the card can hold at least once.
     Returns the plan and its C form (hw, c, the plan's fields, dtype) as an
     int array, so that a launch passes it as one pointer."""
-    key = (hw, c, dtype)
-    if key not in _plans:
-        _, occupancy = kernel_entry()
-        for max_cluster in (16, 8, 4, 2, 1):
-            plan = plan_launch(hw, c, torch.finfo(dtype).bits // 8,
-                               max_cluster)
-            count = ctypes.c_int(0)
-            err = occupancy(plan.cluster, plan.smem, _DTYPES[dtype],
-                            ctypes.byref(count))
-            if err == 0 and count.value > 0:
-                break
-        else:
-            raise RuntimeError(f"adain: no cluster fits the card for "
-                               f"HW={hw} C={c} {dtype} (cudaError_t {err})")
-        _plans[key] = plan, (ctypes.c_int * 8)(hw, c, *plan, _DTYPES[dtype])
-    return _plans[key]
+    _, occupancy = kernel_entry()
+    for max_cluster in (16, 8, 4, 2, 1):
+        plan = plan_launch(hw, c, torch.finfo(dtype).bits // 8, max_cluster)
+        count = ctypes.c_int(0)
+        err = occupancy(plan.cluster, plan.smem, _DTYPES[dtype],
+                        ctypes.byref(count))
+        if err == 0 and count.value > 0:
+            return plan, (ctypes.c_int * 8)(hw, c, *plan, _DTYPES[dtype])
+    raise RuntimeError(f"adain: no cluster fits the card for HW={hw} C={c} "
+                       f"{dtype} (cudaError_t {err})")
 
 
 def adain(x, weight, bias, relu: bool = True, eps: float = 1e-4):

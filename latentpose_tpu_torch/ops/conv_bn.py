@@ -35,7 +35,6 @@ BLOCK_M = 128            # csrc/conv_bn_fused.cu kBM: rows of y per tile
 BLOCK_N = {2: 256, 4: 128}   # Traits::kBN by itemsize: columns of y per tile
 STAGE_COLS = 128         # kStageCols: columns of y the epilogue stages at a time
 SLICE_BYTES = 128        # kSliceBytes: Cin bytes per stage (the TMA swizzle span)
-THREADS = 384            # two consumer warpgroups and a producer warpgroup
 MAX_STAGES = 6
 SMEM_LIMIT = 232448      # shared memory a block may opt into on sm_90
 TF32_MASK = -(1 << 13)   # keeps sign, exponent and 10 mantissa bits
