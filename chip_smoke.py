@@ -132,6 +132,40 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def device_busy_ms(fn, steps, names=()):
+    """Per call of ``fn`` over ``steps`` profiled calls: the summed duration
+    of its CUDA kernels (one stream: the device's busy time), and of the
+    kernels whose name holds each of ``names``; None where the profiler
+    records no device activity.  Unlike :func:`cuda_ms` it leaves out the
+    host's time between launches, which bounds back-to-back calls of a
+    kernel shorter than its wrapper's host cost."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None, {}
+
+    def ms(events):
+        return sum(e.device_time_total for e in events) / 1e3 / steps
+
+    return ms(kernels), {n: ms([e for e in kernels if n in e.name])
+                         for n in names}
+
+
+def _device(ms, bound):
+    """The profiler's device time of a call and its share of the bound."""
+    if ms is None:
+        return "device_ms=not measured"
+    return f"device_ms={ms:.4f} device_share={bound / ms:.3f}"
+
+
 def adain_inputs(batch, hw, c, dtype, device, seed):
     g = torch.Generator(device=device).manual_seed(seed)
     side = int(round(hw ** 0.5))
@@ -196,8 +230,9 @@ def phase_kernels(device):
     B=8 in f32 and bf16, and the drive's own B=32 bf16, which is also timed
     beside its bound; then the wrapper's host cost and the profiler's count
     of kernels in one call.  Returns (max_abs_err, ms, plain_ms, bound_ms)
-    summed over the 17 calls of one bf16 frame batch of 32."""
-    max_err, ms, plain_ms, bound = 0.0, 0.0, 0.0, 0.0
+    summed over the 17 calls of one bf16 frame batch of 32, and the device
+    time of those calls from the profiler."""
+    max_err, ms, plain_ms, bound, busy = 0.0, 0.0, 0.0, 0.0, 0.0
     cases = [(8, torch.float32), (8, torch.bfloat16),
              (DRIVE_BATCH, torch.bfloat16)]
     for batch, dtype in cases:
@@ -216,19 +251,25 @@ def phase_kernels(device):
                 iters = 50 if hw < 16384 else 20
                 k = cuda_ms(lambda: adain_op.adain(x, w, b), iters)
                 p = cuda_ms(lambda: adain_op.adain_reference(x, w, b), iters)
+                dev, _ = device_busy_ms(lambda: adain_op.adain(x, w, b),
+                                        iters)
                 lo = adain_bound_ms(x)
                 plan, _ = adain_op.card_plan(hw, c, dtype)
                 line += (f" kernel_ms={k:.4f} plain_ms={p:.4f} "
                          f"bound_ms={lo:.4f} (bytes) share={lo / k:.3f} "
-                         f"cluster={plan.cluster} holds_sample="
-                         f"{plan.holds_sample} (x{count} per frame batch)")
+                         f"{_device(dev, lo)} cluster={plan.cluster} "
+                         f"holds_sample={plan.holds_sample} (x{count} per "
+                         f"frame batch)")
                 ms += count * k
                 plain_ms += count * p
                 bound += count * lo
+                busy = None if dev is None or busy is None else \
+                    busy + count * dev
             print(line, flush=True)
     print(f"adain: 17 calls of one bf16 frame batch of {DRIVE_BATCH}: "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-          f"(bytes, 3.35 TB/s), share {bound / ms:.3f}", flush=True)
+          f"(bytes, 3.35 TB/s), share {bound / ms:.3f}; "
+          f"{_device(busy, bound)}", flush=True)
     enqueue, total = adain_host_us(device)
     print(f"adain host cost, (16, 512) bf16 batch {DRIVE_BATCH}: "
           f"{enqueue:.1f} us per call enqueued (200 calls), {total:.1f} us "
@@ -237,7 +278,7 @@ def phase_kernels(device):
     print(f"adain: CUDA kernels in one call (torch.profiler): "
           f"{kernels if kernels is not None else 'not measured'} {names}",
           flush=True)
-    return max_err, ms, plain_ms, bound
+    return max_err, ms, plain_ms, bound, busy
 
 
 def link_inputs(m, cin, cout, dtype, device, seed):
@@ -271,7 +312,8 @@ def link_bound_ms(m, cin, cout, dtype):
     once; 2·M·Cin·Cout FLOPs at the tensor cores' rate for the input type
     (bf16, or TF32 for f32 inputs, the card's fastest f32-input rate)."""
     size = torch.finfo(dtype).bits // 8
-    nbytes = (m * cin + cin * cout + m * cout) * size + (2 * cin + 2 * cout) * 4
+    nbytes = ((m * cin + cin * cout + m * cout) * size
+              + (2 * cin + 2 * cout) * 4)
     return bound_ms(nbytes, 2 * m * cin * cout, PEAK_FLOPS[dtype])
 
 
@@ -282,9 +324,9 @@ def phase_conv_bn(device):
     frames, which are also timed beside the plain version, the bound and
     the product alone (``torch.matmul`` of the already-normalised
     activation in W's dtype, TF32 off); returns (max_abs_err, ms, plain_ms,
-    bound_ms, bound_by, library_ms) with the times summed over the 16 links
-    of one f32 forward."""
-    max_err, ms, plain_ms, library = 0.0, 0.0, 0.0, 0.0
+    bound_ms, bound_by, library_ms, device_ms) with the times summed over the
+    16 links of one f32 forward."""
+    max_err, ms, plain_ms, library, busy = 0.0, 0.0, 0.0, 0.0, 0.0
     bound = {"bytes": 0.0, "operations": 0.0}
     cases = [(8 * rows, cin, cout, dtype) for rows, cin, cout, _ in CONV_LINKS
              for dtype in (torch.float32, torch.bfloat16)]
@@ -305,6 +347,8 @@ def phase_conv_bn(device):
                 x, scale, offset, w), 20)
             p = cuda_ms(lambda: conv_bn.bn_relu_conv1x1_stats_reference(
                 x, scale, offset, w), 20)
+            dev, _ = device_busy_ms(lambda: conv_bn.bn_relu_conv1x1_stats(
+                x, scale, offset, w), 20)
             h = torch.relu(x.float() * scale + offset).to(w.dtype)
             lib = cuda_ms(lambda: torch.matmul(h, w), 20)
             del h
@@ -314,22 +358,24 @@ def phase_conv_bn(device):
                   f"max_abs_err={err:.3g} (max |y| {ref:.3g}) "
                   f"kernel_ms={k:.4f} plain_ms={p:.4f} matmul_ms={lib:.4f} "
                   f"bound_ms={lo:.4f} ({by}) share={lo / k:.3f} "
-                  f"kernel_TFLOP/s={tflops:.1f} (x{count} per forward)",
-                  flush=True)
+                  f"{_device(dev, lo)} kernel_TFLOP/s={tflops:.1f} "
+                  f"(x{count} per forward)", flush=True)
             if dtype == torch.float32:
                 ms += count * k
                 plain_ms += count * p
                 bound[by] += count * lo
                 library += count * lib
+                busy = None if dev is None or busy is None else \
+                    busy + count * dev
     total = sum(bound.values())
     print(f"conv_bn: 16 links of one f32 forward of 64 frames: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, product alone "
           f"{library:.4f} ms, bound {total:.4f} ms ({bound['bytes']:.4f} "
           f"from bytes, {bound['operations']:.4f} from operations), share "
-          f"{total / ms:.3f}", flush=True)
+          f"{total / ms:.3f}; {_device(busy, total)}", flush=True)
     # the sum's bound_by: the kind that contributes more of it
     return (max_err, ms, plain_ms, total, max(bound, key=bound.get),
-            library)
+            library, busy)
 
 
 def phase_meta_checkpoint(workdir):
@@ -610,7 +656,8 @@ def drive_once(ckpt, flags, frames):
 
 def phase_throughput(models, args, state, frames):
     """bf16 frames/s at batch 32 and 128: end to end through drive_sequence
-    (512 host f32 frames in, results out) and the device step alone."""
+    (512 host f32 frames in, results out) and the device step alone, with
+    the step's device-busy time and AdaIN's part of it from the profiler."""
     drive_fn = drive_lib.make_drive_fn(models, args)
     seq = np.concatenate([frames] * (512 // len(frames)))
     for batch in (32, 128):
@@ -624,10 +671,16 @@ def phase_throughput(models, args, state, frames):
         wire = torch.from_numpy((seq[:batch] * 255).astype(np.uint8)).cuda()
         step_ms = cuda_ms(lambda: drive_fn(state, wire), 10)
         peak = torch.cuda.max_memory_allocated() / 2**20
+        busy, parts = device_busy_ms(lambda: drive_fn(state, wire), 5,
+                                     ["adain_cluster"])
+        traced = ("device busy not measured" if busy is None else
+                  f"device_busy_ms={busy:.3f} (idle {1 - busy / step_ms:.2f} "
+                  f"of the untraced step) adain_kernel_ms="
+                  f"{parts['adain_cluster']:.3f}")
         print(f"drive bf16 batch {batch}: end_to_end_fps={e2e:.1f} "
               f"({len(seq)} f32 frames from host) step_ms={step_ms:.3f} "
               f"device_step_fps={batch / step_ms * 1e3:.1f} "
-              f"peak_mem_MiB={peak:.0f}", flush=True)
+              f"peak_mem_MiB={peak:.0f}; {traced}", flush=True)
 
 
 def phase_card_vs_cpu(ckpt, models, state, frames):
@@ -671,9 +724,10 @@ def main():
     for mod in kernels.values():
         print(build_log(load_library(*mod.LIBRARY)), flush=True)
 
-    adain_err, adain_ms, adain_plain_ms, adain_bound = phase_kernels(device)
+    (adain_err, adain_ms, adain_plain_ms, adain_bound,
+     adain_device_ms) = phase_kernels(device)
     (conv_err, conv_ms, conv_plain_ms, conv_bound, conv_bound_by,
-     conv_library_ms) = phase_conv_bn(device)
+     conv_library_ms, conv_device_ms) = phase_conv_bn(device)
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as workdir:
@@ -700,7 +754,7 @@ def main():
         "replaces": "latentpose_tpu/ops/pallas/adain_fused.py:78",
         "launches": launches["adain_fused"], "max_abs_err": adain_err,
         "ms": adain_ms, "plain_ms": adain_plain_ms, "bound_ms": adain_bound,
-        "bound_by": "bytes", "library_ms": None,
+        "bound_by": "bytes", "device_ms": adain_device_ms, "library_ms": None,
         "library_call": "none: no single PyTorch call computes instance "
                         "norm with a per-sample affine and ReLU"}, {
         "name": "bn_relu_conv1x1_stats", "route": "cuda",
@@ -709,7 +763,8 @@ def main():
         "launches": launches["bn_relu_conv1x1_stats"],
         "max_abs_err": conv_err, "ms": conv_ms,
         "plain_ms": conv_plain_ms, "bound_ms": conv_bound,
-        "bound_by": conv_bound_by, "library_ms": conv_library_ms,
+        "bound_by": conv_bound_by, "device_ms": conv_device_ms,
+        "library_ms": conv_library_ms,
         "library_call": "torch.matmul(h, w), the product alone on the "
                         "already-normalised activation, f32, TF32 off"}]}))
     print(json.dumps({"ok": True, "device": {

@@ -30,10 +30,10 @@ from latentpose_tpu_torch.ops import norms
 THREADS = 256           # csrc/adain_fused.cu kThreads
 SMEM_LIMIT = 232448     # shared memory a block may opt into on sm_90
 MAX_CLUSTER = 16        # blocks per cluster (above 8: a non-portable size)
-SLICE_BYTES = 128 << 10  # pixels of a sample per block, aimed at
-# where a sample cannot stay on chip, each block keeps this much of its slice
+SLICE_BYTES = 128 << 10  # bytes of a sample per block, aimed at
+# Where a sample cannot stay on chip, each block keeps this much of its slice
 # resident, so that two or three blocks share an SM and more clusters run at
-# once (measured faster on the H100 than filling shared memory)
+# once (faster on the H100 than filling shared memory: PERF.md, PR 3).
 STREAMED_RESIDENT_BYTES = 64 << 10
 CHUNKS = 8              # bulk copies (mbarriers) per block's resident part
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

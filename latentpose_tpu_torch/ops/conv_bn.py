@@ -9,7 +9,7 @@ after it would take as its batch statistics.  The ResNeXt-50 identity tower
 runs its bottleneck's bn2 -> ReLU -> conv3 link through it (``scale`` and
 ``offset`` fold bn2's running statistics; the eval form).
 
-On the card it is a Hopper GEMM: TMA loads x and W into a ring of
+On the card it is a persistent Hopper GEMM: TMA loads x and W into a ring of
 shared-memory stages, the BN apply and ReLU run on the x fragment in
 registers, and ``wgmma`` multiplies (bf16 directly; f32 as 3xTF32 on the
 split :func:`split_tf32`, so the result keeps f32 accuracy).  The tile plan
@@ -33,8 +33,8 @@ import torch
 
 BLOCK_M = 128            # csrc/conv_bn_fused.cu kBM: rows of y per tile
 BLOCK_N = {2: 256, 4: 128}   # Traits::kBN by itemsize: columns of y per tile
-STAGE_COLS = 128         # kStageCols: columns of y the epilogue stages at a time
-SLICE_BYTES = 128        # kSliceBytes: Cin bytes per stage (the TMA swizzle span)
+STAGE_COLS = 128         # kStageCols: columns of y staged at a time
+SLICE_BYTES = 128        # kSliceBytes: Cin bytes a stage (the swizzle span)
 MAX_STAGES = 6
 SMEM_LIMIT = 232448      # shared memory a block may opt into on sm_90
 TF32_MASK = -(1 << 13)   # keeps sign, exponent and 10 mantissa bits
@@ -53,8 +53,7 @@ class TilePlan(NamedTuple):
     row_tiles: int
     col_tiles: int
     smem: int
-    x_row_bytes: int     # the TMA maps' row strides
-    w_row_bytes: int
+    row_bytes: int       # the row stride of both TMA maps (x and W)
 
 
 def staging_bytes(itemsize: int) -> int:
@@ -79,7 +78,7 @@ def plan_tiles(m: int, cin: int, cout: int, itemsize: int) -> TilePlan:
     stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) // stage)
     return TilePlan(block_n, SLICE_BYTES // itemsize, stages,
                     -(-m // BLOCK_M), -(-cout // block_n),
-                    fixed + stages * stage, cin * itemsize, cin * itemsize)
+                    fixed + stages * stage, cin * itemsize)
 
 
 def split_tf32(w):

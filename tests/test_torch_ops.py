@@ -269,8 +269,7 @@ def test_conv_bn_tile_plan(m, cin, cout, itemsize):
     w_tiles = 2 if itemsize == 4 else 1
     ring = plan.stages * (conv_bn.BLOCK_M + w_tiles * plan.block_n) * 128
     assert plan.smem >= ring + conv_bn.staging_bytes(itemsize)
-    assert plan.x_row_bytes % 16 == 0 and plan.w_row_bytes % 16 == 0
-    assert plan.x_row_bytes == cin * itemsize
+    assert plan.row_bytes == cin * itemsize and plan.row_bytes % 16 == 0
 
 
 def _tf32(a):
