@@ -35,10 +35,11 @@
 //   * bf16: wgmma .f32.bf16.bf16, f32 accumulators.  f32: 3xTF32, so the
 //     result keeps f32 accuracy: A splits in registers into a_big = tf32(a)
 //     and a_small = tf32(a - a_big), W arrives pre-split by the wrapper into
-//     w_big and w_small, and a_small*w_big + a_big*w_small + a_big*w_big go
-//     into the same f32 accumulators ("tf32" here is truncation to 10
-//     mantissa bits, done explicitly, so the tensor cores' own rounding never
-//     matters);
+//     w_big and w_small, and a_small*w_big + a_big*w_small + a_big*w_big of
+//     each k tile go into fresh registers that f32 adds fold into the
+//     accumulators, so the tensor cores' accumulation rounding spans one
+//     tile, not all of Cin ("tf32" here is truncation to 10 mantissa bits,
+//     done explicitly, so the tensor cores' input rounding never matters);
 //   * the grid is persistent (one block per SM, each walking the tiles b,
 //     b + gridDim, ...) and the ring's stage counter runs across tiles, so
 //     the producer loads the next tile while the consumers finish this one;
@@ -223,9 +224,11 @@ __device__ __forceinline__ void wgmma_bf16(float* acc, const uint32_t* a, uint64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// acc (64 rows x 128 columns of f32, this thread's 64) += A (64 x 8, this
-// thread's fragment a[4]) * B (128 x 8, K-major in shared memory, `desc`).
-__device__ __forceinline__ void wgmma_tf32(float* acc, const uint32_t* a, uint64_t desc) {
+// acc (64 rows x 128 columns of f32, this thread's 64) = A (64 x 8, this
+// thread's fragment a[4]) * B (128 x 8, K-major in shared memory, `desc`),
+// plus acc where `accumulate` is not 0.
+__device__ __forceinline__ void wgmma_tf32(float* acc, const uint32_t* a, uint64_t desc,
+                                           int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -257,7 +260,7 @@ __device__ __forceinline__ void wgmma_tf32(float* acc, const uint32_t* a, uint64
         "+f"(acc[52]), "+f"(acc[53]), "+f"(acc[54]), "+f"(acc[55]),
         "+f"(acc[56]), "+f"(acc[57]), "+f"(acc[58]), "+f"(acc[59]),
         "+f"(acc[60]), "+f"(acc[61]), "+f"(acc[62]), "+f"(acc[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
 __device__ __forceinline__ uint32_t tf32(float v) { return __float_as_uint(v) & 0xFFFFE000u; }
@@ -373,6 +376,10 @@ struct Ring {
                                        Frag<T>& next) const {
     const int s = at % stages;
     const unsigned char* stage = smem + s * kStageBytes;
+    // f32: the step's 3xTF32 products go to fresh registers, then into acc
+    // by f32 adds, so the tensor cores' own accumulation rounding spans one
+    // k tile, not all of Cin.
+    float part[Tr::kWTiles == 2 ? kAcc : 1];
     wgmma_fence();
     const uint64_t w_desc = tile_desc(stage + kTileBytes);
 #pragma unroll
@@ -381,9 +388,9 @@ struct Ring {
         wgmma_bf16(acc, cur.big[ks], w_desc + 2 * ks);
       } else {
         const uint64_t w_small_desc = tile_desc(stage + kTileBytes + kWBytes);
-        wgmma_tf32(acc, cur.small[ks], w_desc + 2 * ks);
-        wgmma_tf32(acc, cur.big[ks], w_small_desc + 2 * ks);
-        wgmma_tf32(acc, cur.big[ks], w_desc + 2 * ks);
+        wgmma_tf32(part, cur.small[ks], w_desc + 2 * ks, ks > 0);
+        wgmma_tf32(part, cur.big[ks], w_small_desc + 2 * ks, 1);
+        wgmma_tf32(part, cur.big[ks], w_desc + 2 * ks, 1);
       }
     }
     wgmma_commit();
@@ -391,6 +398,13 @@ struct Ring {
     wgmma_wait_all();
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) pin(acc[i]);
+    if constexpr (Tr::kWTiles == 2) {
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) {
+        pin(part[i]);
+        acc[i] += part[i];
+      }
+    }
 #pragma unroll
     for (int ks = 0; ks < kSteps; ++ks)
 #pragma unroll
