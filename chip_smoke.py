@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths, fine-tune and drive, at the flagship
-model's full widths (256², generator 64..512 channels, embed 512, pose 256,
-discriminator 7 blocks) with seeded random weights, through the entry points
-a user calls, and checks every hand-written kernel of those paths:
+Drives the port's three main paths, meta-train, fine-tune and drive, at the
+flagship model's full widths (256², generator 64..512 channels, embed 512,
+pose 256, discriminator 7 blocks) with seeded random weights, through the
+entry points a user calls, and checks every hand-written kernel of those
+paths:
 
 1. device: require CUDA, print ``nvidia-smi`` name and power limit, turn
    TF32 off everywhere (cuBLAS and cuDNN) for the comparisons and timings;
@@ -19,29 +20,48 @@ a user calls, and checks every hand-written kernel of those paths:
    the profiler's count of CUDA kernels in one call;
 4. the fused BN->ReLU->1x1-conv->stats kernel against its plain version at
    ResNeXt-50's four link shapes, f32 and bf16: 8 frames, a ragged M, and
-   the ê pass's 64 frames, timed there beside the plain version, the product
-   alone (``torch.matmul`` of the normalised activation, TF32 off) and the
-   bound (bytes at 3.35 TB/s or FLOPs at 989 TFLOP/s bf16, 495 TF32);
-5. write a flagship-width fine-tuned checkpoint through the port's writer
+   the 64 frames of a batch of 8 x K=8, timed there beside the plain
+   version, the product alone (``torch.matmul`` of the normalised
+   activation, TF32 off) and the bound (bytes at 3.35 TB/s or FLOPs at 989
+   TFLOP/s bf16, 495 TF32);
+5. the link's train form at the four shapes, 64 frames, f32: the
+   ``autograd.Function``'s dx, dscale, doffset and dW (its plain backward
+   after the kernel's forward), y and the stats against autograd through
+   the plain version, within 2e-4 of each tensor's max |.|; the backward's
+   ms per link beside the forward kernel's, by events and by the profiler;
+6. write a flagship-width fine-tuned checkpoint through the port's writer
    (the JAX package's format) and drive ``synthetic://3`` (32 frames)
    through the drive CLI's functions in bf16 and f32: shapes, finite
    values, AdaIN launches; bf16 frames/s at batch 32 and 128; peak memory;
    the same 4 frames on the card and on the CPU within 1e-3;
-6. write a flagship-width meta-trained checkpoint (16 labels) and fine-tune
-   it through the train CLI's functions on ``synthetic://`` avatar frames,
-   f32, batch 8: ê through ResNeXt-50 (16 kernel launches per forward),
-   then 10 GAN steps (17 AdaIN launches each): finite losses, moved
-   generator and identity embedding, advanced spectral-norm state; ê
+7. write a flagship-width meta-trained checkpoint (16 labels) and meta-train
+   it through the train CLI's functions: 5 steps at batch 8, K=8, f32, the
+   six criteria of ``configs/default.yaml``, its three augmentations on:
+   finite losses; both embedder towers, the generator and the discriminator
+   moved, and ResNeXt-50's running statistics; exactly 16 conv_bn and 17
+   AdaIN launches per step; median step ms, images/s, peak memory, one
+   step's device-busy ms and idle share; then save, resume through the CLI
+   and take one more step, the step and Adam count continuing;
+8. one meta step on the card and on the CPU from the same state and batch
+   (batch 2, f32, train-mode BatchNorm in both towers, the same dropout
+   masks, augmentation off: its per-pixel fields are drawn on the device):
+   losses, every updated leaf and the BatchNorm statistics within 1e-3
+   relative;
+9. fine-tune the meta-trained checkpoint through the train CLI's functions
+   on ``synthetic://`` avatar frames, f32, batch 8, the fine-tune config's
+   three augmentations on: ê through ResNeXt-50 (16 kernel launches per
+   forward), then 10 GAN steps (17 AdaIN launches each): finite losses,
+   moved generator and identity embedding, advanced spectral-norm state; ê
    frames/s, step ms, images/s and peak memory;
-7. save the fine-tuned checkpoint and drive it in bf16: finite frames;
-8. ê of one loader batch (64 frames) on the card and on the CPU, f32:
-   within 1e-4 of max |ê|;
-9. one fine-tune step on the card and on the CPU from the same state and
-   batch (batch 2, f32, eval-mode pose encoder): losses and the updated
-   identity embedding within 1e-3 relative.
+10. save the fine-tuned checkpoint and drive it in bf16: finite frames;
+11. ê of one loader batch (64 frames) on the card and on the CPU, f32:
+    within 1e-4 of max |ê|;
+12. one fine-tune step on the card and on the CPU from the same state and
+    batch (batch 2, f32, eval-mode pose encoder, augmentation off): losses
+    and the updated identity embedding within 1e-3 relative.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
-record (launches on the main path, error, times, bound, the library call);
+record (launches on the main paths, error, times, bound, the library call);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -110,7 +130,9 @@ META = dict(FLAGSHIP, finetune=False, num_labels=16, dis_num_blocks=7,
             synthetic_num_labels=16)
 FT_BATCH = 8
 FT_EPOCHS = 5          # 2 batches an epoch (16 identities // batch 8)
-STEP_TOL = 1e-3        # card vs CPU, one fine-tune step, relative
+META_STEPS = 5
+STEP_TOL = 1e-3        # card vs CPU, one train step, relative
+GRAD_TOL = 5e-2        # card vs CPU, the G side's gradients, L2 relative
 EHAT_TOL = 1e-4        # card vs CPU, ê of one batch, relative to max |ê|
 
 
@@ -157,6 +179,43 @@ def device_busy_ms(fn, steps, names=()):
 
     return ms(kernels), {n: ms([e for e in kernels if n in e.name])
                          for n in names}
+
+
+# substrings of CUDA kernel names, by the layer that launches them
+KERNEL_KINDS = (("AdaIN kernel", ("adain_cluster",)),
+                ("conv_bn kernel", ("bn_relu_conv1x1", "stats_finalize")),
+                ("cuDNN / cuBLAS convolutions and products",
+                 ("conv", "gemm", "xmma", "fft", "winograd", "cutlass",
+                  "cudnn", "sm90", "sm80", "dgrad", "wgrad")))
+
+
+def kernel_breakdown(fn):
+    """One profiled call of ``fn`` after a warm-up: its device time by
+    KERNEL_KINDS ("other": elementwise, reductions, copies) and its ten
+    longest kernel names, in ms; None where the profiler records no device
+    activity."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.device_time_total / 1e3
+    if not by_name:
+        return None, None
+    kinds = {}
+    for name, ms in by_name.items():
+        low = name.lower()
+        kind = next((k for k, subs in KERNEL_KINDS
+                     if any(sub in low for sub in subs)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return kinds, top
 
 
 def _device(ms, bound):
@@ -378,6 +437,80 @@ def phase_conv_bn(device):
             library, busy)
 
 
+def link_grads(fn, x, scale, offset, w, cot_y, cot_stats):
+    """(y, stats, dx, dscale, doffset, dW) of ``fn`` for the cotangents,
+    with fresh leaves; W enters as conv3's weight (Cout, Cin), viewed."""
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (x, scale, offset, w.t())]
+    y, stats = fn(leaves[0], leaves[1], leaves[2], leaves[3].t())
+    grads = torch.autograd.grad((y, stats), leaves, (cot_y, cot_stats))
+    return (y.detach(), stats.detach(), grads[0], grads[1], grads[2],
+            grads[3].t())
+
+
+def phase_conv_bn_train(device):
+    """The link's train form at ResNeXt-50's four shapes, 64 frames, f32:
+    the ``autograd.Function`` (the kernel's forward, the plain backward)
+    against autograd through the plain version, y, stats and the four
+    gradients within TOL of each tensor's max |.|; the backward's time per
+    link beside the forward kernel's.  Returns the backward ms summed over
+    the 16 links of one forward (events, and the profiler's device time)."""
+    names = ("y", "stats", "dx", "dscale", "doffset", "dW")
+    bwd_total, bwd_device = 0.0, 0.0
+    for rows, cin, cout, count in CONV_LINKS:
+        m = 64 * rows
+        x, scale, offset, w = link_inputs(m, cin, cout, torch.float32,
+                                          device, 3)
+        g = torch.Generator(device=device).manual_seed(4)
+        cot_y = torch.randn(m, cout, generator=g, device=device)
+        cot_stats = torch.randn(2, cout, generator=g, device=device) / m
+        got = link_grads(conv_bn.bn_relu_conv1x1_stats, x, scale, offset, w,
+                         cot_y, cot_stats)
+        want = link_grads(conv_bn.bn_relu_conv1x1_stats_reference, x, scale,
+                          offset, w, cot_y, cot_stats)
+        torch.cuda.synchronize()
+        errs = []
+        for name, a, b in zip(names, got, want):
+            ref = b.abs().max().item()
+            err = (a - b).abs().max().item()
+            errs.append(f"{name} {err / ref:.2g}")
+            require(err <= TOL[torch.float32] * ref,
+                    f"conv_bn train form M={m} {cin}->{cout}: {name} differs "
+                    f"by {err} (max |.| {ref})")
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (x, scale, offset, w.t())]
+        y, stats = conv_bn.bn_relu_conv1x1_stats(
+            leaves[0], leaves[1], leaves[2], leaves[3].t())
+
+        def backward():
+            torch.autograd.grad((y, stats), leaves, (cot_y, cot_stats),
+                                retain_graph=True)
+
+        fwd = cuda_ms(lambda: conv_bn.bn_relu_conv1x1_stats(
+            x, scale, offset, w), 10)
+        bwd = cuda_ms(backward, 10)
+        fwd_dev, _ = device_busy_ms(lambda: conv_bn.bn_relu_conv1x1_stats(
+            x, scale, offset, w), 10)
+        bwd_dev, _ = device_busy_ms(backward, 10)
+        print(f"conv_bn train form 64 frames M={m} {cin}->{cout} f32: "
+              f"max_err/max|.| {', '.join(errs)}; forward kernel_ms="
+              f"{fwd:.4f} backward_ms={bwd:.4f} (plain, events); device_ms "
+              f"forward={_ms(fwd_dev)} backward={_ms(bwd_dev)} (x{count} per "
+              f"forward)", flush=True)
+        bwd_total += count * bwd
+        bwd_device = None if bwd_dev is None or bwd_device is None else \
+            bwd_device + count * bwd_dev
+        del x, y, stats, leaves, got, want, cot_y
+    print(f"conv_bn train form: plain backward of the 16 links of one f32 "
+          f"forward of 64 frames: {bwd_total:.4f} ms (events), "
+          f"{_ms(bwd_device)} ms (device)", flush=True)
+    return bwd_total, bwd_device
+
+
+def _ms(value):
+    return "not measured" if value is None else f"{value:.4f}"
+
+
 def phase_meta_checkpoint(workdir):
     """Seeded flagship-width meta-trained state (identity and pose encoders,
     generator, a 16-label discriminator; EMA off the live weights, non-trivial
@@ -419,7 +552,7 @@ def phase_finetune(meta_ckpt, workdir, device):
         "--experiments_dir", str(workdir)])
     args.experiment_dir = str(workdir)
     loader = train_cli.build_dataloader(args)
-    state = train_cli.load_meta_trained(args, device)
+    state = train_cli.load_checkpoint(args, device)
     criteria = train_cli.build_criteria(args, device)
     gen = state.models["generator"]
     before = {"head_conv": _sample(gen.head_conv.weight),
@@ -440,13 +573,12 @@ def phase_finetune(meta_ckpt, workdir, device):
     require(conv_bn.bn_relu_conv1x1_stats.launches == 16 * forwards,
             f"conv_bn launched {conv_bn.bn_relu_conv1x1_stats.launches} times "
             f"in the ê pass, expected 16 x {forwards} ResNeXt forwards")
-    require(torch.isfinite(e_hat).all() and e_hat.shape == (1, 512),
+    require(torch.isfinite(e_hat).all()
+            and e_hat.shape == (1, args.embed_channels),
             f"ê {tuple(e_hat.shape)} not finite")
 
     args.iteration = state.step
-    step_fn = holycow.make_finetune_step(
-        criteria, args, dropout_generator=torch.Generator(device)
-        .manual_seed(args.random_seed))
+    step_fn = train_cli.make_step(args, criteria)
     losses = []
 
     def step(st, batch):
@@ -544,15 +676,16 @@ def phase_ehat_card_vs_cpu(state, loader, device):
 
 
 def _copy_state(state, args, device):
-    """A copy of a fine-tune TrainState on ``device`` (optimizer moments
-    included)."""
+    """A copy of a TrainState on ``device``, optimizer moments included."""
     models = {k: copy.deepcopy(m).to(device) for k, m in state.models.items()}
     ema = {part: ({k: v.to(device, copy=True) for k, v in t.items()}
                   if isinstance(t, dict) else t.to(device, copy=True))
            for part, t in state.ema_params.items()}
+    embedding = None if not state.finetune else \
+        state.finetune_embedding.detach().to(device, copy=True) \
+        .requires_grad_()
     new = TrainState(models=models, ema_params=ema, step=state.step,
-                     finetune_embedding=state.finetune_embedding.detach()
-                     .to(device, copy=True).requires_grad_())
+                     finetune_embedding=embedding)
     new.opt_g, new.opt_d = ft.optimizers(new, args)
     for src, dst in ((state.opt_g, new.opt_g), (state.opt_d, new.opt_d)):
         dst.count = src.count
@@ -561,37 +694,241 @@ def _copy_state(state, args, device):
     return new
 
 
-def phase_step_card_vs_cpu(args, state, loader, device):
-    """One step from the same state and batch on the card and on the CPU
-    (batch 2, f32, TF32 off, eval-mode pose encoder: dropout masks differ
-    between devices)."""
-    args = copy.copy(args)
-    args.set_eval_mode_in_train = True
-    data, target = loader.get_batch(0)
-    host = ({k: v[:2] for k, v in data.items()},
-            {k: v[:2] for k, v in target.items()})
+def _leaves(state):
+    """{(module, kind): {name: CPU copy}}: each module's parameters, its
+    BatchNorm statistics, and the optimizers' first moments by parameter
+    (Adam's ``mu``: with beta1 = 0 the step's gradient)."""
+    out = {}
+    for part, m in state.models.items():
+        out[(part, "params")] = {k: v.detach().cpu().clone()
+                                 for k, v in m.named_parameters()}
+        out[(part, "stats")] = {k: v.detach().cpu().clone()
+                                for k, v in m.named_buffers()
+                                if "running" in k}
+    # g_trainable's order: the generator, then the embedder (meta-train)
+    # or the identity embedding (fine-tune)
+    n_gen = sum(1 for _ in state.models["generator"].parameters())
+    tail = "finetune_embedding" if state.finetune else "embedder"
+    for i, mu in enumerate(state.opt_g.mu):
+        out.setdefault(("generator" if i < n_gen else tail, "gradient"),
+                       {})[str(i)] = mu.detach().cpu().clone()
+    out[("discriminator", "gradient")] = {
+        str(i): mu.detach().cpu().clone()
+        for i, mu in enumerate(state.opt_d.mu)}
+    if state.finetune:
+        out[("finetune_embedding", "params")] = {
+            "": state.finetune_embedding.detach().cpu().clone()}
+    return out
+
+
+def step_card_vs_cpu(args, state, host, keys, device, what):
+    """One train step from copies of ``state`` on the card and on the CPU
+    with the same host batch, f32, TF32 off: the losses (relative to each,
+    STEP_TOL), the BatchNorm statistics' update and each module's gradient
+    (Adam's first moment, beta1 = 0), as each group's L2 distance relative
+    to its L2 norm, and the weights' moves.  Adam moves a weight by about
+    lr x its gradient's sign, so an entry whose gradient is near 0 may move
+    either way on either device: the moves are held to Adam's bound, ~1.4
+    lr a step.  The generator's and the embedder's gradients get GRAD_TOL:
+    their chains of instance and train-mode batch norms amplify the two
+    devices' f32 rounding, which agrees to 1e-6 in the losses."""
     out = {}
     for name, dev in (("card", device), ("cpu", torch.device("cpu"))):
         st = _copy_state(state, args, dev)
-        step_fn = holycow.make_finetune_step(
-            train_cli.build_criteria(args, dev), args)
+        before = _leaves(st)
+        step_fn = train_cli.make_step(args, train_cli.build_criteria(args,
+                                                                     dev))
         t0 = time.perf_counter()
-        scalars = step_fn(st, holycow.to_device(host, dev))
-        emb = st.finetune_embedding.detach().cpu()
-        out[name] = ({k: float(v) for k, v in scalars.items()}, emb,
-                     time.perf_counter() - t0)
+        scalars = step_fn(st, holycow.to_device(host, dev, keys))
+        out[name] = ({k: float(v) for k, v in scalars.items()}, before,
+                     _leaves(st), time.perf_counter() - t0)
         del st
-    (card, card_emb, card_s), (cpu, cpu_emb, cpu_s) = out["card"], out["cpu"]
-    worst = max(abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-6) for k in cpu)
-    emb_rel = ((card_emb - cpu_emb).abs().max()
-               / cpu_emb.abs().max()).item()
-    print(f"finetune step card vs cpu, batch 2 {args.image_size}² f32 (TF32 "
-          f"off): losses max_rel_diff={worst:.3g}, finetune_embedding "
-          f"max_rel_diff="
-          f"{emb_rel:.3g}; card {card_s:.2f} s, cpu {cpu_s:.2f} s", flush=True)
-    require(worst <= STEP_TOL and emb_rel <= STEP_TOL,
-            f"card and CPU fine-tune steps differ: losses {worst}, "
-            f"embedding {emb_rel}")
+    (card, _, card_after, card_s), (cpu, cpu_before, cpu_after, cpu_s) = \
+        out["card"], out["cpu"]
+    loss = max(abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-6) for k in cpu)
+    rel, moves = {}, {}
+    for group, leaves in cpu_after.items():
+        part, kind = group
+        if kind == "params":
+            lr = args.lr_dis if part == "discriminator" else args.lr_gen
+            moves[part] = max(
+                ((card_after[group][k] - leaves[k]).abs().max().item()
+                 for k in leaves), default=0.0) / lr
+            continue
+        num = sum(float((card_after[group][k] - leaves[k]).square().sum())
+                  for k in leaves)
+        den = sum(float((leaves[k] - (cpu_before[group][k]
+                                      if kind == "stats" else 0)).square()
+                        .sum()) for k in leaves)
+        if den:
+            rel[".".join(group)] = (num / den) ** 0.5
+    tol = {k: GRAD_TOL if k.endswith("gradient") and "discriminator"
+           not in k else STEP_TOL for k in rel}
+    worst = max(rel, key=lambda k: rel[k] / tol[k])
+    print(f"{what} card vs cpu, batch {host[1]['label'].shape[0]} "
+          f"{args.image_size}² f32 (TF32 off): losses max_rel_diff={loss:.3g}"
+          f"; L2 relative: " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                         rel.items())
+          + "; weights' largest move apart, in lr: " + ", ".join(
+              f"{k} {v:.3g}" for k, v in moves.items())
+          + f"; card {card_s:.2f} s, cpu {cpu_s:.2f} s", flush=True)
+    require(loss <= STEP_TOL and rel[worst] <= tol[worst]
+            and max(moves.values()) <= 3.0,
+            f"card and CPU {what}s differ: losses {loss}, {worst} "
+            f"{rel[worst]}, moves {moves}")
+
+
+def _batch_of(loader, size):
+    data, target = loader.get_batch(0)
+    return ({k: v[:size] for k, v in data.items()},
+            {k: v[:size] for k, v in target.items()})
+
+
+def phase_step_card_vs_cpu(args, state, loader, device):
+    """One fine-tune step from the same state and batch on the card and on
+    the CPU (batch 2, eval-mode pose encoder, augmentation off)."""
+    args = copy.copy(args)
+    args.set_eval_mode_in_train = True
+    args.use_pixelwise_augs = args.use_affine_scale = \
+        args.use_affine_shift = False
+    step_card_vs_cpu(args, state, _batch_of(loader, 2), holycow.STEP_KEYS,
+                     device, "finetune step")
+
+
+def phase_meta_step_card_vs_cpu(args, state, loader, device):
+    """One meta step from the same state and batch on the card and on the
+    CPU: batch 2, train-mode BatchNorm in both towers, the same dropout
+    masks (drawn on the CPU from one seed on both sides), augmentation off
+    (its per-pixel fields come from a generator on the device)."""
+    args = copy.copy(args)
+    args.use_pixelwise_augs = args.use_affine_scale = \
+        args.use_affine_shift = False
+    step_card_vs_cpu(args, state, _batch_of(loader, 2),
+                     holycow.META_STEP_KEYS, device, "meta step")
+
+
+_META_SAMPLES = {
+    "identity tower conv3": lambda s: s.models["embedder"]
+    .identity_encoder.layer1_0.conv3.weight,
+    "pose tower classifier": lambda s: s.models["embedder"]
+    .pose_encoder.classifier.weight,
+    "generator head_conv": lambda s: s.models["generator"].head_conv.weight,
+    "discriminator linear": lambda s: s.models["discriminator"].linear.weight,
+    "identity bn3 running_mean": lambda s: s.models["embedder"]
+    .identity_encoder.layer1_0.bn3.running_mean,
+    "identity bn2 running_var": lambda s: s.models["embedder"]
+    .identity_encoder.layer4_2.bn2.running_var,
+}
+
+
+def _launches():
+    return {"bn_relu_conv1x1_stats": conv_bn.bn_relu_conv1x1_stats.launches,
+            "adain_fused": adain_op.adain.launches}
+
+
+def _zero_launches():
+    conv_bn.bn_relu_conv1x1_stats.launches = 0
+    adain_op.adain.launches = 0
+
+
+def phase_meta_train(meta_ckpt, workdir, device):
+    """The train CLI's meta-train path on the card: resume the seeded meta
+    checkpoint, META_STEPS steps, save, resume the result and take one more
+    step, save.  Returns (args, loader, final checkpoint, launches)."""
+    argv = ["--dataloader", "synthetic", "--device", str(device),
+            "--allow_random_vgg", "--batch_size", "8", "--num_epochs", "1",
+            "--experiments_dir", str(workdir)]
+    args = train_cli.resolve_args(argv + ["--checkpoint_path",
+                                          str(meta_ckpt)])
+    require(not args.finetune and args.use_pixelwise_augs
+            and args.use_affine_scale and args.use_affine_shift
+            and args.optimizer == "Adam" and len(args.criterions.split(","))
+            == 6, f"meta-train args {vars(args)}")
+    args.experiment_dir = str(workdir)
+    loader = train_cli.build_dataloader(args)
+    state = train_cli.load_checkpoint(args, device)
+    criteria = train_cli.build_criteria(args, device)
+    step_fn = train_cli.make_step(args, criteria)
+    before = {k: _sample(f(state)) for k, f in _META_SAMPLES.items()}
+    per_step = len(state.models["generator"].adain_features)     # 17
+    batches = [holycow.to_device(loader.get_batch(i), device,
+                                 holycow.META_STEP_KEYS)
+               for i in range(META_STEPS)]
+    losses, times, launches = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total = {"bn_relu_conv1x1_stats": 0, "adain_fused": 0}
+    for batch in batches:
+        torch.cuda.synchronize()
+        _zero_launches()
+        t0 = time.perf_counter()
+        scalars = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches.append(_launches())
+        total = {k: total[k] + v for k, v in launches[-1].items()}
+        losses.append({k: float(v) for k, v in scalars.items()})
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    for count in launches:
+        require(count == {"bn_relu_conv1x1_stats": 16,
+                          "adain_fused": per_step},
+                f"meta step launched {count}, expected 16 conv_bn and "
+                f"{per_step} AdaIN")
+    require(all(np.isfinite(v) for s in losses for v in s.values()),
+            f"non-finite meta losses: {losses[-1]}")
+    require(len(losses[0]) == 9, f"meta losses {sorted(losses[0])}")
+    for key, f in _META_SAMPLES.items():
+        require(not torch.equal(before[key], _sample(f(state))),
+                f"{key} did not change in meta-training")
+    median = float(np.median(times))
+    print(f"meta-train: {META_STEPS} steps, step {state.step}, Adam count "
+          f"{state.opt_g.count}; first losses {losses[0]}; last "
+          f"{losses[-1]}; launches per step {launches[0]}", flush=True)
+    busy, _ = device_busy_ms(lambda: step_fn(state, batches[0]), 1)
+    idle = "not measured" if busy is None else f"{1 - busy / median:.3f}"
+    print(f"meta-train f32 batch 8 K=8 {args.image_size}², 6 criteria, 3 "
+          f"augmentations: step_ms median={median:.2f} (each "
+          f"{', '.join(f'{t:.1f}' for t in times)}) images/s="
+          f"{8 / median * 1e3:.2f} peak_mem_MiB={peak:.0f}; one step "
+          f"device_busy_ms={_ms(busy)} idle_share={idle}", flush=True)
+    kinds, top = kernel_breakdown(lambda: step_fn(state, batches[1]))
+    if kinds is not None:
+        traced = sum(kinds.values())
+        print("meta-train step device time by kind: " + "; ".join(
+            f"{k} {v:.2f} ms ({v / traced:.1%})" for k, v in
+            sorted(kinds.items(), key=lambda kv: -kv[1])), flush=True)
+        print("meta-train step's ten longest kernels (ms): " + "; ".join(
+            f"{n[:60]} {v:.2f}" for n, v in top), flush=True)
+
+    path = train_cli.save(args, state)
+    step, count = state.step, state.opt_g.count
+    del state, step_fn, batches
+    torch.cuda.empty_cache()
+    args = train_cli.resolve_args(argv + ["--checkpoint_path", str(path)])
+    args.experiment_dir = str(workdir)
+    state = train_cli.load_checkpoint(args, device)
+    require(state.step == step and state.opt_g.count == count
+            and state.opt_d.count == count,
+            f"resumed at step {state.step}, counts {state.opt_g.count} "
+            f"{state.opt_d.count}; saved at {step}, {count}")
+    step_fn = train_cli.make_step(args, train_cli.build_criteria(args,
+                                                                 device))
+    _zero_launches()
+    scalars = step_fn(state, holycow.to_device(
+        loader.get_batch(META_STEPS), device, holycow.META_STEP_KEYS))
+    torch.cuda.synchronize()
+    resumed = _launches()
+    total = {k: total[k] + v for k, v in resumed.items()}
+    require(state.step == step + 1 and state.opt_g.count == count + 1
+            and all(np.isfinite(float(v)) for v in scalars.values()),
+            f"the resumed step: step {state.step}, count "
+            f"{state.opt_g.count}")
+    path = train_cli.save(args, state)
+    print(f"meta-train resumed from {Path(args.checkpoint_path).name}: step "
+          f"{step} -> {state.step}, Adam count {count} -> "
+          f"{state.opt_g.count}; launches {resumed}; saved {path.name}",
+          flush=True)
+    return args, state, loader, path, total
 
 
 def phase_checkpoint(workdir):
@@ -728,6 +1065,7 @@ def main():
      adain_device_ms) = phase_kernels(device)
     (conv_err, conv_ms, conv_plain_ms, conv_bound, conv_bound_by,
      conv_library_ms, conv_device_ms) = phase_conv_bn(device)
+    conv_bwd_ms, conv_bwd_device_ms = phase_conv_bn_train(device)
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as workdir:
@@ -742,11 +1080,18 @@ def main():
         del models, state
 
         meta_ckpt = phase_meta_checkpoint(Path(workdir) / "meta")
-        ft_args, ft_state, _, loader, ft_ckpt, launches = phase_finetune(
-            meta_ckpt, Path(workdir) / "finetune", device)
+        meta_args, meta_state, meta_loader, trained_ckpt, meta_launches = \
+            phase_meta_train(meta_ckpt, Path(workdir) / "metatrain", device)
+        phase_meta_step_card_vs_cpu(meta_args, meta_state, meta_loader,
+                                    device)
+        del meta_state, meta_loader
+        torch.cuda.empty_cache()
+        ft_args, ft_state, _, loader, ft_ckpt, ft_launches = phase_finetune(
+            trained_ckpt, Path(workdir) / "finetune", device)
         drive_once(ft_ckpt, [], frames)
         phase_ehat_card_vs_cpu(ft_state, loader, device)
         phase_step_card_vs_cpu(ft_args, ft_state, loader, device)
+    launches = {k: meta_launches[k] + ft_launches[k] for k in ft_launches}
 
     print(json.dumps({"kernels": [{
         "name": "adain_fused", "route": "cuda",
@@ -766,7 +1111,9 @@ def main():
         "bound_by": conv_bound_by, "device_ms": conv_device_ms,
         "library_ms": conv_library_ms,
         "library_call": "torch.matmul(h, w), the product alone on the "
-                        "already-normalised activation, f32, TF32 off"}]}))
+                        "already-normalised activation, f32, TF32 off",
+        "train_backward_ms": conv_bwd_ms,
+        "train_backward_device_ms": conv_bwd_device_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,21 +1,32 @@
-"""Fine-tuning entry point of the PyTorch port (port of
-``latentpose_tpu/cli/train.py`` in its fine-tune regime):
+"""Training entry point of the PyTorch port (port of
+``latentpose_tpu/cli/train.py``), meta-training and fine-tuning:
 
+    python -m latentpose_tpu_torch.cli.train --dataloader synthetic \
+        [--checkpoint_path META_CKPT] [--device cuda] ...
     python -m latentpose_tpu_torch.cli.train --finetune \
-        --checkpoint_path META_CKPT --dataloader synthetic [--device cuda] ...
+        --checkpoint_path CKPT --dataloader synthetic [--device cuda] ...
 
-From a meta-trained checkpoint of either package: ê (the mean identity
-embedding over the avatar's frames, through ResNeXt-50 and the fused
-BN->ReLU->1x1-conv kernel), the fine-tune re-parameterisation, then
-``num_epochs`` epochs of GAN steps with RAdam and an EMA of 0.972, logging
-the loss scalars; the fine-tuned checkpoint is written in the JAX layout,
-which both packages' drive read.
+Meta-training (no ``--finetune``) starts from a seeded init of the flagship
+models, or resumes a meta-trained checkpoint of either package: the
+identity tower (ResNeXt-50 in train form, its 16 BN->ReLU->1x1-conv links
+through the fused kernel under autograd) and the pose tower train with the
+generator under Adam, the six criteria of ``configs/default.yaml`` (with
+``dis_embed``), the three augmentations and an EMA of 0.999.
 
-Arguments resolve as in the JAX package, lowest to highest: the JAX core
-defaults (:data:`DEFAULTS`), the checkpoint's saved args, the values of
-``configs/finetuning-base.yaml`` (:data:`FINETUNE_CONFIG`; yaml is not
-installed where the card is), then the flags given here.  What the port
-does not run yet is refused with the ROADMAP.md item that will bring it.
+Fine-tuning (``--finetune``) from a meta-trained checkpoint computes ê (the
+mean identity embedding over the avatar's frames), re-parameterises and
+trains the generator and ê with RAdam and an EMA of 0.972; from a
+fine-tuned checkpoint it resumes.  Either run saves at the end in the JAX
+layout, optimizer state included, which both packages read.
+
+Arguments resolve lowest to highest: the JAX core defaults
+(:data:`DEFAULTS`); for meta-training ``configs/default.yaml``
+(:data:`META_CONFIG`) and then the checkpoint's saved args, so that a resumed
+run keeps its widths; for fine-tuning the checkpoint's args and then
+``configs/finetuning-base.yaml`` (:data:`FINETUNE_CONFIG`); then the flags
+given here.  yaml is not installed where the card is, hence the dicts.  What
+the port does not run yet is refused with the ROADMAP.md item that will
+bring it; save-on-SIGINT is not installed (A.13).
 """
 
 from __future__ import annotations
@@ -31,9 +42,10 @@ import torch
 
 from latentpose_tpu_torch import checkpoint as ckpt_lib
 from latentpose_tpu_torch import convert, registry
+from latentpose_tpu_torch.ops.spectral_norm import SNEmbed
 from latentpose_tpu_torch.runners import finetune as ft
 from latentpose_tpu_torch.runners import holycow
-from latentpose_tpu_torch.runners.state import TrainState
+from latentpose_tpu_torch.runners.state import TrainState, ema_of
 
 logger = logging.getLogger("latentpose_tpu_torch.train")
 
@@ -51,19 +63,33 @@ DEFAULTS = dict(
     average_function="sum", gen_padding="zero", gen_constant_input_size=4,
     gen_num_residual_blocks=2, dis_padding="zero", dis_num_blocks=7,
     gan_type="gan", fm_weight=10.0, perc_weight=1e-2, idt_embed_weight=2e-3,
-    dice_weight=1.0, num_enc_frames=8, synthetic_num_labels=16,
-    synthetic_frames_per_video=32, transfer_dtype="float32",
-    grad_accum_steps=1, grad_dtype="float32", explicit_grad_reduce=False,
-    use_pixelwise_augs=False, use_affine_scale=False, use_affine_shift=False,
-    log_frequency_loss=1, iteration=0, dataloader="", criterions="")
+    dis_embed_weight=1e-2, dice_weight=1.0, num_enc_frames=8,
+    synthetic_num_labels=16, synthetic_frames_per_video=32,
+    transfer_dtype="float32", grad_accum_steps=1, grad_dtype="float32",
+    explicit_grad_reduce=False, use_pixelwise_augs=False,
+    use_affine_scale=False, use_affine_shift=False, log_frequency_loss=1,
+    iteration=0, dataloader="", criterions="")
 
-# configs/finetuning-base.yaml.  Deviation: the fine-tune config turns the
-# three augmentations on; the port has no augmentation yet (ROADMAP.md A.12),
-# so they stay off here and a flag that turns one on is refused.
-AUGMENTATION_SWITCHES = ("use_pixelwise_augs", "use_affine_scale",
-                         "use_affine_shift")
+# configs/default.yaml, the flagship meta-training config.
+META_CONFIG = dict(
+    generator="vector_pose_unsupervised_segmentation_noBottleneck",
+    embedder="unsupervised_pose_separate_embResNeXt_segmentation",
+    discriminator="no_landmarks",
+    criterions="idt_embed, perceptual, adversarial, featmat, dis_embed, dice",
+    dataloader="voxceleb2_segmentation_nolandmarks", runner="holycow",
+    train_split_path="./data/splits/train.csv",
+    val_split_path="./data/splits/val.csv", img_dir="images-cropped",
+    kp_dir="keypoints-cropped", segm_dir="segmentation-cropped",
+    experiments_dir="experiments/", data_root="",
+    bboxes_dir="/non/existent/file", num_devices=0, batch_size=8,
+    num_workers=4, prefetch_size=16, perc_weight=3e-2, idt_embed_weight=0.6e-2,
+    pose_embedding_size=256, log_frequency_images=500,
+    log_frequency_fixed_images=2500, use_pixelwise_augs=True,
+    use_affine_scale=True, use_affine_shift=True)
+
+# configs/finetuning-base.yaml.
 FINETUNE_CONFIG = dict(
-    use_pixelwise_augs=False, use_affine_scale=False, use_affine_shift=False,
+    use_pixelwise_augs=True, use_affine_scale=True, use_affine_shift=True,
     finetune=True, optimizer="RAdam", lr_gen=5e-4, lr_dis=8e-4,
     criterions="adversarial, featmat, idt_embed, perceptual, dice",
     img_dir="images-cropped", kp_dir="keypoints-cropped",
@@ -72,7 +98,8 @@ FINETUNE_CONFIG = dict(
     log_frequency_fixed_images=15, fixed_val_ids=[0], num_epochs=140,
     save_frequency=0)
 
-CRITERIA = ("adversarial", "featmat", "idt_embed", "perceptual", "dice")
+CRITERIA = ("adversarial", "featmat", "idt_embed", "perceptual", "dice",
+            "dis_embed")
 # the criteria that run a VGG tower and take the device to build it on
 _VGG_CRITERIA = ("idt_embed", "perceptual")
 
@@ -92,13 +119,17 @@ def build_parser():
     for name in ("batch_size", "num_epochs", "random_seed", "save_frequency",
                  "num_devices", "grad_accum_steps", "synthetic_num_labels",
                  "num_enc_frames", "log_frequency_loss",
-                 "log_frequency_images", "log_frequency_fixed_images"):
+                 "log_frequency_images", "log_frequency_fixed_images",
+                 "image_size", "num_channels", "max_num_channels",
+                 "embed_channels", "pose_embedding_size", "dis_num_blocks",
+                 "gen_num_residual_blocks"):
         parser.add_argument(f"--{name}", type=int, default=None)
     for name in ("lr_gen", "lr_dis", "beta1"):
         parser.add_argument(f"--{name}", type=float, default=None)
     for name in ("allow_random_vgg", "set_eval_mode_in_train", "skip_eval",
                  "explicit_grad_reduce", "weights_running_average",
-                 *AUGMENTATION_SWITCHES):
+                 "use_pixelwise_augs", "use_affine_scale",
+                 "use_affine_shift"):
         parser.add_argument(f"--{name}", action=flag, default=None)
     return parser
 
@@ -108,37 +139,43 @@ def _refuse(what, item):
                               f"(ROADMAP.md {item})")
 
 
-def resolve_args(argv=None):
-    """The args namespace of a fine-tune run (see the module docstring),
-    with everything the port does not run refused."""
-    cli = build_parser().parse_args(argv)
-    if not cli.finetune:
-        _refuse("meta-training (train without --finetune)", "A.12")
-    if not cli.checkpoint_path:
-        raise ValueError("--finetune needs --checkpoint_path, a meta-trained "
-                         "checkpoint")
-    meta_path = Path(cli.checkpoint_path) / "meta.json"
+def checkpoint_is_finetuned(path) -> bool:
+    meta_path = Path(path) / "meta.json"
     if not meta_path.exists():
-        raise FileNotFoundError(f"Checkpoint `{cli.checkpoint_path}` not "
-                                "found")
-    if json.loads(meta_path.read_text()).get("finetune", False):
-        _refuse("resuming a fine-tuned checkpoint (its optimizer state does "
-                "not cross between the packages)", "A.12")
+        raise FileNotFoundError(f"Checkpoint `{path}` not found")
+    return bool(json.loads(meta_path.read_text()).get("finetune", False))
+
+
+def resolve_args(argv=None):
+    """The args namespace of a run (see the module docstring), with
+    everything the port does not run refused."""
+    cli = build_parser().parse_args(argv)
+    finetuned = bool(cli.checkpoint_path) \
+        and checkpoint_is_finetuned(cli.checkpoint_path)
+    if cli.finetune and not cli.checkpoint_path:
+        raise ValueError("--finetune needs --checkpoint_path, a meta-trained "
+                         "or fine-tuned checkpoint")
+    if finetuned and not cli.finetune:
+        raise ValueError(f"{cli.checkpoint_path} is a fine-tuned checkpoint: "
+                         "it resumes with --finetune")
+    saved = ckpt_lib.peek_args(cli.checkpoint_path) \
+        if cli.checkpoint_path else {}
     args = dict(DEFAULTS)
-    args.update(ckpt_lib.peek_args(cli.checkpoint_path))
-    args.update(FINETUNE_CONFIG)
+    if cli.finetune:
+        args.update(saved)
+        args.update(FINETUNE_CONFIG)
+    else:
+        args.update(META_CONFIG)
+        args.update(saved)
     args.update({k: v for k, v in vars(cli).items() if v is not None})
+    args.update(finetune=bool(cli.finetune),
+                checkpoint_path=cli.checkpoint_path)
     args = types.SimpleNamespace(**args)
 
-    for name in AUGMENTATION_SWITCHES:
-        if getattr(args, name):
-            _refuse(f"--{name} (augmentation)", "A.12")
     if args.compute_dtype != "float32":
         _refuse(f"--compute_dtype {args.compute_dtype} in training", "A.14")
     if args.transfer_dtype != "float32":
         _refuse(f"--transfer_dtype {args.transfer_dtype}", "A.14")
-    if args.grad_accum_steps > 1:
-        _refuse("--grad_accum_steps > 1", "A.12")
     if args.grad_dtype != "float32" or args.explicit_grad_reduce \
             or (args.num_devices or 1) > 1:
         _refuse("multi-device training (--num_devices > 1, --grad_dtype, "
@@ -153,7 +190,13 @@ def resolve_args(argv=None):
     names = [n.strip() for n in args.criterions.split(",") if n.strip()]
     for name in names:
         if name not in CRITERIA:
-            _refuse(f"criterion {name!r}", "A.12")
+            _refuse(f"criterion {name!r}", "A.19")
+    if args.optimizer not in ft.OPTIMIZERS:
+        raise ValueError(f"--optimizer {args.optimizer!r}: the JAX package "
+                         f"has {sorted(ft.OPTIMIZERS)}")
+    if args.batch_size % max(args.grad_accum_steps, 1):
+        raise ValueError(f"--grad_accum_steps {args.grad_accum_steps} must "
+                         f"divide --batch_size {args.batch_size}")
     if not args.skip_eval:
         _refuse("validation (--no-skip_eval)", "A.13")
     if cli.log_frequency_images is not None \
@@ -170,7 +213,7 @@ def build_dataloader(args):
         num_labels=args.synthetic_num_labels,
         num_enc_frames=args.num_enc_frames,
         frames_per_video=args.synthetic_frames_per_video,
-        seed=args.random_seed)
+        finetune=args.finetune, seed=args.random_seed)
 
 
 def build_models(args, generator=None):
@@ -185,21 +228,52 @@ def build_models(args, generator=None):
     }
 
 
-def load_meta_trained(args, device) -> TrainState:
-    """The meta-trained train state of ``args.checkpoint_path`` on
-    ``device`` (the discriminator with the checkpoint's ``num_labels``)."""
+def init_state(args, dataloader, device) -> TrainState:
+    """A fresh meta-train state from ``args.random_seed``: the flagship
+    models' init, the EMA equal to it, fresh optimizers; the discriminator
+    has a row for each of the loader's identities."""
+    if not args.num_labels:
+        args.num_labels = dataloader.num_labels
+    generator = torch.Generator().manual_seed(args.random_seed)
+    models = {k: m.to(device)
+              for k, m in build_models(args, generator=generator).items()}
+    state = TrainState(models=models, ema_params={
+        part: ema_of(models[part]) for part in ("embedder", "generator")})
+    state.opt_g, state.opt_d = ft.optimizers(state, args)
+    logger.info("Meta-training from a seeded init (seed %d)",
+                args.random_seed)
+    return state
+
+
+def load_checkpoint(args, device) -> TrainState:
+    """The train state of ``args.checkpoint_path`` on ``device``, optimizers
+    included: a meta-trained one (the discriminator with the checkpoint's
+    ``num_labels``) or a fine-tuned one (its one-row discriminator and
+    identity embedding)."""
     flat = ckpt_lib.load_arrays(args.checkpoint_path)
-    args.num_labels = int(flat[f"params{ckpt_lib.SEP}discriminator"
-                               f"{ckpt_lib.SEP}embed{ckpt_lib.SEP}"
-                               f"embedding"].shape[0])
+    finetuned = checkpoint_is_finetuned(args.checkpoint_path)
+    embed = flat[ckpt_lib.SEP.join(("params", "discriminator", "embed",
+                                    "embedding"))]
+    args.num_labels = int(embed.shape[0])
     models = build_models(args)
-    ema, step = convert.load_train_state(flat, models)
+    finetune_embedding = None
+    if finetuned:
+        models["discriminator"].embed = SNEmbed(1, embed.shape[1],
+                                                sn_eps=1e-12)
+        finetune_embedding = torch.zeros(1, embed.shape[1], device=device)
     models = {k: m.to(device) for k, m in models.items()}
-    ema = {part: {k: v.to(device) for k, v in tensors.items()}
-           for part, tensors in ema.items()}
-    logger.info("Loaded meta-trained checkpoint %s (iteration %d)",
-                args.checkpoint_path, step)
-    return TrainState(models=models, ema_params=ema, step=step)
+    state = TrainState(models=models, ema_params={},
+                       finetune_embedding=finetune_embedding)
+    if finetuned:
+        state.finetune_embedding.requires_grad_()
+        state.ema_params["finetune_embedding"] = torch.zeros_like(
+            finetune_embedding)
+    state.opt_g, state.opt_d = ft.optimizers(state, args)
+    convert.load_train_state(flat, state)
+    logger.info("Loaded %s checkpoint %s (iteration %d, optimizer count "
+                "%d)", "fine-tuned" if finetuned else "meta-trained",
+                args.checkpoint_path, state.step, state.opt_g.count)
+    return state
 
 
 def build_criteria(args, device):
@@ -224,11 +298,20 @@ def start_finetuning(args, state, dataloader, device):
     return state
 
 
+def make_step(args, criteria):
+    """The train step of ``args``, its dropout masks drawn from a CPU
+    generator seeded with ``args.random_seed``."""
+    return holycow.make_train_step(
+        criteria, args,
+        dropout_generator=torch.Generator().manual_seed(args.random_seed))
+
+
 def run_epoch(dataloader, step_fn, state, args, device):
     """One epoch of steps; logs the loss scalars every
     ``log_frequency_loss`` steps."""
+    keys = holycow.STEP_KEYS if state.finetune else holycow.META_STEP_KEYS
     for batch in dataloader:
-        scalars = step_fn(state, holycow.to_device(batch, device))
+        scalars = step_fn(state, holycow.to_device(batch, device, keys))
         if args.iteration % args.log_frequency_loss == 0:
             logger.info("iteration %d: %s", args.iteration, " ".join(
                 f"{k}={float(v):.5g}" for k, v in scalars.items()))
@@ -256,13 +339,13 @@ def main(argv=None):
                               / args.experiment_name) \
         if args.experiment_name else str(args.experiments_dir)
     dataloader = build_dataloader(args)
-    state = load_meta_trained(args, device)
+    state = load_checkpoint(args, device) if args.checkpoint_path \
+        else init_state(args, dataloader, device)
     criteria = build_criteria(args, device)
-    state = start_finetuning(args, state, dataloader, device)
+    if args.finetune and not state.finetune:
+        state = start_finetuning(args, state, dataloader, device)
     args.iteration = state.step
-    step_fn = holycow.make_finetune_step(
-        criteria, args, dropout_generator=torch.Generator(device)
-        .manual_seed(args.random_seed))
+    step_fn = make_step(args, criteria)
     path = None
     for epoch in range(args.num_epochs):
         state = run_epoch(dataloader, step_fn, state, args, device)

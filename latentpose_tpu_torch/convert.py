@@ -9,13 +9,18 @@ so each leaf maps by its module's type:
 - flax BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` <->
   BatchNorm2d weight, bias and running statistics;
 - ``spectral`` ``u``/``v`` <-> the spectral-norm buffers; the spectral-norm
-  embedding table ``embedding`` (num, dim) <-> its weight as it is.
+  embedding table ``embedding`` (num, dim) <-> its weight as it is;
+- the optimizers' state, optax's ``ScaleByAdamState`` under
+  ``opt_state_g::0`` / ``opt_state_d::0`` (``count``, and ``mu`` / ``nu``
+  trees shaped as the trainable params) <-> the port's ``count`` and
+  per-tensor moments, each moment transposed as its parameter is.
 
-Three readers and one writer: drive reads the EMA weights of a fine-tuned
-checkpoint (:func:`load_drive_weights`); fine-tune reads a meta-trained
-checkpoint whole (:func:`load_train_state`); :func:`export_train_state`
-writes a train state in the JAX layout.  Keys a reader does not use are
-skipped by an explicit list, and any other key is an error.
+Two readers and one writer: drive reads the EMA weights of a fine-tuned
+checkpoint (:func:`load_drive_weights`); training reads a meta-trained or
+fine-tuned checkpoint whole (:func:`load_train_state`: to resume it, or to
+start fine-tuning); :func:`export_train_state` writes a train state in the
+JAX layout.  Keys a reader does not use are skipped by an explicit list, and
+any other key is an error.
 """
 
 from __future__ import annotations
@@ -40,9 +45,6 @@ SKIPPED = re.compile(
     r"step"
     r"|opt_state_[gd](::.*)?"                                   # optimizers
     r"|(params|ema_params|spectral)::discriminator::.*")
-# Keys of a meta-trained train state that fine-tuning does not read: the
-# optimizers start fresh (their state does not cross yet).
-SKIPPED_TRAIN = re.compile(r"opt_state_[gd](::.*)?")
 PARTS = ("embedder", "generator", "discriminator")
 EMA_PARTS = ("embedder", "generator")
 
@@ -139,30 +141,105 @@ def export_ema(model, part: str, ema) -> dict:
     return flat
 
 
-def load_train_state(flat, models):
-    """Load a meta-trained checkpoint's arrays into ``models`` (embedder,
-    generator, discriminator: params, BatchNorm statistics, spectral
-    state) and return (ema_params, step), ``ema_params`` as
-    ``runners/state.py`` holds them.  The optimizer states are skipped;
-    any other key not read is an error."""
+def _param_layout(model, part: str):
+    """(JAX path, to torch, to JAX) of each of ``model.parameters()``, in
+    order."""
+    rules = {tkey: (leaf, tt, tj) for tkey, coll, leaf, (tt, tj)
+             in _rules(model) if coll == "params"}
+    return [(_key("", part, rules[name][0]),) + rules[name][1:]
+            for name, _ in model.named_parameters()]
+
+
+def optimizer_layouts(state):
+    """{'opt_state_g': layout, 'opt_state_d': layout}: the JAX paths of
+    ``g_trainable(state)`` and ``d_trainable(state)``, in their order."""
+    models = state.models
+    g = _param_layout(models["generator"], "generator")
+    g += ([("finetune_embedding",) + _SAME] if state.finetune
+          else _param_layout(models["embedder"], "embedder"))
+    return {"opt_state_g": g,
+            "opt_state_d": _param_layout(models["discriminator"],
+                                         "discriminator")}
+
+
+def _optimizers(state):
+    return {"opt_state_g": state.opt_g, "opt_state_d": state.opt_d}
+
+
+def load_optimizer_states(flat, state) -> set:
+    """Load ``count``, ``mu`` and ``nu`` of both optimizers of ``state``;
+    returns the keys read.  A checkpoint without optimizer state leaves
+    them fresh, as the JAX package's restore does."""
+    used = set()
+    for prefix, layout in optimizer_layouts(state).items():
+        opt = _optimizers(state)[prefix]
+        head = SEP.join((prefix, "0"))
+        count = SEP.join((head, "count"))
+        if count not in flat:
+            continue
+        opt.count = int(np.asarray(flat[count]))
+        used.add(count)
+        for (path, to_torch, _), mu, nu in zip(layout, opt.mu, opt.nu):
+            for name, moment in (("mu", mu), ("nu", nu)):
+                key = SEP.join((head, name, path))
+                with torch.no_grad():
+                    moment.copy_(_to_torch(flat, key, to_torch, moment.shape))
+                used.add(key)
+    return used
+
+
+def export_optimizer_states(state) -> dict:
+    """Both optimizers of ``state`` as flat JAX arrays."""
+    flat = {}
+    for prefix, layout in optimizer_layouts(state).items():
+        opt = _optimizers(state)[prefix]
+        head = SEP.join((prefix, "0"))
+        flat[SEP.join((head, "count"))] = np.asarray(opt.count, np.int32)
+        for (path, _, to_jax), mu, nu in zip(layout, opt.mu, opt.nu):
+            for name, moment in (("mu", mu), ("nu", nu)):
+                arr = moment.detach().cpu().numpy()
+                if to_jax is not None:
+                    arr = arr.transpose(to_jax)
+                flat[SEP.join((head, name, path))] = \
+                    np.ascontiguousarray(arr)
+    return flat
+
+
+def load_train_state(flat, state):
+    """Load a checkpoint's arrays into ``state`` in place: the three modules
+    (params, BatchNorm statistics, spectral state), the EMA weights, the
+    identity embedding of a fine-tuned state, both optimizers and the step.
+    ``state`` holds the checkpoint's structure (a fine-tuned state: the
+    one-row discriminator and ``finetune_embedding``) on its device, with
+    its optimizers built; any key not read is an error."""
     used = {"step"}
     for part in PARTS:
-        used |= load_into(models[part], flat, part)
-    ema = {}
+        used |= load_into(state.models[part], flat, part)
     for part in EMA_PARTS:
-        ema[part], keys = read_ema(models[part], flat, part)
+        ema, keys = read_ema(state.models[part], flat, part)
+        device = next(state.models[part].parameters()).device
+        state.ema_params[part] = {k: v.to(device) for k, v in ema.items()}
         used |= keys
-    unknown = sorted(k for k in flat if k not in used
-                     and not SKIPPED_TRAIN.fullmatch(k))
+    if state.finetune:
+        for coll, target in (("params", state.finetune_embedding),
+                             ("ema_params",
+                              state.ema_params["finetune_embedding"])):
+            key = _key(coll, "", "finetune_embedding")
+            with torch.no_grad():
+                target.copy_(_to_torch(flat, key, None, target.shape))
+            used.add(key)
+    used |= load_optimizer_states(flat, state)
+    state.step = int(np.asarray(flat.get("step", 0)))
+    unknown = sorted(k for k in flat if k not in used)
     if unknown:
-        raise ValueError(f"checkpoint keys the fine-tune slice neither reads "
+        raise ValueError(f"checkpoint keys the train state neither reads "
                          f"nor skips ({len(unknown)}): {unknown[:8]}")
-    return ema, int(np.asarray(flat.get("step", 0)))
 
 
 def export_train_state(state) -> dict:
     """A ``runners/state.py`` TrainState as flat JAX arrays: params,
-    ema_params, batch_stats, spectral and step (no optimizer state)."""
+    ema_params, batch_stats, spectral, step and, where the state has
+    them, both optimizers."""
     flat = {"step": np.asarray(state.step, np.int32)}
     for part in PARTS:
         flat.update(export(state.models[part], part, params=("params",)))
@@ -174,6 +251,8 @@ def export_train_state(state) -> dict:
             state.finetune_embedding.detach().cpu().numpy()
         flat[f"ema_params{SEP}finetune_embedding"] = \
             state.ema_params["finetune_embedding"].detach().cpu().numpy()
+    if state.opt_g is not None:
+        flat.update(export_optimizer_states(state))
     return flat
 
 

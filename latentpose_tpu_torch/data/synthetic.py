@@ -1,12 +1,13 @@
 """Procedural "talking head" frames, numpy only (port of the renderer and the
-fine-tune loader of ``latentpose_tpu/data/synthetic.py``, bit for bit; the
+loader of ``latentpose_tpu/data/synthetic.py``, bit for bit; the
 JAX module cannot be imported where the card is, since it imports the
 augmentation code and with it jax).
 
 Each (identity, frame) renders an elliptical head whose colour and size
 encode identity and whose offset, eyes and mouth encode a pose that varies
 smoothly with the frame index (period 32).  ``synthetic://K`` drives with
-identity K; :class:`SyntheticDataLoader` feeds a fine-tune run.
+identity K; :class:`SyntheticDataLoader` feeds a meta-train or a fine-tune
+run.
 """
 
 from __future__ import annotations
@@ -72,31 +73,36 @@ def render_face(label: int, frame: int, image_size: int):
 
 
 class SyntheticDataLoader:
-    """Iterable of (data_dict, target_dict) numpy batches, fine-tune mode:
-    one identity (label 0), one frame per sample serving as the K identity
-    frames, the driving frame and the target (reference
-    ``voxceleb2_segmentation_nolandmarks.py:187-209``), drawn with the JAX
+    """Iterable of (data_dict, target_dict) numpy batches, drawn with the JAX
     loader's ``RandomState`` sequence:
 
       data_dict:   enc_rgbs (B, K, H, W, 3), pose_input_rgbs (B, 1, H, W, 3)
       target_dict: target_rgbs (B, 1, H, W, 3) = image * segm,
                    real_segm (B, 1, H, W, 1), label (B,) int32
 
-    An epoch has ``max(1, num_labels // batch_size)`` batches (the JAX
-    loader counts them from the meta set's size).  Renders are cached: the
-    pose has period 32, so a run touches at most 32 frames.  The meta-train
-    mode comes with the meta-train slice (ROADMAP.md A.12).
+    Meta mode: each sample is one of ``num_labels`` identities, with K
+    identity frames and a driving frame (also the target) from that
+    identity's video.  Fine-tune mode: one identity (label 0), one frame
+    per sample serving as the K identity frames, the driving frame and the
+    target (reference ``voxceleb2_segmentation_nolandmarks.py:187-209``).
+
+    An epoch has ``max(1, num_labels // batch_size)`` batches.  Renders are
+    cached: the pose has period 32, so a run touches at most 32 frames of
+    each identity.
     """
 
     def __init__(self, image_size, batch_size, num_labels=16,
-                 num_enc_frames=8, frames_per_video=32, seed=0):
+                 num_enc_frames=8, frames_per_video=32, finetune=True,
+                 seed=0):
         self.image_size = image_size
         self.batch_size = batch_size
         self.num_enc_frames = num_enc_frames
         self.frames_per_video = frames_per_video
+        self.finetune = finetune
         self.seed = seed
         self.steps_per_epoch = max(1, num_labels // batch_size)
-        self.num_labels = 1      # the discriminator's W has one row
+        # the discriminator's W has one row when fine-tuning
+        self.num_labels = 1 if finetune else num_labels
         self.epoch = 0
         self._cache = {}
 
@@ -109,17 +115,23 @@ class SyntheticDataLoader:
             self._cache[key] = render_face(label, frame, self.image_size)
         return self._cache[key]
 
+    def sample(self, label: int, rng):
+        """(enc (K, H, W, 3), driver (H, W, 3), segm (H, W, 1))."""
+        frames = rng.randint(0, self.frames_per_video,
+                             size=self.num_enc_frames + 2)
+        if self.finetune:
+            img, segm = self._render(label, int(frames[0]))
+            return np.stack([img] * self.num_enc_frames), img, segm
+        enc = np.stack([self._render(label, int(f))[0]
+                        for f in frames[:self.num_enc_frames]])
+        driver, segm = self._render(label, int(frames[-2]))
+        return enc, driver, segm
+
     def get_batch(self, it: int):
         rng = np.random.RandomState(self.seed + it + 100003 * self.epoch)
         labels = rng.randint(0, self.num_labels, size=self.batch_size)
-        encs, imgs, segms = [], [], []
-        for label in labels:
-            frames = rng.randint(0, self.frames_per_video,
-                                 size=self.num_enc_frames + 2)
-            img, segm = self._render(int(label), int(frames[0]))
-            encs.append(np.stack([img] * self.num_enc_frames))
-            imgs.append(img)
-            segms.append(segm)
+        encs, imgs, segms = zip(*(self.sample(int(label), rng)
+                                  for label in labels))
         imgs, segms = np.stack(imgs), np.stack(segms)
         data_dict = {"enc_rgbs": np.stack(encs),
                      "pose_input_rgbs": imgs[:, None]}

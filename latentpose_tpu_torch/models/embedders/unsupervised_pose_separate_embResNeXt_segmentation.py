@@ -3,10 +3,10 @@ encoder (port of
 ``latentpose_tpu/models/embedders/unsupervised_pose_separate_embResNeXt_segmentation.py``).
 
 - identity: ResNeXt-50 over the K identity frames folded into the batch,
-  then the mean ('sum') or max over the frames; eval form only (fine-tune
-  averages ê with it, meta-train trains it in a later slice);
-- pose: MobileNetV2 on driving frame 0, in eval or train form (the
-  fine-tune step runs the frozen pose encoder with train-mode BatchNorm).
+  then the mean ('sum') or max over the frames; eval form for fine-tune's
+  ê, train form in meta-train;
+- pose: MobileNetV2 on driving frame 0, in eval or train form (meta-train
+  trains it; the fine-tune step runs it frozen with train-mode BatchNorm).
 
 Inputs are NHWC as in the JAX package; the towers work in NCHW.
 """
@@ -42,12 +42,12 @@ class Embedder(nn.Module):
         self.pose_encoder = MobileNetV2(num_classes=pose_embedding_size,
                                         generator=generator)
 
-    def get_identity_embedding(self, enc_rgbs):
+    def get_identity_embedding(self, enc_rgbs, train: bool = False):
         """enc_rgbs (B, K, H, W, 3) -> (embeds (B, E), embeds_elemwise
-        (B, K, E)), eval form."""
+        (B, K, E))."""
         b, k, h, w, c = enc_rgbs.shape
         flat = enc_rgbs.reshape(b * k, h, w, c).permute(0, 3, 1, 2)
-        emb = self.identity_encoder(flat).reshape(
+        emb = self.identity_encoder(flat, train).reshape(
             b, k, self.identity_embedding_size)
         agg = emb.mean(dim=1) if self.average_function == "sum" \
             else emb.amax(dim=1)
@@ -60,17 +60,14 @@ class Embedder(nn.Module):
         return self.pose_encoder(pose_input_rgbs[:, 0].permute(0, 3, 1, 2),
                                  train, dropout_generator)
 
-    def forward(self, enc_rgbs, pose_input_rgbs=None, train: bool = False):
+    def forward(self, enc_rgbs, pose_input_rgbs=None, train: bool = False,
+                dropout_generator=None):
         """(embeds, embeds_elemwise, pose embedding or None), as the JAX
-        module's ``__call__``, in eval form; ``torch.func.functional_call``
-        runs it with other weights (the EMA copy).  ``train=True`` is
-        meta-train's forward, which needs ResNeXt-50's train form."""
-        if train:
-            raise NotImplementedError(
-                "the embedder in train mode (ResNeXt-50's train-mode "
-                "BatchNorm, the fused kernel's backward) comes with the "
-                "meta-train slice (ROADMAP.md A.10-A.11)")
-        embeds, elemwise = self.get_identity_embedding(enc_rgbs)
+        module's ``__call__``: identity first, then pose, both in eval or
+        both in train form (meta-train); ``torch.func.functional_call``
+        runs it with other weights (the EMA copy)."""
+        embeds, elemwise = self.get_identity_embedding(enc_rgbs, train)
         pose = None if pose_input_rgbs is None \
-            else self.get_pose_embedding(pose_input_rgbs)
+            else self.get_pose_embedding(pose_input_rgbs, train,
+                                         dropout_generator)
         return embeds, elemwise, pose

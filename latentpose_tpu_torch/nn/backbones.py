@@ -15,10 +15,14 @@ the ``train`` argument as in the JAX modules:
   unbiased one.
 
 ReLU6 is ``min(relu(x), 6)``; MobileNetV2's Dropout(0.2) before the
-classifier is live only in train mode.  ResNeXt-50 runs in eval form only
-(the fine-tune slice computes the identity embedding with it); its
-bottleneck's bn2 -> ReLU -> conv3 link is one call of the fused kernel in
-``ops/conv_bn.py``.  Its train form comes with the meta-train slice.
+classifier is live only in train mode, its mask drawn on the CPU so that a
+card run and a CPU run from one seed drop the same features.  ResNeXt-50's
+bottleneck runs its bn2 -> ReLU -> conv3 link as one call of the fused
+kernel in ``ops/conv_bn.py`` in both forms: eval (fine-tune's ê, drive)
+folds bn2's running statistics into the kernel's scale and offset; train
+(meta-train) folds bn2's batch statistics, with their gradient, and bn3
+takes its batch statistics from the kernel's (Σy, Σy²) rather than a second
+pass over y.
 
 Parameters stay f32; under bf16 a forward casts conv and linear weights to
 the input's dtype and BatchNorm runs with f32 statistics on bf16 input.
@@ -64,26 +68,44 @@ class BatchNorm(nn.BatchNorm2d):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        x32 = x.float()
-        mean = x32.mean(dim=(0, 2, 3))
-        var = torch.clamp(x32.square().mean(dim=(0, 2, 3)) - mean.square(),
-                          min=0.0)
+        mean, var = batch_moments(x)
+        self.track(mean, var)
+        return self.normalize(x, mean, var)
+
+    def track(self, mean, var):
+        """Move the running statistics toward a batch's (mean, biased
+        variance)."""
         with torch.no_grad():
             self.running_mean.mul_(self.MOMENTUM).add_(
                 mean, alpha=1 - self.MOMENTUM)
             self.running_var.mul_(self.MOMENTUM).add_(
                 var, alpha=1 - self.MOMENTUM)
-        shape = (1, -1, 1, 1)
-        y = (x32 - mean.view(shape)) * (
+
+    def normalize(self, x, mean, var, dim: int = 1):
+        """flax's train-form normalisation of x (channels on ``dim``) by
+        given batch statistics, in f32, cast back to x's dtype."""
+        shape = [1] * x.dim()
+        shape[dim] = -1
+        y = (x.float() - mean.view(shape)) * (
             torch.rsqrt(var + self.eps) * self.weight).view(shape)
         return (y + self.bias.view(shape)).to(x.dtype)
 
 
+def batch_moments(x):
+    """Per-channel mean and biased variance of NCHW ``x`` over (N, H, W),
+    one pass in f32, clamped at 0, as flax computes them."""
+    x32 = x.float()
+    mean = x32.mean(dim=(0, 2, 3))
+    var = torch.clamp(x32.square().mean(dim=(0, 2, 3)) - mean.square(),
+                      min=0.0)
+    return mean, var
+
+
 def _dropout(x, rate: float, generator=None):
     """Inverted dropout: keep with probability 1 - rate, scale by
-    1 / (1 - rate); the mask is drawn from ``generator``."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        >= rate
+    1 / (1 - rate); the mask is drawn on the CPU from ``generator`` (a CPU
+    generator, or None for torch's default one)."""
+    keep = (torch.rand(x.shape, generator=generator) >= rate).to(x.device)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -162,13 +184,15 @@ class MobileNetV2(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """torchvision's ResNeXt bottleneck (groups 32, base width 4), eval form:
+    """torchvision's ResNeXt bottleneck (groups 32, base width 4):
 
         conv1 1x1 -> bn1 -> ReLU -> conv2 3x3 (groups, stride) -> [bn2 -> ReLU
         -> conv3 1x1] -> bn3, + shortcut (downsample conv 1x1 + bn), ReLU
 
     The bracketed link is one call of ``bn_relu_conv1x1_stats`` with bn2
-    folded into its scale and offset.  conv2 is cuDNN's native grouped conv
+    folded into its scale and offset: bn2's running statistics in eval
+    form, its batch statistics in train form, where bn3 normalises with the
+    batch statistics the link returns.  conv2 is cuDNN's native grouped conv
     (the JAX package's block-diagonal ``GroupedConv`` is a TPU layout trick
     with the same parameter layout)."""
 
@@ -190,34 +214,49 @@ class Bottleneck(nn.Module):
                                         generator=generator)
             self.downsample_bn = _bn(out_features)
 
-    def forward(self, x):
-        h = torch.relu(self.bn1(self.conv1(x)))
+    def forward(self, x, train: bool = False):
+        h = torch.relu(self.bn1(self.conv1(x), train))
         h = self.conv2(h).contiguous(memory_format=torch.channels_last)
-        scale, offset = fold_bn(self.bn2.running_mean, self.bn2.running_var,
-                                self.bn2.weight, self.bn2.bias, self.bn2.eps)
+        bn2, bn3 = self.bn2, self.bn3
+        if train:
+            mean, var = batch_moments(h)
+            bn2.track(mean, var)
+        else:
+            mean, var = bn2.running_mean, bn2.running_var
+        scale, offset = fold_bn(mean, var, bn2.weight, bn2.bias, bn2.eps)
         w = self.conv3.weight.to(h.dtype)
         w = w.view(w.shape[0], w.shape[1]).t()         # (Cin, Cout) view
-        y, _ = bn_relu_conv1x1_stats(h.permute(0, 2, 3, 1), scale, offset, w)
-        h = self.bn3(y.permute(0, 3, 1, 2))
+        y, stats = bn_relu_conv1x1_stats(h.permute(0, 2, 3, 1), scale,
+                                         offset, w)
+        if train:
+            rows = y.numel() // y.shape[-1]
+            mean = stats[0] / rows
+            var = torch.clamp(stats[1] / rows - mean.square(), min=0.0)
+            bn3.track(mean, var)
+            h = bn3.normalize(y, mean, var, dim=3).permute(0, 3, 1, 2)
+        else:
+            h = bn3(y.permute(0, 3, 1, 2))
         if self.has_downsample:
-            x = self.downsample_bn(self.downsample_conv(x))
+            x = self.downsample_bn(self.downsample_conv(x), train)
         return torch.relu(h + x)
 
 
 class ResNeXt50(nn.Module):
-    """resnext50_32x4d with a ``num_classes`` fc (512 for identity), eval
-    form.  Modules work in ``channels_last``, so the fused link sees a
-    contiguous NHWC buffer without a copy."""
+    """resnext50_32x4d with a ``num_classes`` fc (512 for identity);
+    ``layers``, the bottlenecks of each stage, as the JAX module's field.
+    Modules work in ``channels_last``, so the fused link sees a contiguous
+    NHWC buffer without a copy.  The train form runs in f32 (bf16 training
+    is ROADMAP.md A.14)."""
 
     LAYERS = (3, 4, 6, 3)
 
-    def __init__(self, num_classes=512, generator=None):
+    def __init__(self, num_classes=512, layers=LAYERS, generator=None):
         super().__init__()
         self.conv1 = Conv(3, 64, 7, 2, generator=generator)
         self.bn1 = _bn(64)
         in_features, self.names = 64, []
         for stage, (planes, blocks) in enumerate(zip((64, 128, 256, 512),
-                                                     self.LAYERS)):
+                                                     layers)):
             for i in range(blocks):
                 stride = 1 if stage == 0 or i else 2
                 name = f"layer{stage + 1}_{i}"
@@ -233,13 +272,18 @@ class ResNeXt50(nn.Module):
                 (num_classes, in_features), generator))
             self.fc.bias.zero_()
 
-    def forward(self, x):
-        """x: (B, C, H, W) -> (B, num_classes)."""
+    def forward(self, x, train: bool = False):
+        """x: (B, C, H, W) -> (B, num_classes).  ``train``: batch
+        statistics, updating the running ones."""
+        if train and x.dtype != torch.float32:
+            raise NotImplementedError(
+                f"ResNeXt-50's train form in {x.dtype} is not ported to "
+                "PyTorch yet (bf16 training, ROADMAP.md A.14)")
         h = x.contiguous(memory_format=torch.channels_last)
-        h = torch.relu(self.bn1(self.conv1(h)))
+        h = torch.relu(self.bn1(self.conv1(h), train))
         h = F.max_pool2d(h, 3, 2, padding=1)
         for name in self.names:
-            h = getattr(self, name)(h)
+            h = getattr(self, name)(h, train)
         h = h.mean(dim=(2, 3))
         return F.linear(h, self.fc.weight.to(h.dtype),
                         self.fc.bias.to(h.dtype))

@@ -16,11 +16,14 @@ split :func:`split_tf32`, so the result keeps f32 accuracy).  The tile plan
 (:func:`plan_tiles`) is chosen here, in Python, so the CPU tests reach it.
 
 A CPU tensor goes to :func:`bn_relu_conv1x1_stats_reference`; a CUDA tensor
-launches the kernel or raises.  The kernel has no backward yet, so the
-wrapper refuses inputs that would need a gradient through it.
-``bn_relu_conv1x1_stats.launches`` counts the calls that launched the kernel
-(two CUDA launches each: the product, then the in-order sum of the
-statistics' row-tile partials).
+launches the kernel or raises.  Gradients flow through a
+``torch.autograd.Function`` (meta-train runs ResNeXt-50's train form through
+it, where bn3 takes its batch statistics from the returned (Σy, Σy²)): its
+forward is that kernel or that plain version, its backward plain PyTorch on
+either device (the JAX package differentiates the link through XLA, outside
+any Pallas kernel).  ``bn_relu_conv1x1_stats.launches`` counts the forward
+calls that launched the kernel (two CUDA launches each: the product, then
+the in-order sum of the statistics' row-tile partials).
 """
 
 from __future__ import annotations
@@ -96,23 +99,30 @@ def fold_bn(mean, var, gamma, beta, eps: float = 1e-5):
     return scale, beta - mean * scale
 
 
+def _acc(dtype):
+    """The arithmetic's dtype: f32, or f64 for f64 inputs (the CPU's
+    gradient checks)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def bn_relu_conv1x1_stats_reference(x, scale, offset, w, relu: bool = True):
     """Plain version: the BN apply and ReLU in f32, rounded to W's dtype
     before the product (as the TPU kernel rounds), the product and the
     statistics in f32, y cast to x's dtype."""
-    cin = x.shape[-1]
-    h = x.reshape(-1, cin).float() * scale.float() + offset.float()
+    cin, acc = x.shape[-1], _acc(x.dtype)
+    h = x.reshape(-1, cin).to(acc) * scale.to(acc) + offset.to(acc)
     if relu:
         h = torch.relu(h)
-    y32 = torch.matmul(h.to(w.dtype).float(), w.float())
+    y32 = torch.matmul(h.to(w.dtype).to(acc), w.to(acc))
     stats = torch.stack([y32.sum(0), y32.square().sum(0)])
     return y32.to(x.dtype).reshape(*x.shape[:-1], w.shape[-1]), stats
 
 
 def _check(x, scale, offset, w):
-    if x.dtype not in _DTYPES:
+    f64 = x.dtype == torch.float64 and x.device.type == "cpu"
+    if x.dtype not in _DTYPES and not f64:
         raise TypeError(f"bn_relu_conv1x1_stats: x must be float32 or "
-                        f"bfloat16, got {x.dtype}")
+                        f"bfloat16 (float64 on the CPU), got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("bn_relu_conv1x1_stats: x must be contiguous (..., "
                          "Cin): an NCHW tensor in channels_last, permuted")
@@ -123,18 +133,13 @@ def _check(x, scale, offset, w):
     if w.dtype != x.dtype or w.device != x.device:
         raise TypeError(f"bn_relu_conv1x1_stats: w must match x's dtype and "
                         f"device, got {w.dtype} on {w.device}")
+    want = torch.float64 if f64 else torch.float32
     for name, t in (("scale", scale), ("offset", offset)):
-        if tuple(t.shape) != (cin,) or t.dtype != torch.float32 \
+        if tuple(t.shape) != (cin,) or t.dtype != want \
                 or t.device != x.device:
             raise ValueError(f"bn_relu_conv1x1_stats: {name} must be ({cin},) "
-                             f"float32 on {x.device}, got {tuple(t.shape)} "
-                             f"{t.dtype} on {t.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, scale, offset, w)):
-        raise RuntimeError(
-            "bn_relu_conv1x1_stats has no backward yet (it comes with the "
-            "meta-train slice, ROADMAP.md A.11): call it under "
-            "torch.no_grad() or on tensors that do not require grad")
+                             f"{str(want)[6:]} on {x.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
 def check_kernel_layout(x, w):
@@ -163,12 +168,8 @@ def kernel_entry():
     return fn
 
 
-def bn_relu_conv1x1_stats(x, scale, offset, w, relu: bool = True):
-    """``(relu(x * scale + offset) @ w, (Σy, Σy²))`` for x (..., Cin)
-    contiguous, scale and offset (Cin,) f32, w (Cin, Cout) in x's dtype
-    (conv3's weight viewed as (Cout, Cin), transposed, is taken without a
-    copy).  Returns y (..., Cout) in x's dtype and stats (2, Cout) f32."""
-    _check(x, scale, offset, w)
+def _forward(x, scale, offset, w, relu):
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
     if x.device.type == "cpu":
         return bn_relu_conv1x1_stats_reference(x, scale, offset, w, relu)
     if x.device.type != "cuda":
@@ -202,6 +203,66 @@ def bn_relu_conv1x1_stats(x, scale, offset, w, relu: bool = True):
                            f"cudaError_t {err}")
     bn_relu_conv1x1_stats.launches += 1
     return y, stats
+
+
+class _Link(torch.autograd.Function):
+    """(x, scale, offset, w) -> (y, stats) with a plain backward:
+
+        g = dy + dΣy + 2·y·dΣy²     (the stats' gradient folded into y's)
+        h = relu(x·scale + offset), rounded to w's dtype as the forward does
+        dW = hᵀ·g,  dh = g·Wᵀ,  mask = x·scale + offset > 0
+        dx = dh·mask·scale,  dscale = Σ dh·mask·x,  doffset = Σ dh·mask
+
+    in f32 (f64 for f64 inputs).  dW is returned for the (Cin, Cout) view
+    the forward took, so it reaches conv3's weight through the view, never
+    the TF32 split the kernel multiplies."""
+
+    @staticmethod
+    def forward(ctx, x, scale, offset, w, relu):
+        y, stats = _forward(x, scale, offset, w, relu)
+        ctx.save_for_backward(x, scale, offset, w, y)
+        ctx.relu = relu
+        return y, stats
+
+    @staticmethod
+    def backward(ctx, dy, dstats):
+        x, scale, offset, w, y = ctx.saved_tensors
+        cin, cout = w.shape
+        acc = _acc(x.dtype)
+        y2 = y.reshape(-1, cout).to(acc)
+        g = torch.zeros_like(y2) if dy is None \
+            else dy.reshape(-1, cout).to(acc)
+        if dstats is not None:
+            ds = dstats.to(acc)
+            g = g + ds[0] + 2.0 * y2 * ds[1]
+        x2 = x.reshape(-1, cin).to(acc)
+        pre = x2 * scale.to(acc) + offset.to(acc)
+        h = torch.relu(pre) if ctx.relu else pre
+        need_x, need_scale, need_offset, need_w = ctx.needs_input_grad[:4]
+        dx = dscale = doffset = dw = None
+        if need_w:
+            dw = torch.matmul(h.to(w.dtype).to(acc).t(), g).to(w.dtype)
+        if need_x or need_scale or need_offset:
+            dh = torch.matmul(g, w.to(acc).t())
+            if ctx.relu:
+                dh = dh * (pre > 0)
+            if need_x:
+                dx = (dh * scale.to(acc)).to(x.dtype).reshape(x.shape)
+            if need_scale:
+                dscale = (dh * x2).sum(0).to(scale.dtype)
+            if need_offset:
+                doffset = dh.sum(0).to(offset.dtype)
+        return dx, dscale, doffset, dw, None
+
+
+def bn_relu_conv1x1_stats(x, scale, offset, w, relu: bool = True):
+    """``(relu(x * scale + offset) @ w, (Σy, Σy²))`` for x (..., Cin)
+    contiguous, scale and offset (Cin,) f32, w (Cin, Cout) in x's dtype
+    (conv3's weight viewed as (Cout, Cin), transposed, is taken without a
+    copy).  Returns y (..., Cout) in x's dtype and stats (2, Cout) f32;
+    both carry gradients to all four inputs."""
+    _check(x, scale, offset, w)
+    return _Link.apply(x, scale, offset, w, relu)
 
 
 bn_relu_conv1x1_stats.launches = 0

@@ -1,5 +1,6 @@
 """Axis-aligned bilinear resampling as two small matrix products (port of
-``crop_and_resize`` in ``latentpose_tpu/ops/resample.py``).
+``affine_resample`` and ``crop_and_resize`` in
+``latentpose_tpu/ops/resample.py``).
 
 Per sample, ``out = W_y @ img @ W_xᵀ`` per channel, with W_y (H_out, H_in)
 and W_x (W_out, W_in) holding the two bilinear taps of each output row or
@@ -51,6 +52,18 @@ def _output_centers(n_out, device):
 
 def _to_pixels(norm_coords, size: float):
     return ((norm_coords + 1.0) * size - 1.0) / 2.0
+
+
+def affine_resample(images, sx, sy, tx, ty):
+    """Per-sample axis-aligned affine warp (the affine augmentations): each
+    (B,) scale > 1 zooms in, each shift is in [-1, 1] grid units."""
+    _, h, w, _ = images.shape
+    gy = _output_centers(h, images.device)
+    gx = _output_centers(w, images.device)
+    src_y = gy[None, :] / sy[:, None] - ty[:, None]
+    src_x = gx[None, :] / sx[:, None] - tx[:, None]
+    return resample_axis_aligned(images, _to_pixels(src_y, float(h)),
+                                 _to_pixels(src_x, float(w)))
 
 
 def crop_and_resize(images, bboxes):

@@ -18,7 +18,7 @@ _KINDS = {
                        ("no_landmarks",)),
     "criterions": ("latentpose_tpu_torch.losses",
                    ("adversarial", "featmat", "idt_embed", "perceptual",
-                    "dice")),
+                    "dice", "dis_embed")),
 }
 
 

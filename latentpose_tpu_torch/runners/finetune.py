@@ -8,6 +8,8 @@
 3. the discriminator's label-embedding matrix W becomes one row = ê, with
    spectral-norm eps 1e-12 and the (u, v) of a fresh one-row init;
 4. both optimizers start fresh (RAdam from the fine-tune config).
+
+:func:`optimizers` also builds meta-training's (Adam, from the meta config).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from torch.func import functional_call
 
 from latentpose_tpu_torch.ops.spectral_norm import SNEmbed
-from latentpose_tpu_torch.runners.optim import RAdam
+from latentpose_tpu_torch.runners.optim import Adam, RAdam
 from latentpose_tpu_torch.runners.state import (TrainState, d_trainable,
                                                 g_trainable)
 
@@ -43,18 +45,17 @@ def compute_averaged_identity_embedding(state: TrainState, dataloader,
     return torch.cat(chunks).mean(dim=0, keepdim=True)
 
 
+OPTIMIZERS = {"Adam": Adam, "RAdam": RAdam}
+
+
 def optimizers(state: TrainState, args):
-    """Fresh RAdam / Adam-family optimizers over the two trainable sets
-    (reference betas (beta1, 0.999), eps 1e-5)."""
-    if args.optimizer != "RAdam":
-        raise NotImplementedError(
-            f"--optimizer {args.optimizer}: only RAdam (the fine-tune "
-            "config's) is ported; Adam comes with the meta-train slice "
-            "(ROADMAP.md A.12)")
-    return (RAdam(g_trainable(state), args.lr_gen, b1=args.beta1,
-                  b2=0.999, eps=1e-5),
-            RAdam(d_trainable(state), args.lr_dis, b1=args.beta1,
-                  b2=0.999, eps=1e-5))
+    """Fresh optimizers over the two trainable sets (reference betas
+    (beta1, 0.999), eps 1e-5): ``args.optimizer`` is Adam or RAdam."""
+    opt = OPTIMIZERS[args.optimizer]
+    return (opt(g_trainable(state), args.lr_gen, b1=args.beta1, b2=0.999,
+                eps=1e-5),
+            opt(d_trainable(state), args.lr_dis, b1=args.beta1, b2=0.999,
+                eps=1e-5))
 
 
 def enable_finetuning(state: TrainState, args, identity_embedding,

@@ -1,18 +1,26 @@
-"""The fine-tune train step: G forward, D's embedding lookup and three
+"""The train step of both regimes: the embedder (meta-train) or the
+per-avatar embedding (fine-tune), G forward, D's embedding lookup and three
 passes, the criteria, both optimizer updates and the EMA (port of
-``latentpose_tpu/runners/holycow.py`` in its fine-tune regime).
+``latentpose_tpu/runners/holycow.py``).
 
 The JAX step takes one ``value_and_grad`` of ``loss_G + loss_D`` with
 stop-gradients that reproduce the reference's two backwards.  Here the two
 backwards are taken as the reference takes them: ``loss_G``'s gradient
-w.r.t. the generator side only, ``loss_D``'s w.r.t. the discriminator only.
-Pass 2 sees the fake detached and the rows detached, pass 3 the live rows.
-Every
-spectral-norm state advances in the reference's order: the generator's once,
-the embedding's once (lookup), the trunk's three times.
+w.r.t. the generator side only (the generator, plus the embedder in
+meta-train or the identity embedding in fine-tune), ``loss_D``'s w.r.t. the
+discriminator only.  Pass 2 sees the fake detached and the rows detached,
+pass 3 the live rows.  Every spectral-norm state advances in the reference's
+order: the generator's once, the embedding's once (lookup), the trunk's
+three times; and the embedder's BatchNorm statistics once per forward.
 
-Not ported yet (refused by the CLI): meta-training, augmentation,
-bf16 compute, gradient accumulation and multi-device reduction.
+Before the forward the batch is augmented (``--use_pixelwise_augs``,
+``--use_affine_scale``, ``--use_affine_shift``) with the draw of its step;
+``--grad_accum_steps`` k splits it into k microbatches, each with its own
+forward and both backwards, and takes one optimizer update on the mean of
+their gradients.
+
+Not ported yet (refused by the CLI): bf16 compute and multi-device
+reduction.
 """
 
 from __future__ import annotations
@@ -21,20 +29,23 @@ from typing import Any, Dict
 
 import torch
 
+from latentpose_tpu_torch.data import augmentation
 from latentpose_tpu_torch.runners.optim import ema_update
 from latentpose_tpu_torch.runners.state import (TrainState, d_trainable,
                                                 ema_pairs, g_trainable)
 
-EMA_ALPHA_FINETUNE = 0.972
-# the batch keys the fine-tune step reads (enc_rgbs only feeds ê)
+EMA_ALPHA = {True: 0.972, False: 0.999}      # fine-tune, meta-train
+# the batch keys the step reads (fine-tune reads enc_rgbs only for ê)
 STEP_KEYS = ("pose_input_rgbs", "target_rgbs", "real_segm", "label")
+META_STEP_KEYS = ("enc_rgbs",) + STEP_KEYS
 
 
-def to_device(batch, device):
+def to_device(batch, device, keys=STEP_KEYS):
     """The step's inputs from a (data_dict, target_dict) host batch (f32
-    images; the uint8 wire is refused by the CLI), labels as int64."""
+    images; the uint8 wire is refused by the CLI), labels as int64;
+    ``keys``: :data:`META_STEP_KEYS` for meta-train."""
     merged = {**batch[0], **batch[1]}
-    out = {key: torch.as_tensor(merged[key]).to(device) for key in STEP_KEYS}
+    out = {key: torch.as_tensor(merged[key]).to(device) for key in keys}
     out["label"] = out["label"].long()
     return out
 
@@ -59,16 +70,22 @@ def forward(state: TrainState, batch, train: bool, dropout_generator=None):
     generator = state.models["generator"]
     dis = state.models["discriminator"]
     data_dict = dict(batch)
-    # the embedder is frozen: no gradient reaches it, but train-mode BN
-    # still updates its running statistics
-    with torch.no_grad():
-        pose = embedder.get_pose_embedding(batch["pose_input_rgbs"], train,
-                                           dropout_generator)
-    bsz = pose.shape[0]
-    embeds = state.finetune_embedding.expand(bsz, -1)
+    if state.finetune:
+        # the embedder is frozen: no gradient reaches it, but train-mode BN
+        # still updates its running statistics
+        with torch.no_grad():
+            pose = embedder.get_pose_embedding(batch["pose_input_rgbs"],
+                                               train, dropout_generator)
+        embeds = state.finetune_embedding.expand(pose.shape[0], -1)
+        elemwise = None
+    else:
+        embeds, elemwise, pose = embedder(
+            batch["enc_rgbs"], batch["pose_input_rgbs"], train,
+            dropout_generator)
     fake_rgbs, fake_segm = generator(embeds, pose, update_stats=True)
-    data_dict.update(embeds=embeds, pose_embedding=pose,
-                     fake_rgbs=fake_rgbs, fake_segm=fake_segm)
+    data_dict.update(embeds=embeds, embeds_elemwise=elemwise,
+                     pose_embedding=pose, fake_rgbs=fake_rgbs,
+                     fake_segm=fake_segm)
 
     target = batch["target_rgbs"]
     target = target[:, 0] if target.dim() > 4 else target
@@ -88,35 +105,66 @@ def forward(state: TrainState, batch, train: bool, dropout_generator=None):
     return data_dict
 
 
-def make_finetune_step(criteria, args, dropout_generator=None):
-    """``step(state, batch) -> scalars``: one fine-tune step on ``batch``
-    (device tensors, :func:`to_device`), updating ``state`` in place."""
-    if not args.finetune:
-        raise NotImplementedError(
-            "the meta-train step is not ported to PyTorch yet (ROADMAP.md "
-            "A.12)")
+def _microbatches(batch, k: int):
+    if k == 1:
+        return [batch]
+    bsz = batch["label"].shape[0]
+    if bsz % k:
+        raise ValueError(f"--grad_accum_steps {k} must divide the batch "
+                         f"size {bsz}")
+    return [{key: v.chunk(k)[i] for key, v in batch.items()}
+            for i in range(k)]
+
+
+def _add(total, parts):
+    return list(parts) if total is None \
+        else [a + b for a, b in zip(total, parts)]
+
+
+def make_train_step(criteria, args, dropout_generator=None):
+    """``step(state, batch) -> scalars``: one train step on ``batch``
+    (device tensors, :func:`to_device`), updating ``state`` in place; the
+    regime (meta-train or fine-tune) is the state's.  ``dropout_generator``:
+    a CPU generator for the pose encoder's dropout masks."""
     train = not args.set_eval_mode_in_train
     use_ema = args.weights_running_average
+    accum = int(args.grad_accum_steps or 1)
+    augments = dict(use_pixelwise=bool(args.use_pixelwise_augs),
+                    use_scale=bool(args.use_affine_scale),
+                    use_shift=bool(args.use_affine_shift))
 
     def step(state: TrainState, batch):
-        data_dict = forward(state, batch, train, dropout_generator)
-        losses_G, losses_D = apply_criteria(criteria, data_dict)
-        loss_G = sum(losses_G.values())
-        loss_D = sum(losses_D.values())
+        if any(augments.values()):
+            draw = augmentation.step_draw(args.random_seed, state.step,
+                                          batch["pose_input_rgbs"].device)
+            batch = augmentation.augment_data_dict(batch, draw, **augments)
         g_params, d_params = g_trainable(state), d_trainable(state)
-        # the two graphs share no node that needs a gradient (pass 1 reads
-        # the rows detached, passes 2-3 the fake detached)
-        grads_g = torch.autograd.grad(loss_G, g_params)
-        grads_d = torch.autograd.grad(loss_D, d_params)
+        grads_g = grads_d = totals = None
+        for micro in _microbatches(batch, accum):
+            data_dict = forward(state, micro, train, dropout_generator)
+            losses_G, losses_D = apply_criteria(criteria, data_dict)
+            loss_G = sum(losses_G.values())
+            loss_D = sum(losses_D.values())
+            # the two graphs share no node that needs a gradient (pass 1
+            # reads the rows detached, passes 2-3 the fake detached)
+            grads_g = _add(grads_g, torch.autograd.grad(loss_G, g_params))
+            grads_d = _add(grads_d, torch.autograd.grad(loss_D, d_params))
+            scalars = {f"Loss_{k}": v.detach()
+                       for k, v in {**losses_G, **losses_D}.items()}
+            scalars["loss_G"] = loss_G.detach()
+            scalars["loss_D"] = loss_D.detach()
+            totals = scalars if totals is None else {
+                k: totals[k] + v for k, v in scalars.items()}
+            del data_dict, losses_G, losses_D, loss_G, loss_D
+        if accum > 1:
+            grads_g = [g / accum for g in grads_g]
+            grads_d = [g / accum for g in grads_d]
+            totals = {k: v / accum for k, v in totals.items()}
         state.opt_g.step(grads_g)
         state.opt_d.step(grads_d)
         if use_ema:
-            ema_update(*ema_pairs(state), EMA_ALPHA_FINETUNE)
+            ema_update(*ema_pairs(state), EMA_ALPHA[state.finetune])
         state.step += 1
-        scalars = {f"Loss_{k}": v.detach()
-                   for k, v in {**losses_G, **losses_D}.items()}
-        scalars["loss_G"] = loss_G.detach()
-        scalars["loss_D"] = loss_D.detach()
-        return scalars
+        return totals
 
     return step

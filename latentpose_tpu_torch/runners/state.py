@@ -10,7 +10,8 @@ them:
   re-parameterisation (None before);
 - ``ema_params`` holds the EMA weights: {'embedder': {name: tensor},
   'generator': {name: tensor}} by ``named_parameters`` name, plus
-  'finetune_embedding';
+  'finetune_embedding'; BatchNorm statistics are shared with the live
+  modules, not averaged;
 - ``opt_g`` / ``opt_d`` are the two optimizers (``runners/optim.py``), over
   :func:`g_trainable` and :func:`d_trainable`;
 - ``step`` is the global iteration.
@@ -44,14 +45,15 @@ def ema_of(module) -> dict:
 
 
 def g_trainable(state: TrainState):
-    """The generator-side optimizer's tensors.  Fine-tuning: the generator
-    and the per-avatar identity embedding (the embedder is frozen);
-    meta-training (generator + embedder) is a later slice."""
-    if not state.finetune:
-        raise NotImplementedError(
-            "meta-training is not ported to PyTorch yet (ROADMAP.md A.12)")
+    """The generator-side optimizer's tensors.  Meta-training: the generator
+    and the whole embedder (identity and pose towers).  Fine-tuning: the
+    generator and the per-avatar identity embedding (the embedder is
+    frozen)."""
+    if state.finetune:
+        return [*state.models["generator"].parameters(),
+                state.finetune_embedding]
     return [*state.models["generator"].parameters(),
-            state.finetune_embedding]
+            *state.models["embedder"].parameters()]
 
 
 def d_trainable(state: TrainState):

@@ -125,9 +125,9 @@ def test_conv_bn_kernel_refuses_what_it_does_not_take(device):
     with pytest.raises(ValueError, match="multiple"):
         conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w)
     x, scale, offset, w = _link_inputs(64, 16, 16, torch.float32, device)
-    with pytest.raises(RuntimeError, match="no backward"):
-        conv_bn.bn_relu_conv1x1_stats(x, scale, offset,
-                                        w.clone().requires_grad_())
+    with pytest.raises(TypeError, match="float64"):      # the CPU's only
+        conv_bn.bn_relu_conv1x1_stats(x.double(), scale.double(),
+                                      offset.double(), w.double())
     with torch.no_grad():
         conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w)
 
@@ -174,3 +174,51 @@ def test_kernels_are_deterministic(device, dtype):
         y1, s1 = conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w)
         y2, s2 = conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w)
     assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("m,cin,cout", [(65, 128, 256), (191, 256, 64),
+                                        (1000, 512, 1024), (129, 12, 8)])
+def test_conv_bn_function_gradients_match_autograd_through_plain(
+        device, m, cin, cout, relu):
+    """The autograd.Function on the card (the kernel's forward, the plain
+    backward) against autograd through the plain version, f32, TF32 off,
+    ragged shapes: y, the stats and the gradients of x, scale, offset and
+    conv3's weight through its view, within 2e-4 of each tensor's max."""
+    from latentpose_tpu_torch.ops import conv_bn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, scale, offset, w = _link_inputs(m, cin, cout, torch.float32, device)
+    g = torch.Generator(device=device).manual_seed(m + cout)
+    cot_y = torch.randn(m, cout, generator=g, device=device)
+    cot_s = torch.randn(2, cout, generator=g, device=device) / m
+    results = []
+    for fn in (conv_bn.bn_relu_conv1x1_stats,
+               conv_bn.bn_relu_conv1x1_stats_reference):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (x, scale, offset, w.t())]
+        launches = conv_bn.bn_relu_conv1x1_stats.launches
+        y, stats = fn(*leaves[:3], leaves[3].t(), relu=relu)
+        grads = torch.autograd.grad((y, stats), leaves, (cot_y, cot_s))
+        results.append((y, stats, *grads))
+    assert conv_bn.bn_relu_conv1x1_stats.launches == launches   # the plain
+    torch.cuda.synchronize()
+    for got, want in zip(*results):
+        ref = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 2e-4 * ref
+
+
+def test_conv_bn_function_is_deterministic(device):
+    """Under autograd too, two calls give bitwise-equal y and stats, and
+    bitwise-equal gradients."""
+    from latentpose_tpu_torch.ops import conv_bn
+    x, scale, offset, w = _link_inputs(2 * 4096, 128, 256, torch.float32,
+                                       device)
+    out = []
+    for _ in range(2):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (x, scale, offset, w)]
+        y, stats = conv_bn.bn_relu_conv1x1_stats(*leaves)
+        out.append((y, stats, *torch.autograd.grad(
+            (y.square().sum() + stats.sum()), leaves)))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)

@@ -231,6 +231,8 @@ def test_card_path_imports_no_jax():
         "import latentpose_tpu_torch.cli.drive, latentpose_tpu_torch.ops.adain",
         "import latentpose_tpu_torch.cli.train, latentpose_tpu_torch.ops.conv_bn",
         "import latentpose_tpu_torch.runners.holycow",
+        "import latentpose_tpu_torch.data.augmentation",
+        "import latentpose_tpu_torch.losses.dis_embed",
         "import latentpose_tpu_torch.runners.drive",
         "import latentpose_tpu_torch.models.generators."
         "vector_pose_unsupervised_segmentation_noBottleneck",

@@ -185,9 +185,10 @@ def test_identity_embedding_matches_jax_full_width(embedders, average):
 
 
 def test_identity_tower_refuses_train_mode(embedders):
+    """The train form runs in f32 only: bf16 training is ROADMAP.md A.14."""
     temb = embedders[2]
-    with pytest.raises(NotImplementedError, match="meta-train"):
-        temb(torch.zeros(1, 1, 32, 32, 3), train=True)
+    with pytest.raises(NotImplementedError, match="A.14"):
+        temb(torch.zeros(1, 1, 32, 32, 3, dtype=torch.bfloat16), train=True)
 
 
 def test_pose_encoder_train_mode_batch_norm_matches_jax(embedders):
@@ -267,3 +268,112 @@ def test_discriminator_matches_jax_with_power_iterations():
     for key in want:
         np.testing.assert_allclose(got[key], want[key], rtol=1e-5, atol=1e-6,
                                    err_msg=key)
+
+
+# --- the meta-train slice: ResNeXt-50 in train form -------------------------
+
+def _train_form_grads(net, variables, x, cot):
+    """The JAX module's train-form output, parameter gradients of
+    sum(out * cot) and updated batch_stats, in f64."""
+    with jax.enable_x64(True):
+        f64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
+                                     variables)
+
+        def loss(params):
+            out, mut = net.apply({"params": params,
+                                  "batch_stats": f64["batch_stats"]},
+                                 jnp.asarray(x, jnp.float64), train=True,
+                                 mutable=["batch_stats"])
+            return (out * jnp.asarray(cot, jnp.float64)).sum(), (out, mut)
+
+        (_, (out, mut)), grads = jax.jit(jax.value_and_grad(
+            loss, has_aux=True))(f64["params"])
+        return (np.asarray(out), _flatten({"params": grads}),
+                _flatten({"batch_stats": mut["batch_stats"]}))
+
+
+def test_resnext50_train_form_matches_jax():
+    """ResNeXt-50 in train form (bn1 and the downsample in flax's train
+    BatchNorm, bn2 folded from its batch statistics into the link's scale
+    and offset, bn3 from the link's (Σy, Σy²), momentum 0.9 and the biased
+    variance) against the JAX module: the output, every parameter's
+    gradient of a seeded scalar loss, and the updated batch_stats; 4 frames
+    of 64², one bottleneck a stage (``layers`` (1, 1, 1, 1), each of the
+    four link shapes; weights 0.05 off their init).  The reference is the
+    JAX module in f64: a network of train-mode BatchNorms amplifies rounding
+    at every block, how much depends on its weights, and here the JAX
+    module's own f32 gradients sit far off its f64 ones
+    (``tools/train_bn_conditioning.py`` prints both packages' f32 errors).
+    The port in f32: the output to 1e-4 relative, each gradient and
+    statistic to 3e-5 of the leaf's largest |value| (1e-5 measured)."""
+    layers = (1, 1, 1, 1)
+    rng = np.random.RandomState(50)
+    x = rng.rand(4, 64, 64, 3).astype(np.float32)
+    cot = rng.standard_normal((4, 16)).astype(np.float32)
+    jnet = jbackbones.ResNeXt50(num_classes=16, layers=layers)
+    variables = jax.jit(jnet.init)(jax.random.PRNGKey(51), jnp.asarray(x))
+    jitter = np.random.RandomState(52)
+    variables = {"params": jax.tree_util.tree_map(
+        lambda v: np.asarray(v) + jitter.uniform(-0.05, 0.05, v.shape)
+        .astype(np.float32), variables["params"]),
+        "batch_stats": variables["batch_stats"]}
+    want_out, want_grads, want_stats = _train_form_grads(jnet, variables, x,
+                                                         cot)
+    tnet = tbackbones.ResNeXt50(num_classes=16, layers=layers)
+    convert.load_into(tnet, _flatten(variables), "")
+    out = tnet(_nchw(x), train=True)
+    (out * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), want_out, rtol=1e-4,
+                               atol=1e-4 * np.abs(want_out).max())
+    params = dict(tnet.named_parameters())
+    rules = [r for r in convert._rules(tnet) if r[1] == "params"]
+    assert len(rules) == len(want_grads) == len(params)
+    for tkey, _, leaf, (_, to_jax) in rules:
+        got = params[tkey].grad.numpy()
+        got = got.transpose(to_jax) if to_jax is not None else got
+        want = want_grads[f"params::{leaf}"]
+        assert np.abs(got - want).max() <= 3e-5 * np.abs(want).max(), leaf
+    got_stats = convert.export(tnet, "", params=())
+    assert set(got_stats) == set(want_stats)
+    for key, want in want_stats.items():
+        assert np.abs(got_stats[key] - want).max() \
+            <= 3e-5 * np.abs(want).max(), key
+
+
+def test_resnext50_train_form_runs_its_links_through_the_kernel_wrapper():
+    """At full depth the train form calls the fused link 16 times a forward
+    and takes bn3's batch statistics from its (Σy, Σy²): the running mean
+    moves to 0.9 old + 0.1 Σy/M; the eval form stays as it was."""
+    from latentpose_tpu_torch.ops import conv_bn
+    tnet = tbackbones.ResNeXt50(num_classes=16,
+                                generator=torch.Generator().manual_seed(53))
+    x = torch.from_numpy(np.random.RandomState(54).rand(2, 3, 32, 32)
+                         .astype(np.float32))
+    calls = []
+    real = conv_bn.bn_relu_conv1x1_stats
+    before = tnet.layer1_0.bn3.running_mean.clone()
+
+    def spy(*a, **k):
+        y, stats = real(*a, **k)
+        calls.append(stats.detach().clone())
+        return y, stats
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr("latentpose_tpu_torch.nn.backbones.bn_relu_conv1x1_stats",
+                   spy)
+        eval_out = tnet(x).detach()
+        assert len(calls) == 16
+        tnet(x, train=True).sum().backward()
+    assert len(calls) == 32
+    rows = 2 * 8 * 8                       # layer1: 8x8 maps at 32²
+    np.testing.assert_allclose(tnet.layer1_0.bn3.running_mean.numpy(),
+                               (0.9 * before + 0.1 * calls[16][0] / rows)
+                               .numpy(), rtol=1e-6, atol=1e-7)
+    assert tnet.conv1.weight.grad is not None
+    assert tnet.layer4_2.conv3.weight.grad.abs().sum() > 0
+    with torch.no_grad():
+        for mod in tnet.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                mod.running_mean.copy_(torch.zeros_like(mod.running_mean))
+                mod.running_var.copy_(torch.ones_like(mod.running_var))
+        assert torch.isfinite(tnet(x)).all() and eval_out.shape == (2, 16)

@@ -320,9 +320,9 @@ def test_conv_bn_wrapper_refuses_what_it_does_not_take():
                                       w)
     with pytest.raises(ValueError, match="Cin"):
         conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w[:8])
-    # a gradient cannot flow through the kernel yet
-    with pytest.raises(RuntimeError, match="no backward"):
-        conv_bn.bn_relu_conv1x1_stats(x, scale.requires_grad_(), offset, w)
+    # float64 only on the CPU (the gradient checks), with f64 scale/offset
+    with pytest.raises(ValueError, match="scale"):
+        conv_bn.bn_relu_conv1x1_stats(x.double(), scale, offset, w.double())
     with torch.no_grad():
         conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w)
     # channels the kernel cannot vectorise, checked before a launch
@@ -488,3 +488,305 @@ def test_ema_update_is_the_jax_formula():
     ema_update([ta], [torch.from_numpy(b)], 0.972)
     want = jnp.asarray(a) * 0.972 + jnp.asarray(b) * (1.0 - 0.972)
     np.testing.assert_array_equal(ta.numpy(), np.asarray(want))
+
+
+# --- the BN -> ReLU -> 1x1 conv -> stats link under autograd ---------------
+
+def _link_leaves(rng, m, cin, cout, dtype):
+    """x (M, Cin), scale, offset (Cin,), and conv3's weight (Cout, Cin), which
+    the link takes viewed as (Cin, Cout); leaves that require grad."""
+    x = rng.standard_normal((m, cin)) * 2 + 0.5
+    scale = rng.rand(cin) + 0.5
+    offset = rng.standard_normal(cin) * 0.1
+    w = rng.standard_normal((cout, cin)) / cin ** 0.5
+    return [torch.tensor(a, dtype=dtype).requires_grad_()
+            for a in (x, scale, offset, w)]
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("m,cin,cout", [(7, 5, 3), (13, 8, 6), (5, 4, 9)])
+def test_conv_bn_function_gradcheck_float64(m, cin, cout, relu):
+    """The autograd.Function's backward (the stats' gradient folded into
+    y's, the recomputed ReLU mask) against finite differences in f64, on
+    ragged shapes: through (y, stats), and through the stats alone."""
+    from latentpose_tpu_torch.ops import conv_bn
+    leaves = _link_leaves(np.random.RandomState(m * cin), m, cin, cout,
+                          torch.float64)
+
+    def link(x, scale, offset, w):
+        return conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w.t(), relu)
+
+    assert torch.autograd.gradcheck(link, leaves, eps=1e-6, atol=1e-7)
+    assert torch.autograd.gradcheck(lambda *a: link(*a)[1], leaves,
+                                    eps=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+def test_conv_bn_function_matches_autograd_through_plain(relu):
+    """f32: y, stats and the gradients of x, scale, offset and conv3's
+    weight (through its (Cin, Cout) view) from the Function, against
+    autograd through the plain version, for cotangents on y and on the
+    stats; within 1e-5 of each tensor's max |.|."""
+    from latentpose_tpu_torch.ops import conv_bn
+    rng = np.random.RandomState(41)
+    m, cin, cout = 2 * 8 * 8, 128, 64
+    cot_y = torch.from_numpy(rng.standard_normal((m, cout)).astype(np.float32))
+    cot_s = torch.from_numpy(rng.standard_normal((2, cout))
+                             .astype(np.float32) / m)
+    results = []
+    for fn in (conv_bn.bn_relu_conv1x1_stats,
+               conv_bn.bn_relu_conv1x1_stats_reference):
+        x, scale, offset, w = _link_leaves(np.random.RandomState(42), m, cin,
+                                           cout, torch.float32)
+        y, stats = fn(x, scale, offset, w.t(), relu)
+        grads = torch.autograd.grad((y, stats), (x, scale, offset, w),
+                                    (cot_y, cot_s))
+        results.append((y, stats, *grads))
+    for got, want in zip(*results):
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 1e-5 * scale
+
+
+# --- affine_resample ------------------------------------------------------------
+
+def test_affine_resample_matches_jax_with_gradient():
+    from latentpose_tpu.ops import resample as jres
+    from latentpose_tpu_torch.ops import resample as tres
+    rng = np.random.RandomState(43)
+    img = rng.rand(3, 18, 14, 3).astype(np.float32)
+    params = [np.array(v, np.float32) for v in
+              ([1.0, 1.15, 0.85], [0.9, 1.0, 1.2], [0.0, 0.08, -0.1],
+               [-0.06, 0.0, 0.1])]
+    cot = rng.standard_normal(img.shape).astype(np.float32)
+
+    def jloss(i):
+        return (jres.affine_resample(i, *map(jnp.asarray, params))
+                * cot).sum()
+
+    want = jres.affine_resample(jnp.asarray(img), *map(jnp.asarray, params))
+    want_grad = jax.grad(jloss)(jnp.asarray(img))
+    timg = torch.from_numpy(img).requires_grad_()
+    got = tres.affine_resample(timg, *map(torch.from_numpy, params))
+    (got * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(timg.grad.numpy(), np.asarray(want_grad),
+                               rtol=1e-5, atol=1e-5)
+
+
+# --- augmentation: each op's apply with the JAX op's draws ------------------------
+
+def _jax_draws(name, key, shape):
+    """The draws the JAX op ``name`` takes from ``key``, split as it splits
+    it, in the port's apply's keywords (per-sample values as (B,))."""
+    from latentpose_tpu.data import augmentation as jaug
+    r = jax.random
+    b, h, w, _ = shape
+
+    def u(k, low=0.0, high=1.0, size=None):
+        return np.asarray(r.uniform(k, size or (b, 1, 1, 1), minval=low,
+                                    maxval=high)).reshape(
+                                        (b,) if size is None else size)
+
+    def coin(k, p=jaug._OP_P):
+        return np.asarray(r.bernoulli(k, p, (b,)))
+
+    if name == "gaussian_blur":
+        ka, kb = r.split(key)
+        return dict(apply=coin(ka), alpha=u(kb))
+    if name == "sharpen":
+        ka, kb, kc = r.split(key, 3)
+        return dict(apply=coin(ka), alpha=u(kb), lightness=u(kc, 1.0, 1.5))
+    if name == "emboss":
+        ka, kb, kc = r.split(key, 3)
+        return dict(apply=coin(ka), alpha=u(kb), strength=u(kc) * 0.5)
+    if name == "edge_detect_blobby":
+        ka, kb, kc = r.split(key, 3)
+        return dict(apply=coin(ka), alpha=u(kb) * 0.15,
+                    mask=u(kc, size=(b, h // 8, w // 8, 1)))
+    if name == "additive_noise":
+        ka, kb, kc = r.split(key, 3)
+        return dict(apply=coin(ka), scale=u(kb) * 0.05,
+                    noise=np.asarray(r.normal(kc, shape)))
+    if name == "brightness":
+        ka, kb = r.split(key)
+        return dict(apply=coin(ka), add=u(kb, -10.0 / 255.0, 10.0 / 255.0))
+    if name == "multiply":
+        ka, kb = r.split(key)
+        return dict(apply=coin(ka), mul=u(kb, 0.5, 1.5))
+    if name == "contrast":
+        ka, kp, kc, kg = r.split(key, 4)
+        return dict(apply=coin(ka), linear=coin(kp, 0.5),
+                    contrast=u(kc, 0.75, 1.25), gain=u(kg, 3.0, 11.0))
+    if name == "saturation":
+        ka, kb = r.split(key)
+        return dict(apply=coin(ka), shift=u(kb, -20.0 / 255.0, 20.0 / 255.0))
+    if name == "jpeg_artifacts":
+        ka, kb = r.split(key)
+        return dict(apply=coin(ka), quality=u(kb, 70.0, 99.0, size=(b,)))
+    ka, kb, kc = r.split(key, 3)        # elastic
+    return dict(apply=coin(ka, jaug._OP_P * 0.5),
+                alpha=u(kb, 0.5, 3.5, size=(b, 1, 1)).reshape(b),
+                field=np.asarray(r.uniform(kc, (b, h, w, 2), minval=-1.0,
+                                           maxval=1.0)))
+
+
+AUG_OPS = ("gaussian_blur", "sharpen", "emboss", "edge_detect_blobby",
+           "additive_noise", "brightness", "multiply", "contrast",
+           "saturation", "jpeg_artifacts", "elastic")
+
+
+@pytest.mark.parametrize("name", AUG_OPS)
+def test_augmentation_apply_matches_jax_op(name):
+    """The port's apply, given the draws the JAX op takes from its key,
+    gives the JAX op's images (f32, 1e-5; JPEG's quantisation rounds a DCT
+    coefficient to a step either way where the two land within rounding of
+    a half, so there the image must agree to 1e-5 outside those 8x8
+    blocks).  The key is the first whose coins fire on some samples and
+    not on others."""
+    from latentpose_tpu.data import augmentation as jaug
+    from latentpose_tpu_torch.data import augmentation as taug
+    shape = (8, 32, 48, 3)
+    images = np.random.RandomState(44).rand(*shape).astype(np.float32)
+    for seed in range(50):
+        key = jax.random.PRNGKey(seed)
+        draws = _jax_draws(name, key, shape)
+        if 0 < draws["apply"].sum() < shape[0]:
+            break
+    want = np.asarray(getattr(jaug, name)(key, jnp.asarray(images)))
+    op = dict((n, a) for n, _, a in taug.PIXELWISE_OPS)[name]
+    got = op(torch.from_numpy(images), **{k: torch.from_numpy(np.asarray(v))
+                                          for k, v in draws.items()}).numpy()
+    err = np.abs(got - want)
+    if name == "jpeg_artifacts":       # (sample, block row, block col, ...)
+        err = err.reshape(8, 4, 8, 6, 8, 3).transpose(0, 1, 3, 2, 4, 5)
+        blocks = err.max(axis=(3, 4, 5))
+        assert (blocks > 1e-5).mean() <= 0.02
+        err = err[blocks <= 1e-5]
+    assert err.max() <= 1e-5
+    untouched = ~draws["apply"]
+    np.testing.assert_array_equal(got[untouched], images[untouched])
+
+
+@pytest.mark.parametrize("name", AUG_OPS)
+def test_augmentation_coins_fire_at_the_reference_rate(name):
+    """Each op's application coin, over 4096 samples from one draw, fires
+    at the SomeOf((0, 5), 11 ops) marginal 2.5/11 (elastic half that, for
+    its extra ``sometimes``), within 5 binomial sigmas + 0.01 as
+    tests/test_augmentation_distribution.py holds the JAX ops."""
+    from latentpose_tpu_torch.data import augmentation as taug
+    draw = taug.step_draw(3, 0, "cpu")
+    draw_op = dict((n, d) for n, d, _ in taug.PIXELWISE_OPS)[name]
+    apply = draw_op(draw, (4096, 8, 8, 3))["apply"].numpy()
+    p = taug.OP_P * (0.5 if name == "elastic" else 1.0)
+    sigma = np.sqrt(p * (1 - p) / len(apply))
+    assert abs(apply.mean() - p) <= 5 * sigma + 0.01
+
+
+def _faces(size=64):
+    from latentpose_tpu_torch.data.synthetic import render_face
+    return np.stack([render_face(lb, f, size)[0] for lb in range(8)
+                     for f in range(8)]).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", ["brightness", "multiply", "additive_noise"])
+def test_augmentation_moments_match_the_reference_ranges(name):
+    """The closed-form moments of the reference's ranges on the samples
+    where the op fired, as tests/test_augmentation_distribution.py checks
+    the JAX ops: Add(-10, 10) -> E|delta| = 10/510; Multiply(0.5, 1.5) ->
+    E|delta| = 0.25 E[x]; AdditiveGaussianNoise(0, 0.05 * 255) -> std
+    0.05/sqrt(3)."""
+    from latentpose_tpu_torch.data import augmentation as taug
+    lo, hi = {"brightness": (0.1, 0.9), "multiply": (0.05, 0.6),
+              "additive_noise": (0.2, 0.8)}[name]
+    images = np.tile(np.clip(_faces(), lo, hi), (8, 1, 1, 1))
+    draw_op, op = [(d, a) for n, d, a in taug.PIXELWISE_OPS if n == name][0]
+    draws = draw_op(taug.step_draw(5, 0, "cpu"), images.shape)
+    out = op(torch.from_numpy(images), **draws).numpy()
+    fired = draws["apply"].numpy()
+    assert fired.sum() >= 50
+    delta = (out - images)[fired]
+    if name == "brightness":
+        assert abs(delta.mean()) <= 0.004
+        np.testing.assert_allclose(np.abs(delta).mean(), 10.0 / 510.0,
+                                   rtol=0.25)
+    elif name == "multiply":
+        mean = images[fired].mean()
+        assert abs(delta.mean()) <= 0.25 * 0.15 * mean
+        np.testing.assert_allclose(np.abs(delta).mean(), 0.25 * mean,
+                                   rtol=0.3)
+    else:
+        np.testing.assert_allclose(delta.std(), 0.05 / np.sqrt(3.0),
+                                   rtol=0.2)
+        assert abs(delta.mean()) <= 0.002
+
+
+def test_affine_coins_and_ranges():
+    from latentpose_tpu_torch.data import augmentation as taug
+    sx, sy, tx, ty = (t.numpy() for t in taug.sample_affine_params(
+        taug.step_draw(4, 0, "cpu"), 4096, use_scale=True, use_shift=True))
+    assert abs((sx != 1.0).mean() - 0.5) <= 0.05
+    assert abs((tx != 0.0).mean() - 0.5) <= 0.05
+    assert np.array_equal(sx != 1.0, sy != 1.0)
+    assert np.array_equal(tx != 0.0, ty != 0.0)
+    scaled = sx[sx != 1.0]
+    assert scaled.min() >= 0.8 and scaled.max() <= 1.2
+    assert np.abs(tx).max() <= 0.1 and np.abs(ty).max() <= 0.1
+
+
+def test_augment_triplet_shifts_driver_target_and_segmentation_alike():
+    """The shift moves the three alike; the pixelwise ops and the scale
+    touch only the driver; a step's draw is a function of (seed, step)."""
+    from latentpose_tpu_torch.data import augmentation as taug
+    rng = np.random.RandomState(45)
+    img = torch.from_numpy(rng.rand(4, 32, 32, 3).astype(np.float32))
+    segm = img[..., :1].clone()
+    batch = {"pose_input_rgbs": img[:, None].clone(),
+             "target_rgbs": img[:, None].clone(), "real_segm": segm[:, None]}
+    out = taug.augment_data_dict(batch, taug.step_draw(6, 2, "cpu"),
+                                 use_shift=True)
+    assert torch.equal(out["pose_input_rgbs"], out["target_rgbs"])
+    assert torch.equal(out["real_segm"][..., 0], out["target_rgbs"][..., 0])
+    again = taug.augment_data_dict(batch, taug.step_draw(6, 2, "cpu"),
+                                   use_pixelwise=True, use_scale=True,
+                                   use_shift=True)
+    same = taug.augment_data_dict(batch, taug.step_draw(6, 2, "cpu"),
+                                  use_pixelwise=True, use_scale=True,
+                                  use_shift=True)
+    assert torch.equal(again["pose_input_rgbs"], same["pose_input_rgbs"])
+    assert not torch.equal(again["pose_input_rgbs"], again["target_rgbs"])
+    assert taug.augment_data_dict(batch, taug.step_draw(6, 2, "cpu")) \
+        is batch
+
+
+# --- Adam as optax computes it ---------------------------------------------------
+
+@pytest.mark.parametrize("scale", [1e-9, 1e-5])
+@pytest.mark.parametrize("b1", [0.0, 0.9])
+def test_adam_matches_optax_over_ten_steps(b1, scale, monkeypatch):
+    """optax.adam(lr, b1, 0.999, eps=1e-5) over ten steps, gradients near 0
+    and near eps (where eps's place decides the step); parameters start at
+    0 so the comparison sees the updates at full f32 precision.  Both sides
+    get XLA's f32 powers for the bias corrections (as for RAdam)."""
+    import optax
+    from latentpose_tpu_torch.runners import optim
+    monkeypatch.setattr(optim, "_pow", lambda base, count: np.float32(
+        base ** jnp.int32(count)))
+    rng = np.random.RandomState(46)
+    grads = (rng.standard_normal((10, 5, 3)) * scale).astype(np.float32)
+    opt = optax.adam(5e-5, b1=b1, b2=0.999, eps=1e-5)
+    params = jnp.zeros((5, 3), jnp.float32)
+    state = opt.init(params)
+    tp = torch.zeros(5, 3)
+    topt = optim.Adam([tp], 5e-5, b1=b1, b2=0.999, eps=1e-5)
+    for g in grads:
+        updates, state = opt.update(jnp.asarray(g), state, params)
+        params = optax.apply_updates(params, updates)
+        topt.step([torch.from_numpy(g)])
+        np.testing.assert_allclose(tp.numpy(), np.asarray(params), rtol=1e-5,
+                                   atol=1e-10)
+        np.testing.assert_allclose(topt.mu[0].numpy(),
+                                   np.asarray(state[0].mu), rtol=1e-6)
+        np.testing.assert_allclose(topt.nu[0].numpy(),
+                                   np.asarray(state[0].nu), rtol=1e-6)
+    assert topt.count == int(state[0].count) == 10

@@ -8,9 +8,10 @@ ResNeXt-50, MobileNetV2 and VGG towers at their fixed full widths.  Both
 packages get the same numpy inputs and the same weights (the JAX VGG
 towers' random arrays are handed to the port: no pretrained weights are in
 the repository).  The whole-step comparison runs with
-``--set_eval_mode_in_train``: the pose encoder's dropout masks cannot match
-across frameworks (its train-mode BatchNorm is held by
-``tests/test_torch_models.py``).
+``--set_eval_mode_in_train``, since the pose encoder's dropout masks cannot
+match across frameworks (its train-mode BatchNorm is held by
+``tests/test_torch_models.py``), and with augmentation off (the two packages
+draw it from different generators).
 """
 
 import types
@@ -143,7 +144,8 @@ def _port_args(path, workdir, *flags):
         "--finetune", "--checkpoint_path", str(path), "--dataloader",
         "synthetic", "--device", "cpu", "--set_eval_mode_in_train",
         "--allow_random_vgg", "--num_epochs", "1", "--experiments_dir",
-        str(workdir), *flags])
+        str(workdir), "--no-use_pixelwise_augs", "--no-use_affine_scale",
+        "--no-use_affine_shift", *flags])
 
 
 def _tower_arrays(jax_criterion):
@@ -199,7 +201,7 @@ def runs(meta, tmp_path_factory):
 
     # the port
     tloader = tcli.build_dataloader(targs)
-    tstate = tcli.load_meta_trained(targs, CPU)
+    tstate = tcli.load_checkpoint(targs, CPU)
     criteria = _port_criteria(targs, jcriteria)
     tstate = tcli.start_finetuning(targs, tstate, tloader, CPU)
     t_ehat = tstate.finetune_embedding.detach().clone()
@@ -209,7 +211,7 @@ def runs(meta, tmp_path_factory):
     dis = tstate.models["discriminator"]
     dis.embed.u.copy_(torch.from_numpy(np.array(jembed["u"])))
     dis.embed.v.copy_(torch.from_numpy(np.array(jembed["v"])))
-    step = tholycow.make_finetune_step(criteria, targs)
+    step = tholycow.make_train_step(criteria, targs)
     tscalars = []
     for batch in tloader:
         scalars = step(tstate, tholycow.to_device(batch, CPU))
@@ -431,7 +433,7 @@ def test_weights_search_order_matches_jax(where, tmp_path, monkeypatch):
 
 def test_finetune_defaults_equal_the_config_file():
     """FINETUNE_CONFIG is configs/finetuning-base.yaml (yaml is absent where
-    the card is), apart from the three augmentation switches it keeps off."""
+    the card is)."""
     import yaml
     cfg = yaml.safe_load((REPO / "configs" / "finetuning-base.yaml")
                          .read_text())
@@ -442,20 +444,12 @@ def test_finetune_defaults_equal_the_config_file():
         except ValueError:
             return v
 
-    ours = dict(tcli.FINETUNE_CONFIG)
-    for name in tcli.AUGMENTATION_SWITCHES:
-        assert cfg.pop(name) is True and ours.pop(name) is False
-    assert {k: number(v) for k, v in cfg.items()} == ours
+    assert {k: number(v) for k, v in cfg.items()} == tcli.FINETUNE_CONFIG
 
 
 @pytest.mark.parametrize("flags,item", [
-    ([], "A.12"),                                      # meta-train
-    (["--finetune", "--use_pixelwise_augs"], "A.12"),
-    (["--finetune", "--use_affine_scale"], "A.12"),
-    (["--finetune", "--use_affine_shift"], "A.12"),
     (["--finetune", "--compute_dtype", "bfloat16"], "A.14"),
     (["--finetune", "--transfer_dtype", "uint8"], "A.14"),
-    (["--finetune", "--grad_accum_steps", "2"], "A.12"),
     (["--finetune", "--grad_dtype", "bfloat16"], "A.17"),
     (["--finetune", "--explicit_grad_reduce"], "A.17"),
     (["--finetune", "--num_devices", "2"], "A.17"),
@@ -470,26 +464,73 @@ def test_cli_refuses_what_is_not_ported(meta, flags, item):
         tcli.resolve_args(argv + flags)
 
 
+@pytest.mark.parametrize("flags", [
+    [],                                                 # meta-train
+    ["--finetune", "--use_pixelwise_augs", "--no-use_affine_scale",
+     "--no-use_affine_shift"],
+    ["--finetune", "--use_affine_scale", "--no-use_pixelwise_augs",
+     "--no-use_affine_shift"],
+    ["--finetune", "--use_affine_shift", "--no-use_pixelwise_augs",
+     "--no-use_affine_scale"],
+    ["--finetune", "--grad_accum_steps", "2"],
+])
+def test_cli_runs_meta_train_augmentation_and_accumulation(
+        meta, flags, tmp_path, monkeypatch):
+    """What the CLI refused before the meta-train slice now runs:
+    meta-training, each augmentation alone, and gradient accumulation; one
+    step each, from the JAX-written meta checkpoint, with the switches each
+    run's config and flags give."""
+    from latentpose_tpu_torch.data import augmentation
+    seen = []
+    augment = augmentation.augment_data_dict
+    monkeypatch.setattr(augmentation, "augment_data_dict", lambda b, d, **k:
+                        seen.append(k) or augment(b, d, **k))
+    state, path = tcli.main([
+        "--checkpoint_path", str(meta[1]), "--dataloader", "synthetic",
+        "--device", "cpu", "--allow_random_vgg", "--num_epochs", "1",
+        "--batch_size", "2", "--synthetic_num_labels", "2",
+        "--experiments_dir", str(tmp_path), *flags])
+    assert state.step == 1 and path.name == "model_00000001.ckpt"
+    assert state.finetune == ("--finetune" in flags)
+    assert seen == [{"use_pixelwise": "--no-use_pixelwise_augs" not in flags,
+                     "use_scale": "--no-use_affine_scale" not in flags,
+                     "use_shift": "--no-use_affine_shift" not in flags}]
+
+
 def test_cli_refuses_other_families_and_fine_tuned_checkpoints(runs, meta,
                                                                tmp_path):
+    """Other model families, and meta-training from a fine-tuned checkpoint
+    (it resumes with --finetune)."""
     argv = ["--finetune", "--checkpoint_path", str(meta[1]), "--dataloader",
             "synthetic"]
     with pytest.raises(ValueError, match="not ported"):
         tcli.resolve_args(argv + ["--generator", "FSTH"])
     path = jckpt.save_checkpoint(tmp_path, runs["jstate"], runs["jargs"])
-    with pytest.raises(NotImplementedError, match="resuming"):
-        tcli.resolve_args(["--finetune", "--checkpoint_path", str(path),
-                           "--dataloader", "synthetic"])
+    with pytest.raises(ValueError, match="resumes with --finetune"):
+        tcli.resolve_args(["--checkpoint_path", str(path), "--dataloader",
+                           "synthetic"])
+
+
+def test_cli_resumes_a_fine_tuned_checkpoint(runs, tmp_path):
+    """A JAX-written fine-tuned checkpoint resumes in the port's CLI: the
+    step and the RAdam count continue from the checkpoint's."""
+    path = jckpt.save_checkpoint(tmp_path / "jax", runs["jstate"],
+                                 runs["jargs"])
+    state, out = tcli.main([
+        "--finetune", "--checkpoint_path", str(path), "--dataloader",
+        "synthetic", "--device", "cpu", "--allow_random_vgg", "--num_epochs",
+        "1", "--experiments_dir", str(tmp_path / "port")])
+    assert state.finetune and state.step == 4 and state.opt_g.count == 4
+    assert out.name == "model_00000004.ckpt"
 
 
 def test_meta_checkpoint_keys_neither_read_nor_skipped_are_an_error(meta):
     args = _port_args(meta[1], "/nonexistent")
     flat = tdrive_cli.ckpt_lib.load_arrays(meta[1])
-    models = tcli.build_models(args)
-    convert.load_train_state(flat, models)         # the real key set loads
+    state = tcli.load_checkpoint(args, CPU)        # the real key set loads
     with pytest.raises(ValueError, match="neither reads nor skips"):
         convert.load_train_state(
-            dict(flat, **{"params::generator::extra": np.zeros(1)}), models)
+            dict(flat, **{"params::generator::extra": np.zeros(1)}), state)
 
 
 def test_cli_main_finetunes_and_the_result_drives(meta, tmp_path):
