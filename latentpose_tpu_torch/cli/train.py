@@ -299,11 +299,8 @@ def start_finetuning(args, state, dataloader, device):
 
 
 def make_step(args, criteria):
-    """The train step of ``args``, its dropout masks drawn from a CPU
-    generator seeded with ``args.random_seed``."""
-    return holycow.make_train_step(
-        criteria, args,
-        dropout_generator=torch.Generator().manual_seed(args.random_seed))
+    """The train step of ``args``."""
+    return holycow.make_train_step(criteria, args)
 
 
 def run_epoch(dataloader, step_fn, state, args, device):

@@ -62,10 +62,17 @@ class Draw:
                            device=self.device)
 
 
+def step_key(seed: int, step: int) -> int:
+    """The seed of train step ``step``'s draws in a run seeded ``seed``: a
+    function of the two alone, so a resumed run draws as an unbroken one
+    does."""
+    return (int(seed) * 1000003 + int(step)) % (2 ** 62)
+
+
 def step_draw(seed: int, step: int, device) -> Draw:
-    """The draw of train step ``step`` of a run seeded ``seed``: a function
-    of the two alone, so a resumed run augments as an unbroken one does."""
-    key = (int(seed) * 1000003 + int(step)) % (2 ** 63)
+    """The draw of train step ``step`` of a run seeded ``seed``
+    (:func:`step_key`)."""
+    key = step_key(seed, step)
     gen = torch.Generator().manual_seed(key)
     field_gen = torch.Generator(torch.device(device)).manual_seed(key)
     return Draw(gen, field_gen, device)

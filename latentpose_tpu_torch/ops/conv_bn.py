@@ -101,7 +101,7 @@ def fold_bn(mean, var, gamma, beta, eps: float = 1e-5):
 
 def _acc(dtype):
     """The arithmetic's dtype: f32, or f64 for f64 inputs (the CPU's
-    gradient checks)."""
+    gradient check calls :class:`_Link` directly in f64)."""
     return torch.promote_types(dtype, torch.float32)
 
 
@@ -119,10 +119,9 @@ def bn_relu_conv1x1_stats_reference(x, scale, offset, w, relu: bool = True):
 
 
 def _check(x, scale, offset, w):
-    f64 = x.dtype == torch.float64 and x.device.type == "cpu"
-    if x.dtype not in _DTYPES and not f64:
+    if x.dtype not in _DTYPES:
         raise TypeError(f"bn_relu_conv1x1_stats: x must be float32 or "
-                        f"bfloat16 (float64 on the CPU), got {x.dtype}")
+                        f"bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("bn_relu_conv1x1_stats: x must be contiguous (..., "
                          "Cin): an NCHW tensor in channels_last, permuted")
@@ -133,13 +132,12 @@ def _check(x, scale, offset, w):
     if w.dtype != x.dtype or w.device != x.device:
         raise TypeError(f"bn_relu_conv1x1_stats: w must match x's dtype and "
                         f"device, got {w.dtype} on {w.device}")
-    want = torch.float64 if f64 else torch.float32
     for name, t in (("scale", scale), ("offset", offset)):
-        if tuple(t.shape) != (cin,) or t.dtype != want \
+        if tuple(t.shape) != (cin,) or t.dtype != torch.float32 \
                 or t.device != x.device:
             raise ValueError(f"bn_relu_conv1x1_stats: {name} must be ({cin},) "
-                             f"{str(want)[6:]} on {x.device}, got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+                             f"float32 on {x.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
 
 
 def check_kernel_layout(x, w):

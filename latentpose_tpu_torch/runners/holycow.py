@@ -121,11 +121,20 @@ def _add(total, parts):
         else [a + b for a, b in zip(total, parts)]
 
 
-def make_train_step(criteria, args, dropout_generator=None):
+def step_dropout_generator(seed: int, step: int):
+    """The CPU generator of the pose encoder's dropout masks in train step
+    ``step``: keyed on (seed, step) as the augmentation's draw is, on a key
+    of its own, so a resumed run draws the masks an unbroken one draws."""
+    # (a CPU generator keeps a seed's low 32 bits)
+    return torch.Generator().manual_seed(
+        augmentation.step_key(seed, step) ^ 0x9E3779B9)
+
+
+def make_train_step(criteria, args):
     """``step(state, batch) -> scalars``: one train step on ``batch``
     (device tensors, :func:`to_device`), updating ``state`` in place; the
-    regime (meta-train or fine-tune) is the state's.  ``dropout_generator``:
-    a CPU generator for the pose encoder's dropout masks."""
+    regime (meta-train or fine-tune) is the state's.  Augmentation and
+    dropout draw from ``args.random_seed`` and the state's step."""
     train = not args.set_eval_mode_in_train
     use_ema = args.weights_running_average
     accum = int(args.grad_accum_steps or 1)
@@ -138,10 +147,11 @@ def make_train_step(criteria, args, dropout_generator=None):
             draw = augmentation.step_draw(args.random_seed, state.step,
                                           batch["pose_input_rgbs"].device)
             batch = augmentation.augment_data_dict(batch, draw, **augments)
+        masks = step_dropout_generator(args.random_seed, state.step)
         g_params, d_params = g_trainable(state), d_trainable(state)
         grads_g = grads_d = totals = None
         for micro in _microbatches(batch, accum):
-            data_dict = forward(state, micro, train, dropout_generator)
+            data_dict = forward(state, micro, train, masks)
             losses_G, losses_D = apply_criteria(criteria, data_dict)
             loss_G = sum(losses_G.values())
             loss_D = sum(losses_D.values())

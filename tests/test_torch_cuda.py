@@ -125,7 +125,7 @@ def test_conv_bn_kernel_refuses_what_it_does_not_take(device):
     with pytest.raises(ValueError, match="multiple"):
         conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w)
     x, scale, offset, w = _link_inputs(64, 16, 16, torch.float32, device)
-    with pytest.raises(TypeError, match="float64"):      # the CPU's only
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         conv_bn.bn_relu_conv1x1_stats(x.double(), scale.double(),
                                       offset.double(), w.double())
     with torch.no_grad():

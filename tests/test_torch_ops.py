@@ -320,9 +320,9 @@ def test_conv_bn_wrapper_refuses_what_it_does_not_take():
                                       w)
     with pytest.raises(ValueError, match="Cin"):
         conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w[:8])
-    # float64 only on the CPU (the gradient checks), with f64 scale/offset
-    with pytest.raises(ValueError, match="scale"):
-        conv_bn.bn_relu_conv1x1_stats(x.double(), scale, offset, w.double())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        conv_bn.bn_relu_conv1x1_stats(x.double(), scale.double(),
+                                      offset.double(), w.double())
     with torch.no_grad():
         conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w)
     # channels the kernel cannot vectorise, checked before a launch
@@ -508,13 +508,14 @@ def _link_leaves(rng, m, cin, cout, dtype):
 def test_conv_bn_function_gradcheck_float64(m, cin, cout, relu):
     """The autograd.Function's backward (the stats' gradient folded into
     y's, the recomputed ReLU mask) against finite differences in f64, on
-    ragged shapes: through (y, stats), and through the stats alone."""
+    ragged shapes: through (y, stats), and through the stats alone.  The
+    Function is called directly: the wrapper takes f32 and bf16 only."""
     from latentpose_tpu_torch.ops import conv_bn
     leaves = _link_leaves(np.random.RandomState(m * cin), m, cin, cout,
                           torch.float64)
 
     def link(x, scale, offset, w):
-        return conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w.t(), relu)
+        return conv_bn._Link.apply(x, scale, offset, w.t(), relu)
 
     assert torch.autograd.gradcheck(link, leaves, eps=1e-6, atol=1e-7)
     assert torch.autograd.gradcheck(lambda *a: link(*a)[1], leaves,
