@@ -63,7 +63,23 @@ paths:
 12. one fine-tune step on the card and on the CPU from the same state and
     batch (batch 2, f32, eval-mode pose encoder, augmentation off): losses
     and the discriminator's gradient within 1e-3 relative, the generator's
-    and the identity embedding's within FT_GRAD_TOL.
+    and the identity embedding's within FT_GRAD_TOL;
+13. real data, through the CLIs' ``main``: write a VoxCeleb2-layout tree
+    with no cv2 (16 videos of 12 rendered 320² PNG frames, masks, bboxes
+    for half the videos, train.csv and val.csv); meta-train the seeded
+    meta checkpoint on it (``voxceleb2_segmentation_nolandmarks``, batch 8,
+    K=8, 2 epochs: 4 steps) with validation, PSNR and IoU, visual grids
+    with the cross-driving columns and a fixed probe: exactly 16 conv_bn and
+    17 AdaIN launches a step (the eval forwards' counted apart), finite
+    losses, the checkpoint at step 4, the scalars, grids that decode to
+    their tiles; fine-tune the result on one video's 12 frames (ê: 16
+    conv_bn launches; 3 steps of 17 AdaIN), the generator moved; drive it
+    from another video's directory (the C++ loader); the loop's Batch_time
+    and Data_time, the step through the real loader beside the staged one
+    of phase 7, and the loader's frames/s on this host.
+
+jax, flax, optax, yaml, cv2, PIL and pandas are made unimportable first: the
+card's path needs none of them.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record (launches on the main paths, error, times, bound, the library call);
@@ -76,6 +92,7 @@ import concurrent.futures
 import contextlib
 import copy
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -83,7 +100,12 @@ import time
 import types
 from pathlib import Path
 
-import numpy as np
+# The card's path needs none of these (the machine with the card may have
+# some of them): make them unimportable, so that the run shows it.
+for _name in ("jax", "flax", "optax", "yaml", "cv2", "PIL", "pandas"):
+    sys.modules[_name] = None
+
+import numpy as np  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
@@ -94,6 +116,8 @@ from latentpose_tpu_torch import checkpoint as ckpt_lib  # noqa: E402
 from latentpose_tpu_torch import convert, registry  # noqa: E402
 from latentpose_tpu_torch.cli import drive as cli  # noqa: E402
 from latentpose_tpu_torch.cli import train as train_cli  # noqa: E402
+from latentpose_tpu_torch.data import native_loader  # noqa: E402
+from latentpose_tpu_torch.data.synthetic import render_face  # noqa: E402
 from latentpose_tpu_torch.nn import backbones  # noqa: E402
 from latentpose_tpu_torch.ops import adain as adain_op  # noqa: E402
 from latentpose_tpu_torch.ops import conv_bn  # noqa: E402
@@ -101,9 +125,10 @@ from latentpose_tpu_torch.ops.cuda_build import (  # noqa: E402
     BUILD_DIR, build_log, load_library)
 from latentpose_tpu_torch.runners import drive as drive_lib  # noqa: E402
 from latentpose_tpu_torch.runners import finetune as ft  # noqa: E402
-from latentpose_tpu_torch.runners import holycow  # noqa: E402
+from latentpose_tpu_torch.runners import holycow, loop  # noqa: E402
 from latentpose_tpu_torch.runners.state import (  # noqa: E402
     TrainState, ema_of)
+from latentpose_tpu_torch.utils.png import write_png  # noqa: E402
 
 FLAGSHIP = dict(
     generator="vector_pose_unsupervised_segmentation_noBottleneck",
@@ -146,6 +171,12 @@ GRAD_TOL = 1e-1
 FAULT_SCALE = 0.7
 FT_GRAD_TOL = 1e-2     # the same, one fine-tune step (read 1.3e-3-2.2e-3)
 EHAT_TOL = 1e-4        # card vs CPU, ê of one batch, relative to max |ê|
+# the real-data phase's VoxCeleb2-layout tree: identities x videos x frames
+# of SOURCE² PNG frames (cropped to 256² by the loader)
+TREE = dict(identities=4, videos=4, frames=12)
+SOURCE = 320
+REAL_META_EPOCHS = 2   # 16 videos // batch 8 = 2 steps an epoch
+REAL_FT_EPOCHS = 3     # 12 frames at batch 8: 1 step an epoch (drop_last)
 
 
 def require(cond, message):
@@ -598,8 +629,9 @@ def phase_finetune(meta_ckpt, workdir, device):
         losses.append({k: float(v) for k, v in scalars.items()})
         return scalars
 
-    for _ in range(args.num_epochs):
-        train_cli.run_epoch(loader, step, state, args, device)
+    for epoch in range(args.num_epochs):
+        loop.run_epoch(loader, step, state, args, epoch, device,
+                       holycow.STEP_KEYS)
     torch.cuda.synchronize()
     launches = {"bn_relu_conv1x1_stats": conv_bn.bn_relu_conv1x1_stats.launches,
                 "adain_fused": adain_op.adain.launches}
@@ -1019,7 +1051,275 @@ def phase_meta_train(meta_ckpt, workdir, device):
           f"{step} -> {state.step}, Adam count {count} -> "
           f"{state.opt_g.count}; launches {resumed}; saved {path.name}",
           flush=True)
-    return args, state, loader, path, total
+    return args, state, loader, path, total, median
+
+
+def write_tree(root):
+    """A VoxCeleb2-layout tree with no cv2: TREE's identities x videos x
+    frames of rendered faces (SOURCE² PNG, the port's PNG writer), their
+    head masks as segmentation PNGs, ``bboxes.npy`` boxes (256-space l, t,
+    r, b, as the preprocessing writes them) for half the videos, which pads
+    the crops and strips the 1px border, and ``train.csv`` (every video) and
+    ``val.csv`` (two)."""
+    root = Path(root)
+    bboxes, rows = {}, []
+    for i in range(TREE["identities"]):
+        ident = f"id{i:05d}"
+        for v in range(TREE["videos"]):
+            video = f"video{v}"
+            img_dir = root / "images-cropped" / ident / video
+            segm_dir = root / "segmentation-cropped" / ident / video
+            img_dir.mkdir(parents=True)
+            segm_dir.mkdir(parents=True)
+            boxes = []
+            for f in range(TREE["frames"]):
+                img, segm = render_face(i, 3 * f + 11 * v, SOURCE)
+                write_png(img_dir / f"{f:05d}.png",
+                          (img * 255 + 0.5).astype(np.uint8), level=1)
+                write_png(segm_dir / f"{f:05d}.png",
+                          (segm[..., 0] * 255 + 0.5).astype(np.uint8),
+                          level=1)
+                boxes.append([48 + 2 * f, 40 + v, 208 + 2 * f, 216 + v])
+            if v % 2 == 0:
+                bboxes.setdefault(ident, {})[video] = np.array(boxes,
+                                                               np.float32)
+            rows.append(f"{ident}/{video}")
+    np.save(root / "bboxes.npy", bboxes, allow_pickle=True)
+    (root / "train.csv").write_text("path\n" + "\n".join(rows) + "\n")
+    (root / "val.csv").write_text("path\n" + "\n".join(rows[:2]) + "\n")
+    return root, rows
+
+
+@contextlib.contextmanager
+def _counted_steps(record):
+    """``train_cli.make_step``'s steps, each timed on the card and its
+    kernel launches counted (the counters' difference across it), its losses
+    kept: one dict a step in ``record``."""
+    make_step = train_cli.make_step
+
+    def counted_make_step(args, criteria):
+        step = make_step(args, criteria)
+
+        def counted(state, batch):
+            torch.cuda.synchronize()
+            before, t0 = _launches(), time.perf_counter()
+            scalars = step(state, batch)
+            torch.cuda.synchronize()
+            after = _launches()
+            record.append(dict(
+                ms=(time.perf_counter() - t0) * 1e3,
+                launches={k: after[k] - before[k] for k in after},
+                losses={k: float(v) for k, v in scalars.items()}))
+            return scalars
+        return counted
+
+    train_cli.make_step = counted_make_step
+    try:
+        yield
+    finally:
+        train_cli.make_step = make_step
+
+
+def _scalars(experiment):
+    """{tag: [values by step]} of an experiment's scalars.jsonl."""
+    out = {}
+    for line in (Path(experiment) / "scalars.jsonl").read_text().splitlines():
+        entry = json.loads(line)
+        out.setdefault(entry["tag"], []).append(entry["value"])
+    return out
+
+
+def _require_steps(what, steps, per_step, count):
+    require(len(steps) == count, f"{what}: {len(steps)} steps, expected "
+            f"{count}")
+    for s in steps:
+        require(s["launches"] == per_step, f"{what} step launched "
+                f"{s['launches']}, expected {per_step}")
+        require(all(np.isfinite(v) for v in s["losses"].values()),
+                f"{what}: non-finite losses {s['losses']}")
+
+
+@contextlib.contextmanager
+def _epoch_meters(meters):
+    """The loop's own meters: the Meter of each epoch ``loop.run_epoch``
+    returns, kept in ``meters``."""
+    run_epoch = loop.run_epoch
+
+    def kept(*a, **k):
+        meters.append(run_epoch(*a, **k))
+        return meters[-1]
+
+    loop.run_epoch = kept
+    try:
+        yield
+    finally:
+        loop.run_epoch = run_epoch
+
+
+def _loop_times(what, meters, steps):
+    """The loop's Data_time and Batch_time (each epoch's mean, ms) and the
+    counted steps' card time; returns the steps' median ms."""
+    data = [m.get_average("Data_time") * 1e3 for m in meters]
+    batch = [m.get_average("Batch_time") * 1e3 for m in meters]
+    times = [s["ms"] for s in steps]
+    step = float(np.median(times))
+    print(f"{what} through the real loader: the loop's Batch_time_ms "
+          f"median={np.median(batch):.2f} (epoch means "
+          f"{', '.join(f'{t:.1f}' for t in batch)}; with the visuals' and "
+          f"probes' eval forwards at their steps) Data_time_ms median="
+          f"{np.median(data):.2f} (epoch means "
+          f"{', '.join(f'{t:.2f}' for t in data)}; "
+          f"{np.median(data) / np.median(batch):.1%} of Batch_time); step_ms "
+          f"median={step:.2f} (each {', '.join(f'{t:.1f}' for t in times)})",
+          flush=True)
+    return step
+
+
+def phase_real_data(meta_ckpt, workdir, device, staged_ms):
+    """The real-data path through the CLIs' ``main``: meta-train the seeded
+    flagship meta checkpoint on a VoxCeleb2-layout tree (validation, visuals
+    with the cross-driving columns, fixed probes, PSNR and IoU), fine-tune
+    the result from one video's directory, drive it from another's.
+    Returns (launches on these paths, fine-tuned checkpoint)."""
+    size = META["image_size"]
+    t0 = time.perf_counter()
+    tree, rows = write_tree(Path(workdir) / "tree")
+    print(f"real data: tree of {len(rows)} videos x {TREE['frames']} "
+          f"{SOURCE}² PNG frames and masks in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    data = ["--dataloader", "voxceleb2_segmentation_nolandmarks",
+            "--data_root", str(tree), "--bboxes_dir",
+            str(tree / "bboxes.npy"), "--device", str(device),
+            "--allow_random_vgg", "--experiments_dir", str(workdir)]
+    total = {"bn_relu_conv1x1_stats": 0, "adain_fused": 0}
+
+    # meta-train: 2 epochs of 2 steps at batch 8, K=8
+    steps, meters = [], []
+    torch.cuda.synchronize()
+    _zero_launches()
+    with _counted_steps(steps), _epoch_meters(meters):
+        state, path = train_cli.main([
+            "--checkpoint_path", str(meta_ckpt), *data,
+            "--train_split_path", str(tree / "train.csv"),
+            "--val_split_path", str(tree / "val.csv"),
+            "--batch_size", "8", "--n_frames_for_encoder", "8",
+            "--num_epochs", str(REAL_META_EPOCHS), "--no-skip_eval",
+            "--metrics", "psnr,segmentation_iou",
+            "--log_frequency_images", "2", "--log_frequency_fixed_images",
+            "3", "--fixed_val_ids", "0", "--experiment_name", "real_meta"])
+    torch.cuda.synchronize()
+    launches = _launches()
+    total = {k: total[k] + launches[k] for k in total}
+    adains = len(state.models["generator"].adain_features)      # 17 at 256²
+    _require_steps("real-data meta", steps,
+                   {"bn_relu_conv1x1_stats": 16, "adain_fused": adains},
+                   2 * REAL_META_EPOCHS)
+    require(path.name == f"model_{2 * REAL_META_EPOCHS:08d}.ckpt"
+            and state.step == 2 * REAL_META_EPOCHS, f"meta checkpoint "
+            f"{path.name} at step {state.step}")
+    experiment = Path(workdir) / "real_meta"
+    scalars = _scalars(experiment)
+    require({"Metrics/train/loss_G", "Metrics/val/PSNR",
+             "Fixed_metrics/train/PSNR"} <= set(scalars),
+            f"scalars {sorted(scalars)}")
+    # (rows, columns) of each grid: the train one with the cross-driving
+    # columns, the probe one with its one sample
+    layouts = {"Images_train": (2, 9), "Images_val": (2, 5),
+               "Fixed_images_train": (1, 5)}
+    grids = {g.name: native_loader.decode(g).shape
+             for g in sorted((experiment / "images").glob("*.png"))}
+    require({n.split("_visual")[0] for n in grids} == set(layouts),
+            f"grids {sorted(grids)}")
+    for name, shape in grids.items():
+        r, c = layouts[name.split("_visual")[0]]
+        require(shape == (38 + r * size, c * size, 3),
+                f"{name} decodes to {shape}, expected {r} x {c} tiles")
+    eval_launches = {k: launches[k] - sum(s["launches"][k] for s in steps)
+                     for k in launches}
+    print(f"real-data meta-train: {len(steps)} steps, step {state.step}, "
+          f"saved {path.name}; first losses {steps[0]['losses']}; "
+          f"launches per step {steps[0]['launches']}; eval forwards' "
+          f"launches {eval_launches} (visuals, cross-driving, fixed probes, "
+          f"validation); grids {grids}; "
+          f"val PSNR {scalars['Metrics/val/PSNR']}", flush=True)
+    meta_step = _loop_times("meta step", meters, steps)
+    print(f"meta step, f32 batch 8 K=8 {size}²: real loader {meta_step:.2f} ms "
+          f"vs staged batches {staged_ms:.2f} ms (same run): "
+          f"{meta_step / staged_ms - 1:+.1%}", flush=True)
+    del state
+    torch.cuda.empty_cache()
+
+    # fine-tune from one video's directory: ê, then a step an epoch
+    steps, ehat, meters = [], {}, []
+    start_finetuning = train_cli.start_finetuning
+
+    def counted_start(*a):
+        before = _launches()
+        out = start_finetuning(*a)
+        torch.cuda.synchronize()
+        ehat.update({k: v - before[k] for k, v in _launches().items()})
+        return out
+
+    torch.cuda.synchronize()
+    _zero_launches()
+    train_cli.start_finetuning = counted_start
+    try:
+        with _counted_steps(steps), _epoch_meters(meters):
+            state, ft_path = train_cli.main([
+                "--finetune", "--checkpoint_path", str(path), *data,
+                "--train_split_path", rows[4], "--skip_eval",
+                "--batch_size", "8", "--num_epochs", str(REAL_FT_EPOCHS),
+                "--log_frequency_fixed_images", "1",
+                "--experiment_name", "real_finetune"])
+    finally:
+        train_cli.start_finetuning = start_finetuning
+    torch.cuda.synchronize()
+    launches = _launches()
+    total = {k: total[k] + launches[k] for k in total}
+    require(ehat == {"bn_relu_conv1x1_stats": 16, "adain_fused": 0},
+            f"ê over the directory launched {ehat}, expected 16 conv_bn")
+    _require_steps("real-data fine-tune", steps,
+                   {"bn_relu_conv1x1_stats": 0, "adain_fused": adains},
+                   REAL_FT_EPOCHS)
+    before = ckpt_lib.load_arrays(path)
+    after = ckpt_lib.load_arrays(ft_path)
+    key = "params::generator::head_conv::kernel"
+    require(state.finetune and not np.array_equal(before[key], after[key]),
+            "the generator did not move in fine-tuning")
+    eval_launches = {k: launches[k] - ehat[k]
+                     - sum(s["launches"][k] for s in steps) for k in launches}
+    print(f"real-data fine-tune on {rows[4]}: ê launches {ehat}; "
+          f"{len(steps)} steps, saved {ft_path.name}; losses "
+          f"{steps[-1]['losses']}; fixed probes' launches {eval_launches}",
+          flush=True)
+    _loop_times("fine-tune step", meters, steps)
+    del state
+    torch.cuda.empty_cache()
+
+    # drive from another video's frames (the C++ loader, bilinear)
+    frames = cli.load_driver_frames(tree / "images-cropped" / rows[10], size)
+    require(frames.shape == (TREE["frames"], size, size, 3)
+            and frames.dtype == np.float32, f"driver frames {frames.shape}")
+    # f32: drive_once holds the padded sequence against one call on the
+    # first 12 frames, and bf16 rounds differently at another batch size
+    _, _, _, drive_launches = drive_once(
+        ft_path, ["--compute_dtype", "float32"], frames)
+    total["adain_fused"] += drive_launches
+
+    # the loader on this host: frames/s of the dataset's crop, and batches
+    paths = sorted((tree / "images-cropped").rglob("*.png"))[:72]
+    boxes = np.tile([[-0.1, -0.1, 1.1, 1.1]], (len(paths), 1))
+    loader = native_loader.NativeBatchLoader()
+    loader.load_cropped(paths[:8], boxes[:8], np.ones(8, np.uint8), size)
+    t0 = time.perf_counter()
+    loader.load_cropped(paths, boxes, np.ones(len(paths), np.uint8), size)
+    fps = len(paths) / (time.perf_counter() - t0)
+    loader.close()
+    print(f"native loader on this host ({os.cpu_count()} CPUs, JPEG decoder "
+          f"{native_loader.jpeg_decoder()}): {fps:.1f} frames/s "
+          f"({SOURCE}² PNG -> padded crop -> {size}², 72 frames = one meta "
+          f"batch's loads, {72 / fps * 1e3:.1f} ms)", flush=True)
+    return total
 
 
 def phase_checkpoint(workdir):
@@ -1126,6 +1426,7 @@ def phase_card_vs_cpu(ckpt, models, state, frames):
 
 
 def main():
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this smoke runs only on an NVIDIA GPU")
@@ -1142,13 +1443,14 @@ def main():
 
     t0 = time.perf_counter()
     kernels = {"adain_fused": adain_op, "conv_bn_fused": conv_bn}
-    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
-        built = {name: pool.submit(mod.kernel_entry)
-                 for name, mod in kernels.items()}
-        for future in built.values():
+    with concurrent.futures.ThreadPoolExecutor(len(kernels) + 1) as pool:
+        built = [pool.submit(mod.kernel_entry) for mod in kernels.values()]
+        built.append(pool.submit(native_loader.library))   # g++, the loader
+        for future in built:
             future.result()
-    print(f"build: {', '.join(kernels)} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"build: {', '.join(kernels)} and the image loader (JPEG through "
+          f"{native_loader.jpeg_decoder()}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for mod in kernels.values():
         print(build_log(load_library(*mod.LIBRARY)), flush=True)
 
@@ -1171,19 +1473,24 @@ def main():
         del models, state
 
         meta_ckpt = phase_meta_checkpoint(Path(workdir) / "meta")
-        meta_args, meta_state, meta_loader, trained_ckpt, meta_launches = \
-            phase_meta_train(meta_ckpt, Path(workdir) / "metatrain", device)
+        (meta_args, meta_state, meta_loader, trained_ckpt, meta_launches,
+         staged_ms) = phase_meta_train(meta_ckpt, Path(workdir) / "metatrain",
+                                       device)
         phase_meta_step_card_vs_cpu(meta_args, meta_state, meta_loader,
                                     device)
         del meta_state, meta_loader
         torch.cuda.empty_cache()
+        real_launches = phase_real_data(meta_ckpt, Path(workdir) / "real",
+                                        device, staged_ms)
         ft_args, ft_state, _, loader, ft_ckpt, ft_launches = phase_finetune(
             trained_ckpt, Path(workdir) / "finetune", device)
         drive_once(ft_ckpt, [], frames)
         phase_ehat_card_vs_cpu(ft_state, loader, device)
         phase_step_card_vs_cpu(ft_args, ft_state, loader, device)
-    launches = {k: meta_launches[k] + ft_launches[k] for k in ft_launches}
+    launches = {k: meta_launches[k] + ft_launches[k] + real_launches[k]
+                for k in ft_launches}
 
+    print(f"smoke total: {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "adain_fused", "route": "cuda",
         "source": "latentpose_tpu_torch/csrc/adain_fused.cu",

@@ -6,7 +6,11 @@ both TPU kernels as CUDA kernels written for sm_90a: the generator's AdaIN +
 ReLU (``csrc/adain_fused.cu``, wrapper ``ops/adain.py``) and ResNeXt-50's
 BN -> ReLU -> 1x1 conv -> stats link (``csrc/conv_bn_fused.cu``, wrapper
 ``ops/conv_bn.py``).
-Kernels build from ``csrc/`` into ``_build/`` at first use.  The package
+It trains from frames on disk: the VoxCeleb2 dataloader on a C++ image
+loader of its own (``csrc/lpr_loader.cpp``, ``data/native_loader.py``) and
+the epoch loop with validation, visuals and save-on-signal
+(``runners/loop.py``).  Kernels and the loader build from ``csrc/`` into
+``_build/`` at first use.  The package
 imports ``torch`` and never ``jax``; it reads and writes the JAX package's
 checkpoint format (``checkpoint.py``, ``convert.py``).
 """

@@ -25,6 +25,8 @@ import torch
 
 from latentpose_tpu_torch import checkpoint as ckpt_lib
 from latentpose_tpu_torch import convert, registry
+from latentpose_tpu_torch.data.common.voxceleb import IMAGE_EXTENSIONS
+from latentpose_tpu_torch.data.native_loader import NativeBatchLoader
 from latentpose_tpu_torch.runners import drive as drive_lib
 from latentpose_tpu_torch.utils.video import get_image_writer, to_uint8
 
@@ -32,9 +34,11 @@ logger = logging.getLogger("latentpose_tpu_torch.drive")
 
 
 def load_driver_frames(path, image_size):
-    """A driver sequence as (N, H, W, 3): uint8 for image directories and
-    videos, decoded with cv2 (the wire format, rescaled on the device),
-    float32 in [0, 1] for ``synthetic://K`` (32 frames)."""
+    """A driver sequence as (N, H, W, 3): float32 in [0, 1] for an image
+    directory (decoded and resized bilinearly by the port's C++ loader,
+    ``data/native_loader.py``, as the JAX package's does) and for
+    ``synthetic://K`` (32 frames); uint8 for a video file, decoded with cv2
+    (the wire format, rescaled on the device)."""
     if str(path).startswith("synthetic://"):
         from latentpose_tpu_torch.data.synthetic import render_face
         label = int(str(path).split("://", 1)[1])
@@ -42,25 +46,29 @@ def load_driver_frames(path, image_size):
                          for f in range(32)])
 
     path = Path(path)
-    frames = []
     if path.is_dir():
         files = sorted(p for p in path.iterdir()
-                       if p.suffix.lower() in (".jpg", ".jpeg", ".png",
-                                               ".bmp"))
-        import cv2
-        for p in files:
-            img = cv2.imread(str(p))[..., ::-1]
-            frames.append(cv2.resize(img, (image_size, image_size)))
-    else:
-        import cv2
-        cap = cv2.VideoCapture(str(path))
-        while True:
-            ok, img = cap.read()
-            if not ok:
-                break
-            frames.append(cv2.resize(img[..., ::-1],
-                                     (image_size, image_size)))
-        cap.release()
+                       if p.suffix.lower() in IMAGE_EXTENSIONS)
+        if not files:
+            raise FileNotFoundError(f"No frames found in {path}")
+        loader = NativeBatchLoader()
+        try:
+            images, failed = loader.load(files, image_size)
+        finally:
+            loader.close()
+        if failed:
+            raise RuntimeError(f"{failed} of {len(files)} images in {path} "
+                               "failed to decode")
+        return images
+    import cv2
+    frames = []
+    cap = cv2.VideoCapture(str(path))
+    while True:
+        ok, img = cap.read()
+        if not ok:
+            break
+        frames.append(cv2.resize(img[..., ::-1], (image_size, image_size)))
+    cap.release()
     if not frames:
         raise FileNotFoundError(f"No frames found in {path}")
     return np.stack(frames)

@@ -1,10 +1,17 @@
 """Training entry point of the PyTorch port (port of
 ``latentpose_tpu/cli/train.py``), meta-training and fine-tuning:
 
-    python -m latentpose_tpu_torch.cli.train --dataloader synthetic \
+    python -m latentpose_tpu_torch.cli.train \
+        --dataloader voxceleb2_segmentation_nolandmarks --data_root ROOT \
         [--checkpoint_path META_CKPT] [--device cuda] ...
     python -m latentpose_tpu_torch.cli.train --finetune \
-        --checkpoint_path CKPT --dataloader synthetic [--device cuda] ...
+        --checkpoint_path CKPT --dataloader voxceleb2_segmentation_nolandmarks \
+        --data_root ROOT --train_split_path IDENTITY/VIDEO [--device cuda] ...
+
+Dataloaders: ``voxceleb2_segmentation_nolandmarks`` (the preprocessed
+VoxCeleb2 tree: frames, segmentation masks, bboxes, split CSVs; fine-tuning
+reads one directory of a person's images) and ``synthetic`` (procedural
+faces).
 
 Meta-training (no ``--finetune``) starts from a seeded init of the flagship
 models, or resumes a meta-trained checkpoint of either package: the
@@ -16,17 +23,23 @@ generator under Adam, the six criteria of ``configs/default.yaml`` (with
 Fine-tuning (``--finetune``) from a meta-trained checkpoint computes ê (the
 mean identity embedding over the avatar's frames), re-parameterises and
 trains the generator and ê with RAdam and an EMA of 0.972; from a
-fine-tuned checkpoint it resumes.  Either run saves at the end in the JAX
-layout, optimizer state included, which both packages read.
+fine-tuned checkpoint it resumes.
+
+The loop (``runners/loop.py``) logs scalars and visual grids to the
+experiment's directory, runs the fixed-id probes, validation with
+``--no-skip_eval`` and the ``--saver``, and saves in the JAX layout,
+optimizer state included, which both packages read.  SIGINT or SIGTERM
+saves at the next step boundary and ends the run (exit 0); a second one
+ends it without saving.
 
 Arguments resolve lowest to highest: the JAX core defaults
 (:data:`DEFAULTS`); for meta-training ``configs/default.yaml``
 (:data:`META_CONFIG`) and then the checkpoint's saved args, so that a resumed
 run keeps its widths; for fine-tuning the checkpoint's args and then
 ``configs/finetuning-base.yaml`` (:data:`FINETUNE_CONFIG`); then the flags
-given here.  yaml is not installed where the card is, hence the dicts.  What
-the port does not run yet is refused with the ROADMAP.md item that will
-bring it; save-on-SIGINT is not installed (A.13).
+given here (``--fixed_val_ids`` appends, as argparse's append does).  yaml
+is not imported, hence the dicts.  What the port does not run yet is
+refused with the ROADMAP.md item that will bring it.
 """
 
 from __future__ import annotations
@@ -34,6 +47,8 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import signal
+import threading
 import types
 from pathlib import Path
 
@@ -42,10 +57,14 @@ import torch
 
 from latentpose_tpu_torch import checkpoint as ckpt_lib
 from latentpose_tpu_torch import convert, registry
+from latentpose_tpu_torch.data.dataloader import \
+    get_dataloader as build_dataloader
 from latentpose_tpu_torch.ops.spectral_norm import SNEmbed
 from latentpose_tpu_torch.runners import finetune as ft
-from latentpose_tpu_torch.runners import holycow
+from latentpose_tpu_torch.runners import holycow, loop
 from latentpose_tpu_torch.runners.state import TrainState, ema_of
+from latentpose_tpu_torch.utils.logging_writer import setup_logging
+from latentpose_tpu_torch.utils.saver import Saver
 
 logger = logging.getLogger("latentpose_tpu_torch.train")
 
@@ -68,7 +87,18 @@ DEFAULTS = dict(
     transfer_dtype="float32", grad_accum_steps=1, grad_dtype="float32",
     explicit_grad_reduce=False, use_pixelwise_augs=False,
     use_affine_scale=False, use_affine_shift=False, log_frequency_loss=1,
-    iteration=0, dataloader="", criterions="")
+    iteration=0, dataloader="", criterions="", metrics="", data_root="",
+    img_dir="images-cropped", kp_dir="keypoints-cropped",
+    segm_dir="segmentation-cropped", bboxes_dir="/non/existent/file",
+    train_split_path="data/splits/train.csv",
+    val_split_path="data/splits/val.csv", num_workers=4, prefetch_size=16,
+    n_frames_for_encoder=8, draw_oval=True, inference=False, logging=True,
+    saver="", detailed_metrics=True, log_frequency_images=100,
+    log_frequency_fixed_images=2500, fixed_val_ids=[50, 100, 200, 250, 300],
+    batch_size_inference=5, num_visuals_per_img=2, set_eval_mode_in_test=True,
+    args_to_ignore="checkpoint,splits_dir,experiments_dir,extension,"
+                   "experiment_name,rank,local_rank,world_size",
+    profile_dir="", profile_steps=5)
 
 # configs/default.yaml, the flagship meta-training config.
 META_CONFIG = dict(
@@ -98,8 +128,6 @@ FINETUNE_CONFIG = dict(
     log_frequency_fixed_images=15, fixed_val_ids=[0], num_epochs=140,
     save_frequency=0)
 
-CRITERIA = ("adversarial", "featmat", "idt_embed", "perceptual", "dice",
-            "dis_embed")
 # the criteria that run a VGG tower and take the device to build it on
 _VGG_CRITERIA = ("idt_embed", "perceptual")
 
@@ -112,24 +140,33 @@ def build_parser():
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on")
     for name in ("dataloader", "generator", "embedder", "discriminator",
-                 "criterions", "experiments_dir", "experiment_name",
-                 "vgg_weights_dir", "compute_dtype", "transfer_dtype",
-                 "grad_dtype", "optimizer"):
+                 "criterions", "metrics", "experiments_dir",
+                 "experiment_name", "vgg_weights_dir", "compute_dtype",
+                 "transfer_dtype", "grad_dtype", "optimizer", "data_root",
+                 "img_dir", "segm_dir", "kp_dir", "bboxes_dir",
+                 "train_split_path", "val_split_path", "saver",
+                 "profile_dir"):
         parser.add_argument(f"--{name}", default=None)
+    parser.add_argument("--args_to_ignore", "--args-to-ignore", default=None)
     for name in ("batch_size", "num_epochs", "random_seed", "save_frequency",
                  "num_devices", "grad_accum_steps", "synthetic_num_labels",
                  "num_enc_frames", "log_frequency_loss",
                  "log_frequency_images", "log_frequency_fixed_images",
                  "image_size", "num_channels", "max_num_channels",
                  "embed_channels", "pose_embedding_size", "dis_num_blocks",
-                 "gen_num_residual_blocks"):
+                 "gen_num_residual_blocks", "num_workers", "prefetch_size",
+                 "n_frames_for_encoder", "batch_size_inference",
+                 "num_visuals_per_img", "profile_steps"):
         parser.add_argument(f"--{name}", type=int, default=None)
+    parser.add_argument("--fixed_val_ids", type=int, action="append",
+                        default=None)
     for name in ("lr_gen", "lr_dis", "beta1"):
         parser.add_argument(f"--{name}", type=float, default=None)
     for name in ("allow_random_vgg", "set_eval_mode_in_train", "skip_eval",
                  "explicit_grad_reduce", "weights_running_average",
                  "use_pixelwise_augs", "use_affine_scale",
-                 "use_affine_shift"):
+                 "use_affine_shift", "draw_oval", "logging",
+                 "detailed_metrics", "set_eval_mode_in_test"):
         parser.add_argument(f"--{name}", action=flag, default=None)
     return parser
 
@@ -146,9 +183,10 @@ def checkpoint_is_finetuned(path) -> bool:
     return bool(json.loads(meta_path.read_text()).get("finetune", False))
 
 
-def resolve_args(argv=None):
-    """The args namespace of a run (see the module docstring), with
-    everything the port does not run refused."""
+def _resolve(argv):
+    """(args, default args): every level, and every level but the flags
+    (the JAX CLI's parse of an empty command line, which names the
+    experiment)."""
     cli = build_parser().parse_args(argv)
     finetuned = bool(cli.checkpoint_path) \
         and checkpoint_is_finetuned(cli.checkpoint_path)
@@ -160,60 +198,60 @@ def resolve_args(argv=None):
                          "it resumes with --finetune")
     saved = ckpt_lib.peek_args(cli.checkpoint_path) \
         if cli.checkpoint_path else {}
-    args = dict(DEFAULTS)
+    base = dict(DEFAULTS)
     if cli.finetune:
-        args.update(saved)
-        args.update(FINETUNE_CONFIG)
+        base.update(saved)
+        base.update(FINETUNE_CONFIG)
     else:
-        args.update(META_CONFIG)
-        args.update(saved)
+        base.update(META_CONFIG)
+        base.update(saved)
+    args = dict(base)
     args.update({k: v for k, v in vars(cli).items() if v is not None})
-    args.update(finetune=bool(cli.finetune),
-                checkpoint_path=cli.checkpoint_path)
-    args = types.SimpleNamespace(**args)
+    if cli.fixed_val_ids:
+        args["fixed_val_ids"] = list(base["fixed_val_ids"]) \
+            + cli.fixed_val_ids
+    for level in (args, base):
+        level.update(finetune=bool(cli.finetune),
+                     checkpoint_path=cli.checkpoint_path)
+    return types.SimpleNamespace(**args), types.SimpleNamespace(**base)
+
+
+def resolve_args(argv=None):
+    """The args namespace of a run (see the module docstring), with
+    everything the port does not run refused."""
+    args, _ = _resolve(argv)
 
     if args.compute_dtype != "float32":
         _refuse(f"--compute_dtype {args.compute_dtype} in training", "A.14")
     if args.transfer_dtype != "float32":
-        _refuse(f"--transfer_dtype {args.transfer_dtype}", "A.14")
+        _refuse(f"--transfer_dtype {args.transfer_dtype} (the loader's uint8 "
+                "wire)", "A.14")
     if args.grad_dtype != "float32" or args.explicit_grad_reduce \
             or (args.num_devices or 1) > 1:
         _refuse("multi-device training (--num_devices > 1, --grad_dtype, "
                 "--explicit_grad_reduce)", "A.17")
-    if args.dataloader != "synthetic":
-        _refuse(f"--dataloader {args.dataloader!r} (the port has "
-                "'synthetic')", "A.13")
+    for kind, names in (("dataloaders", [args.dataloader]),
+                        ("metrics", _names(args.metrics)),
+                        ("criterions", _names(args.criterions))):
+        for name in names:
+            if name not in registry.names(kind):
+                _refuse(f"{kind[:-1]} {name!r} (the port has "
+                        f"{list(registry.names(kind))})", "A.19")
     for kind, name in (("embedders", args.embedder),
                        ("generators", args.generator),
                        ("discriminators", args.discriminator)):
         registry.load_wrapper(kind, name)      # raises for other families
-    names = [n.strip() for n in args.criterions.split(",") if n.strip()]
-    for name in names:
-        if name not in CRITERIA:
-            _refuse(f"criterion {name!r}", "A.19")
     if args.optimizer not in ft.OPTIMIZERS:
         raise ValueError(f"--optimizer {args.optimizer!r}: the JAX package "
                          f"has {sorted(ft.OPTIMIZERS)}")
     if args.batch_size % max(args.grad_accum_steps, 1):
         raise ValueError(f"--grad_accum_steps {args.grad_accum_steps} must "
                          f"divide --batch_size {args.batch_size}")
-    if not args.skip_eval:
-        _refuse("validation (--no-skip_eval)", "A.13")
-    if cli.log_frequency_images is not None \
-            or cli.log_frequency_fixed_images is not None:
-        _refuse("image visuals (--log_frequency_images, "
-                "--log_frequency_fixed_images)", "A.13")
     return args
 
 
-def build_dataloader(args):
-    from latentpose_tpu_torch.data.synthetic import SyntheticDataLoader
-    return SyntheticDataLoader(
-        args.image_size, args.batch_size,
-        num_labels=args.synthetic_num_labels,
-        num_enc_frames=args.num_enc_frames,
-        frames_per_video=args.synthetic_frames_per_video,
-        finetune=args.finetune, seed=args.random_seed)
+def _names(csv_names):
+    return [n.strip() for n in csv_names.split(",") if n.strip()]
 
 
 def build_models(args, generator=None):
@@ -303,19 +341,6 @@ def make_step(args, criteria):
     return holycow.make_train_step(criteria, args)
 
 
-def run_epoch(dataloader, step_fn, state, args, device):
-    """One epoch of steps; logs the loss scalars every
-    ``log_frequency_loss`` steps."""
-    keys = holycow.STEP_KEYS if state.finetune else holycow.META_STEP_KEYS
-    for batch in dataloader:
-        scalars = step_fn(state, holycow.to_device(batch, device, keys))
-        if args.iteration % args.log_frequency_loss == 0:
-            logger.info("iteration %d: %s", args.iteration, " ".join(
-                f"{k}={float(v):.5g}" for k, v in scalars.items()))
-        args.iteration += 1
-    return state
-
-
 def save(args, state):
     meta = {k: (str(v) if isinstance(v, Path) else v)
             for k, v in vars(args).items()}
@@ -325,32 +350,102 @@ def save(args, state):
                                     finetune=state.finetune)
 
 
+class StopFlag:
+    """SIGINT / SIGTERM while training: the first sets the flag, which the
+    loop reads at the next step boundary, where the state is whole (an
+    optimizer update is many in-place ops); the run then saves and ends.  A
+    second signal ends the run at once, without saving."""
+
+    SIGNALS = (signal.SIGINT, signal.SIGTERM)
+
+    def __init__(self):
+        self.event = threading.Event()
+        self._previous = {}
+
+    def is_set(self):
+        return self.event.is_set()
+
+    def _handle(self, signum, _frame):
+        if self.event.is_set():
+            raise SystemExit(128 + signum)
+        logger.info("Signal %d: saving at the next step boundary (again to "
+                    "stop without saving)", signum)
+        self.event.set()
+
+    def __enter__(self):
+        if threading.current_thread() is threading.main_thread():
+            for sig in self.SIGNALS:
+                self._previous[sig] = signal.signal(sig, self._handle)
+        return self
+
+    def __exit__(self, *exc):
+        for sig, handler in self._previous.items():
+            signal.signal(sig, handler)
+
+
 def main(argv=None):
+    """Train as the flags say; returns (state, path of the last checkpoint
+    saved)."""
     logging.basicConfig(level=logging.INFO)
     args = resolve_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")
     np.random.seed(args.random_seed)
-    args.experiment_dir = str(Path(args.experiments_dir)
-                              / args.experiment_name) \
-        if args.experiment_name else str(args.experiments_dir)
-    dataloader = build_dataloader(args)
-    state = load_checkpoint(args, device) if args.checkpoint_path \
-        else init_state(args, dataloader, device)
+    # a checkpoint pins num_labels, which truncates the identity list
+    state = load_checkpoint(args, device) if args.checkpoint_path else None
+    train_loader = build_dataloader(args, "train", "train")
+    val_loader = None if args.skip_eval \
+        else build_dataloader(args, "val", "val")
+    if state is None:
+        state = init_state(args, train_loader, device)
     criteria = build_criteria(args, device)
     if args.finetune and not state.finetune:
-        state = start_finetuning(args, state, dataloader, device)
+        state = start_finetuning(args, state, train_loader, device)
     args.iteration = state.step
+    metrics = [registry.load_wrapper("metrics", name).get_net(args)
+               for name in _names(args.metrics)]
+
+    writer = None
+    if args.logging:
+        args.experiment_dir, writer = setup_logging(
+            args, _resolve(argv)[1], args.args_to_ignore.split(","))
+    else:
+        args.experiment_dir = str(args.experiments_dir)
+    saver = Saver(Path(args.experiment_dir) / "validation_results",
+                  args.saver) if args.saver else None
     step_fn = make_step(args, criteria)
-    path = None
-    for epoch in range(args.num_epochs):
-        state = run_epoch(dataloader, step_fn, state, args, device)
-        will_save = epoch == args.num_epochs - 1
-        if args.save_frequency != 0:
-            will_save |= epoch % args.save_frequency == 0
-        if will_save:
-            path = save(args, state)
+    eval_forward = loop.make_eval_forward(args)
+    keys = holycow.STEP_KEYS if state.finetune else holycow.META_STEP_KEYS
+
+    path, saved_step = None, None
+    try:
+        with StopFlag() as stop:
+            for epoch in range(args.num_epochs):
+                loop.run_epoch(train_loader, step_fn, state, args, epoch,
+                               device, keys, writer=writer,
+                               eval_forward=eval_forward, metrics=metrics,
+                               saver=saver, stop=stop)
+                if stop.is_set():
+                    break
+                if val_loader is not None:
+                    loop.run_validation(val_loader, eval_forward, state,
+                                        args, epoch, writer=writer,
+                                        metrics=metrics, saver=saver)
+                    if stop.is_set():
+                        break
+                will_save = epoch == args.num_epochs - 1
+                if args.save_frequency != 0:
+                    will_save |= epoch % args.save_frequency == 0
+                if will_save:
+                    path, saved_step = save(args, state), state.step
+            if stop.is_set() and saved_step != state.step:
+                logger.info("Interrupted: saving the model at step %d",
+                            state.step)
+                path = save(args, state)
+    finally:
+        if writer is not None:
+            writer.close()
     return state, path
 
 

@@ -7,12 +7,26 @@ Each (identity, frame) renders an elliptical head whose colour and size
 encode identity and whose offset, eyes and mouth encode a pose that varies
 smoothly with the frame index (period 32).  ``synthetic://K`` drives with
 identity K; :class:`SyntheticDataLoader` feeds a meta-train or a fine-tune
-run.
+run (the dataloader ``synthetic``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+class Wrapper:
+    @staticmethod
+    def get_dataloader(args, part, phase="train"):
+        """The loader of a run's ``part``: the val part draws from the next
+        seed, as in the JAX package."""
+        return SyntheticDataLoader(
+            args.image_size, args.batch_size,
+            num_labels=args.synthetic_num_labels,
+            num_enc_frames=args.num_enc_frames,
+            frames_per_video=args.synthetic_frames_per_video,
+            finetune=bool(args.finetune),
+            seed=args.random_seed + (0 if part == "train" else 1))
 
 
 def _identity_style(label: int):

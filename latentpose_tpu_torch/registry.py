@@ -1,8 +1,9 @@
 """Named-module registry (port of ``latentpose_tpu/registry.py``).
 
-Each model family is a module named after its config string, exposing a
-``Wrapper`` with ``get_net(args, generator=None)``.  The port holds the
-flagship's modules; other names are reported as not ported yet.
+Each model family, criterion, metric and dataloader is a module named after
+its config string, exposing a ``Wrapper`` (``get_net(args, generator=None)``,
+or ``get_dataloader(args, part, phase)`` for a dataloader).  The port holds
+the flagship's modules; other names are reported as not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +20,10 @@ _KINDS = {
     "criterions": ("latentpose_tpu_torch.losses",
                    ("adversarial", "featmat", "idt_embed", "perceptual",
                     "dice", "dis_embed")),
+    "metrics": ("latentpose_tpu_torch.metrics",
+                ("psnr", "segmentation_iou")),
+    "dataloaders": ("latentpose_tpu_torch.data",
+                    ("synthetic", "voxceleb2_segmentation_nolandmarks")),
 }
 
 
@@ -29,6 +34,11 @@ def load_wrapper(kind: str, name: str):
                          f"{sorted(_KINDS)}")
     package, names = _KINDS[kind]
     if name not in names:
-        raise ValueError(f"{kind} {name!r} is not ported to PyTorch yet; "
-                         f"the port has {list(names)}")
+        raise ValueError(f"{kind} {name!r} is not ported to PyTorch yet "
+                         f"(ROADMAP.md A.19); the port has {list(names)}")
     return importlib.import_module(f"{package}.{name}").Wrapper
+
+
+def names(kind: str):
+    """The names of ``kind``'s ported plugins."""
+    return _KINDS[kind][1]

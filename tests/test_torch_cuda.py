@@ -222,3 +222,41 @@ def test_conv_bn_function_is_deterministic(device):
             (y.square().sum() + stats.sum()), leaves)))
     for a, b in zip(*out):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["colour_420", "colour_444", "grey"])
+def test_image_loader_decodes_jpeg(device, tmp_path, kind):
+    """The image loader's JPEG decoder where the card is (nvJPEG where
+    libjpeg's headers are absent) against cv2's, on a smooth frame at its
+    own size.  The loader upsamples and converts the decoded planes itself
+    as libjpeg does (``tests/test_torch_data.py`` holds that part bit for
+    bit), so the two differ by their inverse DCTs only, which the JPEG
+    standard bounds: the luma (0.299 R + 0.587 G + 0.114 B) within 3/255,
+    every channel within 6/255, and 1/255 on average.  Frames that do not
+    decode are counted and zeroed."""
+    cv2 = pytest.importorskip("cv2")
+    import numpy as np
+    from scipy.ndimage import uniform_filter
+    from latentpose_tpu_torch.data import native_loader
+    rng = np.random.RandomState(3)
+    img = (uniform_filter(rng.rand(120, 88, 3), size=(9, 9, 1)) * 255
+           ).astype(np.uint8)
+    path = tmp_path / "f.jpg"
+    params = [cv2.IMWRITE_JPEG_QUALITY, 95]
+    if kind == "colour_444":
+        params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                   cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444]
+    cv2.imwrite(str(path), img[..., 0] if kind == "grey" else img, params)
+    want = cv2.imread(str(path), cv2.IMREAD_COLOR)[..., ::-1].astype(float)
+    got = native_loader.decode(path).astype(float)
+    assert got.shape == want.shape == (120, 88, 3)
+    luma = np.abs((got - want) @ [0.299, 0.587, 0.114])
+    diff = np.abs(got - want)
+    print(f"JPEG decoder {native_loader.jpeg_decoder()}, {kind}: luma max "
+          f"{luma.max():.3f}, channels max {diff.max():.0f} mean "
+          f"{diff.mean():.4f} (of 255)")
+    assert luma.max() <= 3 and diff.max() <= 6 and diff.mean() <= 1.0
+    frames, failed = native_loader.NativeBatchLoader(2).load(
+        [path, tmp_path / "missing.jpg", path], 64)
+    assert failed == 1 and frames[0].max() > 0 and not frames[1].any()
+    np.testing.assert_array_equal(frames[0], frames[2])

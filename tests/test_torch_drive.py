@@ -215,13 +215,15 @@ def test_render_face_is_bit_identical(label, frame, size):
     np.testing.assert_array_equal(segm, want_segm)
 
 
-FORBIDDEN = ("jax", "flax", "optax", "yaml", "cv2", "PIL", "latentpose_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "yaml", "cv2", "PIL", "pandas",
+             "latentpose_tpu")
 
 
 def test_card_path_imports_no_jax():
-    """Every module of the port imports with jax, flax, optax, yaml, cv2 and
-    PIL made unimportable (the machine with the card has none of them), and
-    with the JAX package unimportable too: the port stands on its own."""
+    """Every module of the port imports with jax, flax, optax, yaml, cv2,
+    PIL and pandas made unimportable (the card's path needs none of them),
+    and with the JAX package unimportable too: the port stands on its
+    own."""
     code = "\n".join([
         "import sys, pkgutil, importlib",
         *[f"sys.modules[{m!r}] = None" for m in FORBIDDEN],
@@ -234,6 +236,11 @@ def test_card_path_imports_no_jax():
         "import latentpose_tpu_torch.data.augmentation",
         "import latentpose_tpu_torch.losses.dis_embed",
         "import latentpose_tpu_torch.runners.drive",
+        "import latentpose_tpu_torch.data.native_loader",
+        "import latentpose_tpu_torch.data.voxceleb2_segmentation_nolandmarks",
+        "import latentpose_tpu_torch.data.pipeline",
+        "import latentpose_tpu_torch.runners.loop",
+        "import latentpose_tpu_torch.utils.logging_writer",
         "import latentpose_tpu_torch.models.generators."
         "vector_pose_unsupervised_segmentation_noBottleneck",
         "print('imported', len(sys.modules))",

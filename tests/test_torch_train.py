@@ -453,10 +453,10 @@ def test_finetune_defaults_equal_the_config_file():
     (["--finetune", "--grad_dtype", "bfloat16"], "A.17"),
     (["--finetune", "--explicit_grad_reduce"], "A.17"),
     (["--finetune", "--num_devices", "2"], "A.17"),
-    (["--finetune", "--dataloader", "voxceleb2_segmentation_nolandmarks"],
-     "A.13"),
-    (["--finetune", "--no-skip_eval"], "A.13"),
-    (["--finetune", "--log_frequency_images", "10"], "A.13"),
+    (["--finetune", "--dataloader", "voxceleb2_segm"], "A.19"),
+    (["--finetune", "--dataloader", "voxceleb2_X2Face"], "A.19"),
+    (["--finetune", "--criterions", "adversarial, l1_rgb"],
+     "A.19"),
 ])
 def test_cli_refuses_what_is_not_ported(meta, flags, item):
     argv = ["--checkpoint_path", str(meta[1]), "--dataloader", "synthetic"]
