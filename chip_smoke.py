@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths, meta-train, fine-tune and drive, at the
-flagship model's full widths (256², generator 64..512 channels, embed 512,
+Drives the port's main paths, meta-train, fine-tune and drive (exact and
+int8), at the flagship model's full widths (256², generator 64..512 channels, embed 512,
 pose 256, discriminator 7 blocks) with seeded random weights, through the
 entry points a user calls, and checks every hand-written kernel of those
 paths:
@@ -24,17 +24,23 @@ paths:
    version, the product alone (``torch.matmul`` of the normalised
    activation, TF32 off) and the bound (bytes at 3.35 TB/s or FLOPs at 989
    TFLOP/s bf16, 495 TF32);
-5. the link's train form at the four shapes, 64 frames, f32: the
+5. the int8 product of the generator's 22 quantized convs at batch 32
+   (``ops/quant.py``): the card's route (im2col + ``torch._int_mm``)
+   against the plain route (an exact float64 convolution) on the same int8
+   inputs, on the card and on the CPU, and the bf16 epilogue: any
+   difference fails; each conv's int8 time beside cuDNN's bf16 conv of the
+   same shape and both bounds;
+6. the link's train form at the four shapes, 64 frames, f32: the
    ``autograd.Function``'s dx, dscale, doffset and dW (its plain backward
    after the kernel's forward), y and the stats against autograd through
    the plain version, within 2e-4 of each tensor's max |.|; the backward's
    ms per link beside the forward kernel's, by events and by the profiler;
-6. write a flagship-width fine-tuned checkpoint through the port's writer
+7. write a flagship-width fine-tuned checkpoint through the port's writer
    (the JAX package's format) and drive ``synthetic://3`` (32 frames)
    through the drive CLI's functions in bf16 and f32: shapes, finite
    values, AdaIN launches; bf16 frames/s at batch 32 and 128; peak memory;
    the same 4 frames on the card and on the CPU within 1e-3;
-7. write a flagship-width meta-trained checkpoint (16 labels) and meta-train
+8. write a flagship-width meta-trained checkpoint (16 labels) and meta-train
    it through the train CLI's functions: 5 steps at batch 8, K=8, f32, the
    six criteria of ``configs/default.yaml``, its three augmentations on:
    finite losses; both embedder towers, the generator and the discriminator
@@ -42,7 +48,7 @@ paths:
    AdaIN launches per step; median step ms, images/s, peak memory, one
    step's device-busy ms and idle share; then save, resume through the CLI
    and take one more step, the step and Adam count continuing;
-8. one meta step on the card and on the CPU from the same state (its
+9. one meta step on the card and on the CPU from the same state (its
    generator constant redrawn off its flat init) and batch (batch 2, f32,
    train-mode BatchNorm in both towers, the same dropout masks,
    augmentation off: its per-pixel fields are drawn on the device): losses,
@@ -51,20 +57,29 @@ paths:
    (L2); beside it the card's step with the links through the plain version,
    and with a planted 30 % fault in the embeddings' gradient, which the gate
    must reject;
-9. fine-tune the meta-trained checkpoint through the train CLI's functions
+10. fine-tune the meta-trained checkpoint through the train CLI's functions
    on ``synthetic://`` avatar frames, f32, batch 8, the fine-tune config's
    three augmentations on: ê through ResNeXt-50 (16 kernel launches per
    forward), then 10 GAN steps (17 AdaIN launches each): finite losses,
    moved generator and identity embedding, advanced spectral-norm state; ê
    frames/s, step ms, images/s and peak memory;
-10. save the fine-tuned checkpoint and drive it in bf16: finite frames;
-11. ê of one loader batch (64 frames) on the card and on the CPU, f32:
+11. save the fine-tuned checkpoint and drive it in bf16: finite frames;
+    then int8 serving through ``cli.drive.main`` on a directory of 48 PNG
+    frames, bf16, ``--quantize int8`` and ``--quantize int8_static``: the
+    frames it writes (PNG through the port's encoder), 17 AdaIN launches
+    and 22 int8 products per generator forward, each int8 mode >= 40 dB
+    PSNR against the exact frames; each mode's device step at batch 32 and
+    128 in turns, and the calibration pass's time;
+12. ê of one loader batch (64 frames) on the card and on the CPU, f32:
     within 1e-4 of max |ê|;
-12. one fine-tune step on the card and on the CPU from the same state and
-    batch (batch 2, f32, eval-mode pose encoder, augmentation off): losses
-    and the discriminator's gradient within 1e-3 relative, the generator's
-    and the identity embedding's within FT_GRAD_TOL;
-13. real data, through the CLIs' ``main``: write a VoxCeleb2-layout tree
+13. one fine-tune step on the card and on the CPU from the same batch
+    (batch 2, f32, eval-mode pose encoder, augmentation off), from the
+    state right after ê and from the trained one: losses and the
+    discriminator's gradient within 1e-3 relative (the loss that reads
+    highest named), the generator's and the identity embedding's within
+    FT_GRAD_TOL; beside each, the card's step with the generator's frames
+    3 % off, whose losses must read above the gate;
+14. real data, through the CLIs' ``main``: write a VoxCeleb2-layout tree
     with no cv2 (16 videos of 12 rendered 320² PNG frames, masks, bboxes
     for half the videos, train.csv and val.csv); meta-train the seeded
     meta checkpoint on it (``voxceleb2_segmentation_nolandmarks``, batch 8,
@@ -76,10 +91,10 @@ paths:
     conv_bn launches; 3 steps of 17 AdaIN), the generator moved; drive it
     from another video's directory (the C++ loader); the loop's Batch_time
     and Data_time, the step through the real loader beside the staged one
-    of phase 7, and the loader's frames/s on this host.
+    of phase 8, and the loader's frames/s on this host.
 
-jax, flax, optax, yaml, cv2, PIL and pandas are made unimportable first: the
-card's path needs none of them.
+jax, flax, optax, yaml, cv2, PIL, imageio and pandas are made unimportable
+first: the card's path needs none of them.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record (launches on the main paths, error, times, bound, the library call);
@@ -102,7 +117,8 @@ from pathlib import Path
 
 # The card's path needs none of these (the machine with the card may have
 # some of them): make them unimportable, so that the run shows it.
-for _name in ("jax", "flax", "optax", "yaml", "cv2", "PIL", "pandas"):
+for _name in ("jax", "flax", "optax", "yaml", "cv2", "PIL", "imageio",
+              "pandas"):
     sys.modules[_name] = None
 
 import numpy as np  # noqa: E402
@@ -111,6 +127,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from latentpose_tpu_torch import checkpoint as ckpt_lib  # noqa: E402
 from latentpose_tpu_torch import convert, registry  # noqa: E402
@@ -118,9 +135,12 @@ from latentpose_tpu_torch.cli import drive as cli  # noqa: E402
 from latentpose_tpu_torch.cli import train as train_cli  # noqa: E402
 from latentpose_tpu_torch.data import native_loader  # noqa: E402
 from latentpose_tpu_torch.data.synthetic import render_face  # noqa: E402
+from latentpose_tpu_torch.models.generators import (  # noqa: E402
+    vector_pose_unsupervised_segmentation_noBottleneck as gen_mod)
 from latentpose_tpu_torch.nn import backbones  # noqa: E402
 from latentpose_tpu_torch.ops import adain as adain_op  # noqa: E402
 from latentpose_tpu_torch.ops import conv_bn  # noqa: E402
+from latentpose_tpu_torch.ops import quant  # noqa: E402
 from latentpose_tpu_torch.ops.cuda_build import (  # noqa: E402
     BUILD_DIR, build_log, load_library)
 from latentpose_tpu_torch.runners import drive as drive_lib  # noqa: E402
@@ -147,6 +167,7 @@ TOL = {torch.float32: 2e-4, torch.bfloat16: 1.6e-2}   # bf16: ~2 ulps
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 # dense tensor-core peaks by input type: bf16, and TF32 for f32 inputs
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12}
+INT8_OPS = 1979e12                 # dense int8 tensor-core operations/s
 DRIVE_BATCH = 32
 # (rows per frame at 256², Cin, Cout, bottlenecks) of ResNeXt-50's
 # bn2 -> ReLU -> conv3 links
@@ -159,7 +180,8 @@ META = dict(FLAGSHIP, finetune=False, num_labels=16, dis_num_blocks=7,
                        "dis_embed, dice",
             optimizer="Adam", lr_gen=5e-5, lr_dis=2e-4, beta1=0.0,
             perc_weight=3e-2, idt_embed_weight=0.6e-2, batch_size=8,
-            synthetic_num_labels=16)
+            synthetic_num_labels=16, use_pixelwise_augs=True,
+            use_affine_scale=True, use_affine_shift=True)
 FT_BATCH = 8
 FT_EPOCHS = 5          # 2 batches an epoch (16 identities // batch 8)
 META_STEPS = 5
@@ -170,6 +192,9 @@ STEP_TOL = 1e-3        # card vs CPU, one train step, relative
 GRAD_TOL = 1e-1
 FAULT_SCALE = 0.7
 FT_GRAD_TOL = 1e-2     # the same, one fine-tune step (read 1.3e-3-2.2e-3)
+# the fine-tune gate's witness: the generator's frames 3 % off in the
+# forward (1 % moved the losses by 3.8e-3 at most in a CPU rehearsal at 32²)
+FT_FAULT_SCALE = 1.03
 EHAT_TOL = 1e-4        # card vs CPU, ê of one batch, relative to max |ê|
 # the real-data phase's VoxCeleb2-layout tree: identities x videos x frames
 # of SOURCE² PNG frames (cropped to 256² by the loader)
@@ -177,6 +202,10 @@ TREE = dict(identities=4, videos=4, frames=12)
 SOURCE = 320
 REAL_META_EPOCHS = 2   # 16 videos // batch 8 = 2 steps an epoch
 REAL_FT_EPOCHS = 3     # 12 frames at batch 8: 1 step an epoch (drop_last)
+INT8_FRAMES = 48       # the int8 phase's driver directory: a batch and a tail
+INT8_CALIB_FRAMES = 16  # int8_static calibrates on these leading frames
+INT8_MIN_PSNR = 40.0   # the JAX package's int8 gate (tests/test_quantize.py)
+QUANT_MODES = ("", "int8", "int8_static")
 
 
 def require(cond, message):
@@ -587,9 +616,11 @@ def _sample(p):
 
 def phase_finetune(meta_ckpt, workdir, device):
     """The train CLI's fine-tune path on the card; returns (args, state,
-    criteria, dataloader, fine-tuned checkpoint, launches)."""
+    a CPU copy of the state right after ê, dataloader, fine-tuned
+    checkpoint, launches)."""
     args = train_cli.resolve_args([
-        "--finetune", "--checkpoint_path", str(meta_ckpt), "--dataloader",
+        "--finetune", "--config_name", "finetuning-base",
+        "--checkpoint_path", str(meta_ckpt), "--dataloader",
         "synthetic", "--device", str(device), "--allow_random_vgg",
         "--batch_size", str(FT_BATCH), "--num_epochs", str(FT_EPOCHS),
         "--experiments_dir", str(workdir)])
@@ -612,6 +643,7 @@ def phase_finetune(meta_ckpt, workdir, device):
     torch.cuda.synchronize()
     ehat_s = time.perf_counter() - t0
     e_hat = state.finetune_embedding.detach().clone()
+    seeded = _copy_state(state, args, torch.device("cpu"))
     forwards = len(loader)
     require(conv_bn.bn_relu_conv1x1_stats.launches == 16 * forwards,
             f"conv_bn launched {conv_bn.bn_relu_conv1x1_stats.launches} times "
@@ -690,7 +722,7 @@ def phase_finetune(meta_ckpt, workdir, device):
           flush=True)
     path = train_cli.save(args, state)
     print(f"fine-tuned checkpoint: {path.name}", flush=True)
-    return args, state, criteria, loader, path, launches
+    return args, state, seeded, loader, path, launches
 
 
 @torch.no_grad()
@@ -784,12 +816,12 @@ def _run_step(args, state, host, keys, device, patch=contextlib.nullcontext):
 
 
 def _gaps(ref, other):
-    """(the losses' largest relative gap, {group: L2 gap relative to the
-    reference's L2}) between two runs of :func:`_run_step`: the gradients,
-    and the BatchNorm statistics' update."""
+    """({loss: relative gap}, {group: L2 gap relative to the reference's
+    L2}) between two runs of :func:`_run_step`: the gradients, and the
+    BatchNorm statistics' update."""
     (losses, before, after, _), (o_losses, _, o_after, _) = ref, other
-    loss = max(abs(o_losses[k] - losses[k]) / max(abs(losses[k]), 1e-6)
-               for k in losses)
+    loss = {k: abs(o_losses[k] - losses[k]) / max(abs(losses[k]), 1e-6)
+            for k in losses}
     rel = {}
     for group, leaves in after.items():
         if group[1] == "params":
@@ -804,8 +836,15 @@ def _gaps(ref, other):
     return loss, rel
 
 
+def _worst_loss(loss):
+    """(name, gap) of the loss that reads highest."""
+    name = max(loss, key=loss.get)
+    return name, loss[name]
+
+
 def _print_gaps(what, loss, rel):
-    print(f"{what}: losses max_rel_diff={loss:.3g}; L2 relative: "
+    name, gap = _worst_loss(loss)
+    print(f"{what}: losses max_rel_diff={gap:.3g} ({name}); L2 relative: "
           + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()), flush=True)
 
 
@@ -815,23 +854,10 @@ def _require_step(what, loss, rel, grad_tol):
     tol = {k: grad_tol if k.endswith("gradient")
            and not k.startswith("discriminator") else STEP_TOL for k in rel}
     worst = max(rel, key=lambda k: rel[k] / tol[k])
-    require(loss <= STEP_TOL and rel[worst] <= tol[worst],
-            f"card and CPU {what}s differ: losses {loss}, {worst} "
+    name, gap = _worst_loss(loss)
+    require(gap <= STEP_TOL and rel[worst] <= tol[worst],
+            f"card and CPU {what}s differ: losses {gap} ({name}), {worst} "
             f"{rel[worst]}")
-
-
-def step_card_vs_cpu(args, state, host, keys, device, what):
-    """One train step from copies of ``state`` on the card and on the CPU
-    with the same host batch, f32, TF32 off (the losses relative to each;
-    each module's gradient, Adam's first moment with beta1 = 0, and the
-    BatchNorm statistics' update in L2 relative to the CPU's)."""
-    cpu = _run_step(args, state, host, keys, torch.device("cpu"))
-    card = _run_step(args, state, host, keys, device)
-    loss, rel = _gaps(cpu, card)
-    _print_gaps(f"{what} card vs cpu, batch {host[1]['label'].shape[0]} "
-                f"{args.image_size}² f32 (TF32 off; card {card[3]:.2f} s, "
-                f"cpu {cpu[3]:.2f} s)", loss, rel)
-    _require_step(what, loss, rel, FT_GRAD_TOL)
 
 
 def _batch_of(loader, size):
@@ -840,15 +866,58 @@ def _batch_of(loader, size):
             {k: v[:size] for k, v in target.items()})
 
 
-def phase_step_card_vs_cpu(args, state, loader, device):
+@contextlib.contextmanager
+def _planted_frame_fault(cls):
+    """The generator (class ``cls``) returns its frames FT_FAULT_SCALE off:
+    a fault in the forward, which every loss reads."""
+    forward = cls.forward
+
+    def faulty(self, *a, **k):
+        rgbs, segm = forward(self, *a, **k)
+        return rgbs * FT_FAULT_SCALE, segm
+
+    cls.forward = faulty
+    try:
+        yield
+    finally:
+        cls.forward = forward
+
+
+def phase_step_card_vs_cpu(args, states, loader, device):
     """One fine-tune step from the same state and batch on the card and on
-    the CPU (batch 2, eval-mode pose encoder, augmentation off)."""
+    the CPU (batch 2, f32, TF32 off, eval-mode pose encoder, augmentation
+    off): losses and the discriminator's gradient within STEP_TOL relative,
+    the generator's and the identity embedding's (Adam's first moment with
+    beta1 = 0 is the step's gradient) within FT_GRAD_TOL.  From each of
+    ``states`` ({"seeded": the state right after ê, "trained": after the
+    fine-tune steps}), so that whether the gap follows the trained state
+    is on record; beside each, the card's step with a planted fault (the
+    generator's frames FT_FAULT_SCALE off), whose losses must read above
+    the gate.  The loss that reads highest is named.  Every reading is
+    printed before any is held to its gate."""
     args = copy.copy(args)
     args.set_eval_mode_in_train = True
     args.use_pixelwise_augs = args.use_affine_scale = \
         args.use_affine_shift = False
-    step_card_vs_cpu(args, state, _batch_of(loader, 2), holycow.STEP_KEYS,
-                     device, "finetune step")
+    host, keys = _batch_of(loader, 2), holycow.STEP_KEYS
+    generator = type(states["trained"].models["generator"])
+    gaps = {}
+    for label, state in states.items():
+        cpu = _run_step(args, state, host, keys, torch.device("cpu"))
+        for way, patch in (("card", contextlib.nullcontext),
+                           ("card, planted fault",
+                            lambda: _planted_frame_fault(generator))):
+            run = _run_step(args, state, host, keys, device, patch)
+            gaps[label, way] = _gaps(cpu, run)
+            _print_gaps(f"finetune step, {label} state, {way} vs cpu, batch "
+                        f"2 {args.image_size}² f32 (TF32 off; {run[3]:.2f} "
+                        f"s, cpu {cpu[3]:.2f} s)", *gaps[label, way])
+    for label in states:
+        _require_step(f"finetune step ({label} state)", *gaps[label, "card"],
+                      FT_GRAD_TOL)
+        name, gap = _worst_loss(gaps[label, "card, planted fault"][0])
+        require(gap > STEP_TOL, f"the planted fault passes the fine-tune "
+                f"loss gate ({label} state): {name} {gap} <= {STEP_TOL}")
 
 
 @contextlib.contextmanager
@@ -1266,7 +1335,8 @@ def phase_real_data(meta_ckpt, workdir, device, staged_ms):
     try:
         with _counted_steps(steps), _epoch_meters(meters):
             state, ft_path = train_cli.main([
-                "--finetune", "--checkpoint_path", str(path), *data,
+                "--finetune", "--config_name", "finetuning-base",
+                "--checkpoint_path", str(path), *data,
                 "--train_split_path", rows[4], "--skip_eval",
                 "--batch_size", "8", "--num_epochs", str(REAL_FT_EPOCHS),
                 "--log_frequency_fixed_images", "1",
@@ -1320,6 +1390,197 @@ def phase_real_data(meta_ckpt, workdir, device, staged_ms):
           f"({SOURCE}² PNG -> padded crop -> {size}², 72 frames = one meta "
           f"batch's loads, {72 / fps * 1e3:.1f} ms)", flush=True)
     return total
+
+
+def int8_conv_bound_ms(b, cin, cout, k, side, peak):
+    """A quantized conv as a function of its bf16 input: x and the kernel
+    read once, the bf16 output written once, 2 x MACs operations at
+    ``peak``; returns (ms, "bytes" or "operations")."""
+    nbytes = 2 * (b * cin * side * side + cout * cin * k * k
+                  + b * cout * side * side)
+    return bound_ms(nbytes, 2.0 * b * side * side * cin * k * k * cout, peak)
+
+
+def phase_int8_convs(device):
+    """The int8 product of every quantized conv of the flagship at batch
+    DRIVE_BATCH (``gen_mod.quantized_conv_shapes``, 22): the card's route
+    (im2col + ``torch._int_mm``) against the plain route (the exact float64
+    convolution) on the same int8 inputs, on the card over the whole batch
+    and on the CPU over its first and last sample; the bf16 epilogue of the
+    card's accumulators against the CPU's of the plain ones.  Any
+    difference fails.  Then per conv: the int8 route's time (quantize +
+    im2col + GEMM + epilogue), the product's alone, cuDNN's bf16
+    ``F.conv2d`` of the same shape, and both bounds.  Returns the rows."""
+    b, rows = DRIVE_BATCH, []
+    worst = {"card": 0, "cpu": 0, "bf16": 0.0}
+    for i, (name, cin, cout, k, side) in enumerate(
+            gen_mod.quantized_conv_shapes()):
+        g = torch.Generator(device=device).manual_seed(100 + i)
+        x = torch.relu(torch.randn(b, cin, side, side, generator=g,
+                                   device=device)).to(torch.bfloat16) \
+            .contiguous(memory_format=torch.channels_last)
+        w = (torch.randn(cout, cin, k, k, generator=g, device=device)
+             * (cin * k * k) ** -0.5).to(torch.bfloat16)
+        pad = k // 2
+        xq, s_x = quant.quantize_dynamic(x)
+        kq, s_k = quant.quantize_kernel_per_channel(w)
+        acc = quant.int8_conv(xq, kq, pad)
+        plain = quant.int8_conv_reference(xq, kq, pad)
+        ends = [0, b - 1]
+        cpu = quant.int8_conv_reference(xq[ends].cpu(), kq.cpu(), pad)
+        out = quant.epilogue(acc[ends], s_x, s_k, torch.bfloat16).cpu()
+        out_cpu = quant.epilogue(cpu, s_x.cpu(), s_k.cpu(), torch.bfloat16)
+        diff = {"card": int((acc - plain).abs().max()),
+                "cpu": int((acc[ends].cpu() - cpu).abs().max()),
+                "bf16": float((out.float() - out_cpu.float()).abs().max())}
+        worst = {key: max(worst[key], diff[key]) for key in worst}
+        del plain, cpu
+        iters = 20 if side <= 32 else 5
+        int8_ms = cuda_ms(lambda: quant.conv2d_int8(x, w, pad), iters)
+        gemm_ms = cuda_ms(lambda: quant.int8_conv(xq, kq, pad), iters)
+        bf16_ms = cuda_ms(lambda: F.conv2d(x, w, padding=pad), iters)
+        bound8 = int8_conv_bound_ms(b, cin, cout, k, side, INT8_OPS)
+        bound16 = int8_conv_bound_ms(b, cin, cout, k, side,
+                                     PEAK_FLOPS[torch.bfloat16])
+        rows.append((name, cin, cout, k, side, int8_ms, gemm_ms, bf16_ms,
+                     bound8, bound16))
+        print(f"int8 conv {name} (B={b}, {cin}->{cout}, {k}x{k}, {side}²): "
+              f"card vs plain route max |d acc| {diff['card']} (card), "
+              f"{diff['cpu']} (CPU, samples 0 and {b - 1}), bf16 out "
+              f"{diff['bf16']:.3g}; int8_route_ms={int8_ms:.4f} "
+              f"(product alone {gemm_ms:.4f}) cudnn_bf16_ms={bf16_ms:.4f}; "
+              f"bound int8 {bound8[0]:.4f} ({bound8[1]}), bf16 "
+              f"{bound16[0]:.4f} ({bound16[1]})", flush=True)
+        del x, w, xq, kq, acc
+    torch.cuda.empty_cache()
+    total = [sum(r[j] for r in rows) for j in (5, 6, 7)]
+    print(f"int8 convs, all {len(rows)} at batch {b}: largest differences "
+          f"{worst}; int8 route {total[0]:.3f} ms (products alone "
+          f"{total[1]:.3f}) against cuDNN bf16 {total[2]:.3f} ms; bounds "
+          f"int8 {sum(r[8][0] for r in rows):.3f}, bf16 "
+          f"{sum(r[9][0] for r in rows):.3f} ms", flush=True)
+    require(len(rows) == 22, f"{len(rows)} quantized convs, expected 22")
+    require(worst == {"card": 0, "cpu": 0, "bf16": 0.0},
+            f"the card's int8 route differs from the plain route: {worst}")
+    return rows
+
+
+def _psnr(a, b):
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return 10 * np.log10(1.0 / mse) if mse else float("inf")
+
+
+def phase_int8_drive(ckpt, workdir, frames, device):
+    """int8 serving through ``cli.drive.main`` (cv2, PIL and imageio are
+    unimportable): the fine-tuned checkpoint (seeded random weights, the
+    JAX package's "proxy" mode of ``tools/check_int8_quality.py``) drives a
+    directory of INT8_FRAMES PNG frames in bf16, ``--quantize int8`` and
+    ``--quantize int8_static`` (calibrated on the leading frames), each
+    counting its AdaIN launches and int8 products from just before to just
+    after; each int8 mode's frames against the exact ones, gated at
+    INT8_MIN_PSNR.  Then each mode's device step at batch 32 and 128 (in
+    turns), and the calibration pass's time.  Returns the AdaIN launches."""
+    size = FLAGSHIP["image_size"]
+    source = Path(workdir) / "int8_driver"
+    source.mkdir(parents=True)
+    for f in range(INT8_FRAMES):
+        img, _ = render_face(5, f, size)
+        write_png(source / f"{f:05d}.png", (img * 255).astype(np.uint8))
+    batch = DRIVE_BATCH
+    batches = -(-INT8_FRAMES // batch)
+    plan = gen_mod.quantized_conv_shapes(
+        FLAGSHIP["num_channels"], FLAGSHIP["max_num_channels"],
+        FLAGSHIP["gen_constant_input_size"],
+        FLAGSHIP["gen_num_residual_blocks"], size)
+    adain_features = gen_mod.schedule(
+        FLAGSHIP["num_channels"], FLAGSHIP["max_num_channels"],
+        FLAGSHIP["gen_constant_input_size"],
+        FLAGSHIP["gen_num_residual_blocks"], size)[1]
+    # 17 and 22 at 256²
+    per_forward = {"adain": len(adain_features), "int8": len(plan)}
+    outs, adains = {}, 0
+    for mode in QUANT_MODES:
+        flags = ["--quantize", mode] if mode else []
+        if mode == "int8_static":
+            flags += ["--calibration_frames", str(INT8_CALIB_FRAMES)]
+        torch.cuda.synchronize()
+        adain_op.adain.launches = quant.int8_conv.launches = 0
+        t0 = time.perf_counter()
+        written = cli.main([str(ckpt), "--images_paths", str(source),
+                            "--destination",
+                            str(Path(workdir) / f"int8_out_{mode or 'bf16'}"),
+                            "--device", str(device), "--drive_batch_size",
+                            str(batch), *flags])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = {"adain": adain_op.adain.launches,
+               "int8": quant.int8_conv.launches}
+        adains += got["adain"]
+        # int8_static also runs the calibration pass on its leading frames
+        forwards = batches + (-(-INT8_CALIB_FRAMES // batch)
+                              if mode == "int8_static" else 0)
+        want = {"adain": per_forward["adain"] * forwards,
+                "int8": per_forward["int8"] * forwards if mode else 0}
+        files = sorted(Path(f"{written[0]}.frames").glob("*.png"))
+        require(len(files) == INT8_FRAMES, f"--quantize {mode!r} wrote "
+                f"{len(files)} frames")
+        outs[mode] = np.stack([native_loader.decode(f)[:, size:]
+                               for f in files])
+        print(f"drive CLI {mode or 'bf16'} on {INT8_FRAMES} PNG frames (cv2, "
+              f"PIL, imageio unimportable): {seconds:.2f} s, launches {got} "
+              f"(expected {want}: {forwards} generator forwards)",
+              flush=True)
+        require(got == want, f"--quantize {mode!r} launched {got}, "
+                f"expected {want}")
+    # static scales from the leading frames, dynamic ones per batch
+    print(f"int8_static against int8: PSNR "
+          f"{_psnr(outs['int8_static'] / 255.0, outs['int8'] / 255.0):.2f} dB, "
+          f"{int((outs['int8_static'] != outs['int8']).sum())} of "
+          f"{outs['int8'].size} output bytes differ", flush=True)
+    for mode in QUANT_MODES[1:]:
+        psnr = _psnr(outs[mode] / 255.0, outs[""] / 255.0)
+        print(f"int8 quality ({mode}, seeded random weights: the JAX "
+              f"package's proxy mode): PSNR {psnr:.2f} dB against the exact "
+              f"bf16 frames (gate >= {INT8_MIN_PSNR})", flush=True)
+        require(np.isfinite(outs[mode]).all() and psnr >= INT8_MIN_PSNR,
+                f"--quantize {mode}: PSNR {psnr:.2f} dB")
+
+    # device steps, frames on the card (uint8), modes in turns
+    seq = np.concatenate([frames] * (128 // len(frames)))
+    steps, calib_ms = {}, None
+    drive = {}
+    for mode in QUANT_MODES:
+        flags = ["--quantize", mode] if mode else []
+        args = cli.resolve_args([str(ckpt), "--device", str(device),
+                                 *flags])
+        models, state = cli.load_finetuned(args, device)
+        calib = None
+        if mode == "int8_static":
+            calib_frames = seq[:args.calibration_frames]
+            drive_lib.calibrate_quant_scales(models, args, state,
+                                             calib_frames, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calib = drive_lib.calibrate_quant_scales(models, args, state,
+                                                     calib_frames, batch)
+            torch.cuda.synchronize()
+            calib_ms = (time.perf_counter() - t0) * 1e3
+        drive[mode] = (drive_lib.make_drive_fn(models, args, calib), state)
+    for b in (32, 128):
+        wire = torch.from_numpy((seq[:b] * 255).astype(np.uint8)).to(device)
+        for mode in QUANT_MODES + QUANT_MODES[::-1]:
+            fn, state = drive[mode]
+            steps.setdefault((b, mode), []).append(
+                cuda_ms(lambda: fn(state, wire), 10))
+    for (b, mode), ms in steps.items():
+        print(f"drive device step {mode or 'bf16'} batch {b}: step_ms="
+              f"{ms[0]:.3f} / {ms[1]:.3f} (two turns) device_step_fps="
+              f"{b / min(ms) * 1e3:.1f}", flush=True)
+    print(f"int8_static calibration pass: {args.calibration_frames} frames "
+          f"at batch {batch} in {calib_ms:.2f} ms", flush=True)
+    del drive
+    torch.cuda.empty_cache()
+    return adains
 
 
 def phase_checkpoint(workdir):
@@ -1458,6 +1719,7 @@ def main():
      adain_device_ms) = phase_kernels(device)
     (conv_err, conv_ms, conv_plain_ms, conv_bound, conv_bound_by,
      conv_library_ms, conv_device_ms) = phase_conv_bn(device)
+    phase_int8_convs(device)
     conv_bwd_ms, conv_bwd_device_ms = phase_conv_bn_train(device)
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -1482,13 +1744,19 @@ def main():
         torch.cuda.empty_cache()
         real_launches = phase_real_data(meta_ckpt, Path(workdir) / "real",
                                         device, staged_ms)
-        ft_args, ft_state, _, loader, ft_ckpt, ft_launches = phase_finetune(
+        (ft_args, ft_state, ft_seeded, loader, ft_ckpt,
+         ft_launches) = phase_finetune(
             trained_ckpt, Path(workdir) / "finetune", device)
         drive_once(ft_ckpt, [], frames)
+        int8_adains = phase_int8_drive(ft_ckpt, Path(workdir) / "int8",
+                                       frames, device)
         phase_ehat_card_vs_cpu(ft_state, loader, device)
-        phase_step_card_vs_cpu(ft_args, ft_state, loader, device)
+        phase_step_card_vs_cpu(ft_args, {"seeded": ft_seeded,
+                                          "trained": ft_state}, loader,
+                               device)
     launches = {k: meta_launches[k] + ft_launches[k] + real_launches[k]
                 for k in ft_launches}
+    launches["adain_fused"] += int8_adains
 
     print(f"smoke total: {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": [{

@@ -10,6 +10,12 @@ Driver sources: a directory of images, a video file, or ``synthetic://K``
 (procedural driver identity K).  The model args come from the checkpoint's
 ``meta.json``; flags given here override them.  Compute runs in bf16 unless
 ``--compute_dtype`` is given.
+
+``--quantize int8`` runs the generator's block convs in int8 with a dynamic
+activation scale; ``--quantize int8_static`` with scales calibrated on the
+first driver sequence's leading ``--calibration_frames`` frames, then used
+for every sequence (``ops/quant.py``).  Both are approximate (the JAX
+package gates them at 40 dB PSNR against the exact path).
 """
 
 from __future__ import annotations
@@ -109,12 +115,14 @@ def build_parser():
     parser.add_argument("--num_devices", type=int, default=None)
     parser.add_argument("--device", default="cuda",
                         help="torch device to drive on")
+    parser.add_argument("--quantize", default="",
+                        choices=["", "int8", "int8_static"])
+    parser.add_argument("--calibration_frames", type=int, default=64,
+                        help="int8_static: how many leading driver frames "
+                             "feed the calibration pass")
     # accepted for the JAX CLI's surface; refused below until ported
     parser.add_argument("--crop", action=argparse.BooleanOptionalAction,
                         default=False)
-    parser.add_argument("--quantize", default="",
-                        choices=["", "int8", "int8_static"])
-    parser.add_argument("--calibration_frames", type=int, default=64)
     return parser
 
 
@@ -140,10 +148,6 @@ def resolve_args(argv=None):
             "--crop is not ported to PyTorch yet (it needs the face "
             "detector: ROADMAP.md queue A, eval / preprocess nets); pre-crop "
             "the footage or drive it with the JAX package's drive.py")
-    if args.quantize:
-        raise NotImplementedError(
-            f"--quantize {args.quantize} is not ported to PyTorch yet "
-            "(ROADMAP.md queue A, int8 serving)")
     if (getattr(args, "num_devices", 0) or 1) > 1:
         raise NotImplementedError(
             f"--num_devices {args.num_devices}: multi-device drive is not "
@@ -156,7 +160,10 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = resolve_args(argv)
     models, state = load_finetuned(args, torch.device(args.device))
-    drive_fn = drive_lib.make_drive_fn(models, args)
+    # int8_static: the drive fn is built after calibrating on the first
+    # sequence's leading frames
+    drive_fn = None if args.quantize == "int8_static" else \
+        drive_lib.make_drive_fn(models, args)
 
     os.makedirs(args.destination, exist_ok=True)
     results = []
@@ -170,6 +177,18 @@ def main(argv=None):
             if candidate.exists():
                 resolved = candidate
         frames = load_driver_frames(resolved, args.image_size)
+        if drive_fn is None:
+            calib_frames = frames[:max(args.calibration_frames, 1)]
+            if calib_frames.dtype == np.uint8:
+                calib_frames = calib_frames.astype(np.float32) / 255.0
+            calib = drive_lib.calibrate_quant_scales(
+                models, args, state, calib_frames,
+                batch_size=args.drive_batch_size)
+            logger.info("int8_static: calibrated activation scales on %d "
+                        "frames (%d quantized convs)", len(calib_frames),
+                        len(calib))
+            drive_fn = drive_lib.make_drive_fn(models, args,
+                                               quant_calib=calib)
         outputs = drive_lib.drive_sequence(
             drive_fn, state, frames, batch_size=args.drive_batch_size)
 

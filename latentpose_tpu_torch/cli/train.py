@@ -32,14 +32,19 @@ optimizer state included, which both packages read.  SIGINT or SIGTERM
 saves at the next step boundary and ends the run (exit 0); a second one
 ends it without saving.
 
-Arguments resolve lowest to highest: the JAX core defaults
-(:data:`DEFAULTS`); for meta-training ``configs/default.yaml``
-(:data:`META_CONFIG`) and then the checkpoint's saved args, so that a resumed
-run keeps its widths; for fine-tuning the checkpoint's args and then
-``configs/finetuning-base.yaml`` (:data:`FINETUNE_CONFIG`); then the flags
-given here (``--fixed_val_ids`` appends, as argparse's append does).  yaml
-is not imported, hence the dicts.  What the port does not run yet is
-refused with the ROADMAP.md item that will bring it.
+Arguments resolve as the JAX package's ``config/resolution.py`` resolves
+them, lowest to highest: the JAX core defaults (:data:`DEFAULTS`), the
+checkpoint's saved args, the config that ``--config_name`` names (read only
+when it is given), then the flags given here (``--fixed_val_ids`` appends, as
+argparse's append does).  An experiment without ``--experiment_name`` is
+named after the config.  The port carries two configs as dicts, since yaml
+is not imported: ``default`` (``configs/default.yaml``, :data:`META_CONFIG`,
+the flagship's meta-training) and ``finetuning-base``
+(``configs/finetuning-base.yaml``, :data:`FINETUNE_CONFIG`); another name is
+refused (ROADMAP.md A.21).  So a fresh meta-training run passes
+``--config_name default`` and a fine-tune ``--config_name finetuning-base``,
+as with the JAX CLI.  What the port does not run yet is refused with the
+ROADMAP.md item that will bring it.
 """
 
 from __future__ import annotations
@@ -88,6 +93,7 @@ DEFAULTS = dict(
     explicit_grad_reduce=False, use_pixelwise_augs=False,
     use_affine_scale=False, use_affine_shift=False, log_frequency_loss=1,
     iteration=0, dataloader="", criterions="", metrics="", data_root="",
+    generator="", embedder="", discriminator="", runner="",
     img_dir="images-cropped", kp_dir="keypoints-cropped",
     segm_dir="segmentation-cropped", bboxes_dir="/non/existent/file",
     train_split_path="data/splits/train.csv",
@@ -98,7 +104,7 @@ DEFAULTS = dict(
     batch_size_inference=5, num_visuals_per_img=2, set_eval_mode_in_test=True,
     args_to_ignore="checkpoint,splits_dir,experiments_dir,extension,"
                    "experiment_name,rank,local_rank,world_size",
-    profile_dir="", profile_steps=5)
+    profile_dir="", profile_steps=5, config_name="")
 
 # configs/default.yaml, the flagship meta-training config.
 META_CONFIG = dict(
@@ -128,6 +134,9 @@ FINETUNE_CONFIG = dict(
     log_frequency_fixed_images=15, fixed_val_ids=[0], num_epochs=140,
     save_frequency=0)
 
+# --config_name: the configs the port carries
+CONFIGS = {"default": META_CONFIG, "finetuning-base": FINETUNE_CONFIG}
+
 # the criteria that run a VGG tower and take the device to build it on
 _VGG_CRITERIA = ("idt_embed", "perceptual")
 
@@ -135,6 +144,7 @@ _VGG_CRITERIA = ("idt_embed", "perceptual")
 def build_parser():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     flag = argparse.BooleanOptionalAction
+    parser.add_argument("--config_name", "--config", default=None)
     parser.add_argument("--checkpoint_path", default=None)
     parser.add_argument("--finetune", action=flag, default=None)
     parser.add_argument("--device", default="cuda",
@@ -188,31 +198,33 @@ def _resolve(argv):
     (the JAX CLI's parse of an empty command line, which names the
     experiment)."""
     cli = build_parser().parse_args(argv)
-    finetuned = bool(cli.checkpoint_path) \
-        and checkpoint_is_finetuned(cli.checkpoint_path)
-    if cli.finetune and not cli.checkpoint_path:
-        raise ValueError("--finetune needs --checkpoint_path, a meta-trained "
-                         "or fine-tuned checkpoint")
-    if finetuned and not cli.finetune:
-        raise ValueError(f"{cli.checkpoint_path} is a fine-tuned checkpoint: "
-                         "it resumes with --finetune")
-    saved = ckpt_lib.peek_args(cli.checkpoint_path) \
-        if cli.checkpoint_path else {}
+    config = {}
+    if cli.config_name:
+        if cli.config_name not in CONFIGS:
+            _refuse(f"--config_name {cli.config_name} (the port carries "
+                    f"{sorted(CONFIGS)})", "A.21")
+        config = CONFIGS[cli.config_name]
     base = dict(DEFAULTS)
-    if cli.finetune:
-        base.update(saved)
-        base.update(FINETUNE_CONFIG)
-    else:
-        base.update(META_CONFIG)
-        base.update(saved)
+    if cli.checkpoint_path:
+        base.update(ckpt_lib.peek_args(cli.checkpoint_path))
+    base.update(config)
     args = dict(base)
     args.update({k: v for k, v in vars(cli).items() if v is not None})
     if cli.fixed_val_ids:
         args["fixed_val_ids"] = list(base["fixed_val_ids"]) \
             + cli.fixed_val_ids
     for level in (args, base):
-        level.update(finetune=bool(cli.finetune),
-                     checkpoint_path=cli.checkpoint_path)
+        level.update(finetune=bool(level["finetune"]),
+                     checkpoint_path=cli.checkpoint_path or "")
+    if not args["experiment_name"]:
+        args["experiment_name"] = args["config_name"]
+    if args["finetune"] and not cli.checkpoint_path:
+        raise ValueError("--finetune needs --checkpoint_path, a meta-trained "
+                         "or fine-tuned checkpoint")
+    if cli.checkpoint_path and checkpoint_is_finetuned(cli.checkpoint_path) \
+            and not args["finetune"]:
+        raise ValueError(f"{cli.checkpoint_path} is a fine-tuned checkpoint: "
+                         "it resumes with --finetune")
     return types.SimpleNamespace(**args), types.SimpleNamespace(**base)
 
 
@@ -220,6 +232,11 @@ def resolve_args(argv=None):
     """The args namespace of a run (see the module docstring), with
     everything the port does not run refused."""
     args, _ = _resolve(argv)
+    for flag in ("generator", "embedder", "discriminator", "dataloader"):
+        if not getattr(args, flag):
+            raise ValueError(f"no --{flag}: name it, resume a checkpoint "
+                             "that carries it, or take a config "
+                             f"(--config_name, one of {sorted(CONFIGS)})")
 
     if args.compute_dtype != "float32":
         _refuse(f"--compute_dtype {args.compute_dtype} in training", "A.14")

@@ -79,8 +79,11 @@ def _rules(model):
         if "constant" in dict(mod.named_parameters(recurse=False)):
             rules.append((t + "constant", "params", j + "constant", _CONSTANT))
     covered = {r[0] for r in rules}
+    # an int8_static conv's calibrated maxima are no checkpoint leaf (see
+    # quant_calib_from_jax)
     missing = [k for k in model.state_dict()
-               if k not in covered and not k.endswith("num_batches_tracked")]
+               if k not in covered and not k.endswith("num_batches_tracked")
+               and k.rsplit(".", 1)[-1] != "act_absmax"]
     if missing:
         raise TypeError(f"no conversion rule for {missing}")
     return rules
@@ -300,3 +303,41 @@ def load_drive_weights(flat, embedder, generator):
         raise ValueError(f"checkpoint keys the drive slice neither reads nor "
                          f"skips ({len(unknown)}): {unknown[:8]}")
     return np.asarray(flat[key], np.float32)
+
+
+def quant_calib_from_jax(collection) -> dict:
+    """The JAX package's ``quant_calib`` collection of the generator (what
+    its ``calibrate_quant_scales`` returns: nested dicts ``block{i}`` ->
+    ``conv0`` | ``conv1`` | ``skip`` -> ``act_absmax``, optionally under a
+    ``generator`` key) -> the port's ``{conv name: (C,) tensor}``, as
+    ``runners/drive.py`` ``load_quant_calib`` takes it."""
+    if set(collection) == {"generator"}:
+        collection = collection["generator"]
+    out = {}
+
+    def walk(node, path):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                walk(value, path + [key])
+            elif key == "act_absmax":
+                out[".".join(path)] = torch.tensor(
+                    np.asarray(value, np.float32))
+            else:
+                raise KeyError(f"quant_calib leaf {SEP.join(path + [key])} "
+                               "is not an act_absmax")
+
+    walk(collection, [])
+    return out
+
+
+def quant_calib_to_jax(calib) -> dict:
+    """The inverse of :func:`quant_calib_from_jax`: the generator's
+    ``quant_calib`` collection as nested dicts of numpy arrays."""
+    out = {}
+    for name, value in calib.items():
+        node = out
+        for part in name.split("."):
+            node = node.setdefault(part, {})
+        node["act_absmax"] = torch.as_tensor(value).detach().cpu().numpy() \
+            .astype(np.float32)
+    return out

@@ -8,6 +8,10 @@ resolution -> log2(image_size / constant) upsampling AdaIN blocks -> head
 AdaIN -> ReLU -> SNConv3x3 -> tanh -> rgb·segm.  All 17 AdaIN + ReLU
 applications of the flagship run through the fused kernel (``ops/adain.py``).
 Activations follow the pose embedding's dtype (bf16 serving).
+
+``args.quantize`` ('int8' | 'int8_static', drive's ``--quantize``) makes
+every block's convs int8 (``ops/quant.py``): 22 of them in the flagship, 8
+blocks x 2 and 6 skips.  The head conv stays float, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ class Wrapper:
             constant_input_size=args.gen_constant_input_size,
             num_residual_blocks=args.gen_num_residual_blocks,
             output_image_size=args.image_size,
-            generator=generator)
+            generator=generator,
+            quantize=getattr(args, "quantize", "") or "")
 
 
 def schedule(num_channels=64, max_num_channels=512, constant_input_size=4,
@@ -65,11 +70,34 @@ def schedule(num_channels=64, max_num_channels=512, constant_input_size=4,
     return blocks, adain_features, ch
 
 
+def quantized_conv_shapes(num_channels=64, max_num_channels=512,
+                          constant_input_size=4, num_residual_blocks=2,
+                          output_image_size=256):
+    """The int8 products of one ``--quantize`` forward, in order: (conv
+    name, input channels, output channels of the product, kernel size,
+    input side).  An upsampling block's conv0 is the polyphase product at
+    the low resolution (4x the output channels); its skip runs there too."""
+    blocks, _, _ = schedule(num_channels, max_num_channels,
+                            constant_input_size, num_residual_blocks,
+                            output_image_size)
+    shapes, side = [], constant_input_size
+    for i, (in_ch, out_ch, up) in enumerate(blocks):
+        shapes.append((f"block{i}.conv0", in_ch, 4 * out_ch if up else out_ch,
+                       3, side))
+        shapes.append((f"block{i}.conv1", out_ch, out_ch, 3,
+                       2 * side if up else side))
+        if in_ch != out_ch or up:
+            shapes.append((f"block{i}.skip", in_ch, out_ch, 1, side))
+        side = 2 * side if up else side
+    return shapes
+
+
 class Generator(nn.Module):
     def __init__(self, padding="zero", out_channels=4, num_channels=64,
                  max_num_channels=512, identity_embedding_size=512,
                  pose_embedding_size=256, constant_input_size=4,
-                 num_residual_blocks=2, output_image_size=256, generator=None):
+                 num_residual_blocks=2, output_image_size=256, generator=None,
+                 quantize=""):
         super().__init__()
         self.config = (num_channels, max_num_channels, constant_input_size,
                        num_residual_blocks, output_image_size)
@@ -86,7 +114,7 @@ class Generator(nn.Module):
         for i, (in_ch, out_ch, up) in enumerate(blocks):
             self.add_module(f"block{i}", ResBlock(
                 in_ch, out_ch, norm_layer="adain", upsample=up,
-                padding=padding, generator=generator))
+                padding=padding, generator=generator, quantize=quantize))
         self.head_conv = SNConv(head_ch, out_channels, 3, 1, True,
                                 generator=generator)
 

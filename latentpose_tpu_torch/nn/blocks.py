@@ -48,11 +48,16 @@ class ResBlock(nn.Module):
     With 'adain' the per-sample (weight, bias) pairs of the two norms are
     call arguments.  The 1x1 skip conv runs at the low resolution, then the
     result is upsampled (the two commute).
+
+    ``quantize`` ('int8' | 'int8_static', ``ops/quant.py``) quantizes conv0,
+    conv1 and the skip.  With zero padding the int8 upsample conv0 is the
+    polyphase int8 conv at the low resolution, interleaved, then norm1: the
+    JAX package applies norm1 before the interleave, over the same values.
     """
 
     def __init__(self, in_features, out_features, norm_layer="none",
                  upsample=False, downsample=False, padding="zero", eps=1e-4,
-                 generator=None):
+                 generator=None, quantize=""):
         super().__init__()
         if norm_layer not in ("none", "in", "adain"):
             raise ValueError(f"norm_layer must be none|in|adain, got {norm_layer!r}")
@@ -68,15 +73,15 @@ class ResBlock(nn.Module):
         if norm_layer == "in":
             self.norm0 = InstanceNormAffine(in_features)
         self.conv0 = SNConv(in_features, out_features, 3, conv_pad, conv_bias,
-                            generator=generator)
+                            generator=generator, quantize=quantize)
         if norm_layer == "in":
             self.norm1 = InstanceNormAffine(out_features)
         self.conv1 = SNConv(out_features, out_features, 3, conv_pad, conv_bias,
-                            generator=generator)
+                            generator=generator, quantize=quantize)
         self.skip = None
         if in_features != out_features or upsample or downsample:
             self.skip = SNConv(in_features, out_features, 1, 0, True,
-                               generator=generator)
+                               generator=generator, quantize=quantize)
 
     def _norm_relu(self, h, idx, ada):
         if self.norm_layer == "none":
@@ -100,9 +105,12 @@ class ResBlock(nn.Module):
         # without a norm the reference's in-place ReLU also rewrote the
         # block input, so the shortcut sees relu(x); with a norm it sees x
         shortcut_in = h if self.norm_layer == "none" else x
-        if self.upsample:
-            h = upsample_nearest_2x(h)
-        h = self.conv0(self._pad(h), update_stats)
+        if self.upsample and not self.reflect:
+            h = self.conv0(h, update_stats, upsample_2x=True)
+        else:
+            if self.upsample:
+                h = upsample_nearest_2x(h)
+            h = self.conv0(self._pad(h), update_stats)
         h = self._norm_relu(h, 1, ada1)
         h = self.conv1(self._pad(h), update_stats)
         if self.downsample:

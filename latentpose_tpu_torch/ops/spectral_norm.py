@@ -15,15 +15,30 @@ recomputes σ in each forward (one matrix-vector product per layer).
 
 Parameters stay f32; a forward casts the normalised weight to the input's
 dtype, as the JAX layers do under bf16.
+
+``SNConv(quantize='int8' | 'int8_static')`` is drive's int8 path
+(``ops/quant.py``): the JAX package's ``_QuantConvMixin``.  Each such conv
+holds a per-input-channel ``act_absmax`` buffer, the running maximum of
+|x| that a calibration pass (:func:`calibrating`) records.  The static conv
+quantizes its input with it; in the dynamic conv it is not part of the
+module's state, so the float, dynamic and calibrated-dynamic modules load
+the same checkpoint.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from latentpose_tpu_torch.ops import initializers as tinit
+from latentpose_tpu_torch.ops import quant
+from latentpose_tpu_torch.ops.image import (depth_to_space, s2d_up_kernel,
+                                            upsample_nearest_2x)
+
+QUANTIZE = ("", "int8", "int8_static")
 
 
 def _l2_normalize(x, eps):
@@ -58,13 +73,26 @@ class _SpectralNorm(nn.Module):
 
 
 class SNConv(_SpectralNorm):
-    """Conv2d + spectral norm on NCHW tensors; ``padding`` is zero padding."""
+    """Conv2d + spectral norm on NCHW tensors; ``padding`` is zero padding.
+
+    ``quantize``: '' (float), 'int8' (dynamic activation scale) or
+    'int8_static' (the calibrated ``act_absmax``).  Quantized convs are
+    dense (``groups`` 1)."""
 
     def __init__(self, in_features, features, kernel_size=3, padding=1,
-                 use_bias=True, groups=1, sn_eps=1e-4, generator=None):
+                 use_bias=True, groups=1, sn_eps=1e-4, generator=None,
+                 quantize=""):
         super().__init__()
+        if quantize not in QUANTIZE:
+            raise ValueError(f"quantize must be one of {QUANTIZE}, got "
+                             f"{quantize!r}")
+        if quantize and groups != 1:
+            raise ValueError("the int8 path supports dense convs only")
         self.padding = padding
         self.groups = groups
+        self.features = features
+        self.quantize = quantize
+        self.calibrating = False
         fan_in = in_features // groups * kernel_size * kernel_size
         self.weight = nn.Parameter(tinit.torch_conv_kernel_init(
             (features, in_features // groups, kernel_size, kernel_size),
@@ -72,11 +100,64 @@ class SNConv(_SpectralNorm):
         self.bias = nn.Parameter(tinit.torch_bias_init(
             fan_in, (features,), generator)) if use_bias else None
         self._init_spectral(features, sn_eps, generator)
+        if quantize:
+            self.register_buffer("act_absmax", torch.zeros(in_features),
+                                 persistent=quantize == "int8_static")
 
-    def forward(self, x, update_stats: bool = False):
+    def forward(self, x, update_stats: bool = False,
+                upsample_2x: bool = False):
+        """``upsample_2x``: nearest-up-2x before the conv; the int8 path
+        convolves the low-resolution x with the polyphase kernel instead
+        (3x3, zero pad 1)."""
+        weight = self.weight_sn(update_stats)
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight_sn(update_stats).to(x.dtype), bias,
-                        padding=self.padding, groups=self.groups)
+        if not self.quantize:
+            if upsample_2x:
+                x = upsample_nearest_2x(x)
+            return F.conv2d(x, weight.to(x.dtype), bias,
+                            padding=self.padding, groups=self.groups)
+        if upsample_2x:
+            if weight.shape[2:] != (3, 3) or self.padding != 1:
+                raise ValueError("the int8 upsample conv needs a 3x3 kernel "
+                                 "with zero padding 1")
+            weight = s2d_up_kernel(weight)
+        y = self._quant_conv(x, weight.to(x.dtype))
+        if upsample_2x:
+            y = depth_to_space(y, self.features)
+        return y if bias is None else y + bias[:, None, None]
+
+    def _quant_conv(self, x, kernel):
+        if self.calibrating:
+            with torch.no_grad():
+                torch.maximum(self.act_absmax,
+                              quant.act_absmax_per_channel(x),
+                              out=self.act_absmax)
+        elif self.quantize == "int8_static":
+            return quant.conv2d_int8_static(x, kernel, self.act_absmax,
+                                            self.padding, x.dtype)
+        return quant.conv2d_int8(x, kernel, self.padding, x.dtype)
+
+
+def quantized_convs(module):
+    """{name: SNConv} of every quantized conv in ``module``."""
+    return {name: m for name, m in module.named_modules()
+            if isinstance(m, SNConv) and m.quantize}
+
+
+@contextlib.contextmanager
+def calibrating(module):
+    """Inside, every quantized conv of ``module`` raises its ``act_absmax``
+    to the per-input-channel maximum of |x| that it sees, and computes with
+    the dynamic scale (the JAX package's calibration pass runs the dynamic
+    module with the ``quant_calib`` collection mutable)."""
+    convs = quantized_convs(module).values()
+    for conv in convs:
+        conv.calibrating = True
+    try:
+        yield
+    finally:
+        for conv in convs:
+            conv.calibrating = False
 
 
 class SNDense(_SpectralNorm):

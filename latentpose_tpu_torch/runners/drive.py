@@ -3,8 +3,9 @@
 A fine-tuned avatar is puppeteered by a driver sequence: per frame batch,
 pose encoder -> generator, with identity from the fine-tuned embedding.
 Frames travel as uint8 where the source decodes to bytes and are rescaled on
-the device.  Not ported yet: int8 serving with its calibration pass, and the
-multi-device mesh.
+the device.  With ``--quantize int8_static`` the generator's activation
+scales come from a calibration pass (:func:`calibrate_quant_scales`).  Not
+ported yet: the multi-device mesh.
 """
 
 from __future__ import annotations
@@ -12,16 +13,35 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from latentpose_tpu_torch.ops.spectral_norm import calibrating, quantized_convs
 
-def make_drive_fn(models, args):
+
+def load_quant_calib(generator, quant_calib):
+    """Copy calibrated maxima ``{conv name: (C,) tensor}`` (what
+    :func:`calibrate_quant_scales` returns) into the generator's quantized
+    convs; every quantized conv must have one."""
+    convs = quantized_convs(generator)
+    if set(quant_calib) != set(convs):
+        raise KeyError(f"calibration covers {sorted(quant_calib)}, the "
+                       f"generator's quantized convs are {sorted(convs)}")
+    with torch.no_grad():
+        for name, conv in convs.items():
+            conv.act_absmax.copy_(torch.as_tensor(quant_calib[name]))
+
+
+def make_drive_fn(models, args, quant_calib=None):
     """The frame-batch driver: ``(state, pose_frames) -> (rgbs, segm)``.
 
     ``state["finetune_embedding"]`` is the (1, E) identity on the models'
     device; pose_frames (B, H, W, 3) on that device, float in [0, 1] or
     uint8 (the wire format, rescaled as ``/255`` then cast to the compute
     dtype).  Returns f32 (B, H, W, 3) rgbs and (B, H, W, 1) segmentation.
+    ``quant_calib``: the calibrated activation maxima of an
+    ``int8_static`` generator, loaded into it here.
     """
     embedder, generator = models["embedder"], models["generator"]
+    if quant_calib is not None:
+        load_quant_calib(generator, quant_calib)
     dtype = torch.bfloat16 if getattr(args, "compute_dtype", "float32") \
         == "bfloat16" else torch.float32
 
@@ -40,6 +60,44 @@ def make_drive_fn(models, args):
     return drive_step
 
 
+def _padded_batches(frames, batch_size):
+    """(batch, frames kept) over ``frames``, the tail batch padded to
+    ``batch_size`` by repeating its last frame (one batch shape; the int8
+    path's dynamic scale is taken over the whole padded batch, as in the
+    JAX package)."""
+    for start in range(0, len(frames), batch_size):
+        chunk = frames[start:start + batch_size]
+        keep = len(chunk)
+        if keep < batch_size:
+            chunk = np.concatenate(
+                [chunk, np.repeat(chunk[-1:], batch_size - keep, axis=0)])
+        yield np.ascontiguousarray(chunk), keep
+
+
+def calibrate_quant_scales(models, args, state, frames, batch_size=32):
+    """The static-int8 calibration pass (``--quantize int8_static``): run
+    the generator's quantized convs with the dynamic scale over ``frames``
+    (f32 in [0, 1]) in batches of ``batch_size``, each conv keeping the
+    running per-input-channel maximum of |x| from zero.  Returns
+    ``{conv name: (C,) tensor}`` for :func:`make_drive_fn`'s
+    ``quant_calib``."""
+    generator = models["generator"]
+    convs = quantized_convs(generator)
+    if not convs:
+        raise ValueError("calibration needs a quantized generator "
+                         "(--quantize int8 or int8_static)")
+    with torch.no_grad():
+        for conv in convs.values():
+            conv.act_absmax.zero_()
+    step = make_drive_fn(models, args)
+    device = state["finetune_embedding"].device
+    with calibrating(generator):
+        for chunk, _ in _padded_batches(frames, batch_size):
+            step(state, torch.from_numpy(chunk).to(device))
+    return {name: conv.act_absmax.detach().clone()
+            for name, conv in convs.items()}
+
+
 def drive_sequence(drive_fn, state, frames, batch_size=32):
     """Drive a whole sequence; frames (N, H, W, 3) host array.
 
@@ -53,13 +111,8 @@ def drive_sequence(drive_fn, state, frames, batch_size=32):
     device = state["finetune_embedding"].device
     cuda = device.type == "cuda"
     in_flight, outputs = [], []
-    for start in range(0, len(frames), batch_size):
-        chunk = frames[start:start + batch_size]
-        keep = len(chunk)
-        if keep < batch_size:
-            chunk = np.concatenate(
-                [chunk, np.repeat(chunk[-1:], batch_size - keep, axis=0)])
-        host = torch.from_numpy(np.ascontiguousarray(chunk))
+    for chunk, keep in _padded_batches(frames, batch_size):
+        host = torch.from_numpy(chunk)
         if cuda:
             host = host.pin_memory()
         rgbs, _ = drive_fn(state, host.to(device, non_blocking=cuda))

@@ -1,6 +1,8 @@
 """Video and image-sequence writers for drive's side-by-side output (port of
 ``latentpose_tpu/utils/video.py``).  Backend: cv2 (ffmpeg) if its encoder
-opens, else imageio, else a directory of PNG frames (PIL)."""
+opens, else imageio, else a directory of PNG frames written by the port's
+own encoder (``utils/png.py``): with neither cv2 nor imageio, as on the
+machine with the card, drive still writes its frames."""
 
 from __future__ import annotations
 
@@ -8,6 +10,8 @@ import logging
 from pathlib import Path
 
 import numpy as np
+
+from latentpose_tpu_torch.utils.png import write_png
 
 logger = logging.getLogger("latentpose_tpu_torch.video")
 
@@ -19,9 +23,7 @@ class FrameDirWriter:
         self.idx = 0
 
     def add(self, frame_uint8_rgb):
-        from PIL import Image
-        Image.fromarray(frame_uint8_rgb).save(
-            self.path / f"{self.idx:06d}.png")
+        write_png(self.path / f"{self.idx:06d}.png", frame_uint8_rgb)
         self.idx += 1
 
     def close(self):

@@ -260,3 +260,68 @@ def test_image_loader_decodes_jpeg(device, tmp_path, kind):
         [path, tmp_path / "missing.jpg", path], 64)
     assert failed == 1 and frames[0].max() > 0 and not frames[1].any()
     np.testing.assert_array_equal(frames[0], frames[2])
+
+
+# --- int8 serving (ops/quant.py): the card's route is a library GEMM -------------
+
+def _flagship_quant_shapes():
+    from latentpose_tpu_torch.models.generators import (
+        vector_pose_unsupervised_segmentation_noBottleneck as gen_mod)
+    return gen_mod.quantized_conv_shapes()
+
+
+@pytest.mark.parametrize("index", range(22))
+def test_int8_card_route_is_bit_equal_to_plain(device, index):
+    """Each of the flagship's 22 quantized convs at batch 2: the card's
+    im2col + ``torch._int_mm`` against the exact float64 route, on the card
+    and on the CPU; the bf16 epilogue of both accumulators."""
+    from latentpose_tpu_torch.ops import quant
+    name, cin, cout, k, side = _flagship_quant_shapes()[index]
+    g = torch.Generator(device=device).manual_seed(index)
+    x = torch.randn(2, cin, side, side, generator=g, device=device) \
+        .to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w = torch.randn(cout, cin, k, k, generator=g, device=device) \
+        .to(torch.bfloat16)
+    xq, s_x = quant.quantize_dynamic(x)
+    kq, s_k = quant.quantize_kernel_per_channel(w)
+    before = quant.int8_conv.launches
+    acc = quant.int8_conv(xq, kq, k // 2)
+    torch.cuda.synchronize()
+    assert quant.int8_conv.launches == before + 1
+    assert acc.dtype == torch.int32 and acc.shape == (2, cout, side, side)
+    assert torch.equal(acc, quant.int8_conv_reference(xq, kq, k // 2))
+    cpu = quant.int8_conv_reference(xq.cpu(), kq.cpu(), k // 2)
+    assert torch.equal(acc.cpu(), cpu), name
+    assert torch.equal(
+        quant.epilogue(acc, s_x, s_k, torch.bfloat16).cpu(),
+        quant.epilogue(cpu, s_x.cpu(), s_k.cpu(), torch.bfloat16)), name
+
+
+@pytest.mark.parametrize("quantize", ["int8", "int8_static"])
+def test_int8_generator_forward_launches(device, quantize):
+    """One forward of the flagship generator in int8: 22 int8 products on
+    the card's route and 17 AdaIN kernel launches, finite frames."""
+    import types
+    from latentpose_tpu_torch.models.generators import (
+        vector_pose_unsupervised_segmentation_noBottleneck as gen_mod)
+    from latentpose_tpu_torch.ops import quant
+    from latentpose_tpu_torch.ops.spectral_norm import quantized_convs
+    args = types.SimpleNamespace(
+        gen_padding="zero", out_channels=3, num_channels=64,
+        max_num_channels=512, embed_channels=512, pose_embedding_size=256,
+        gen_constant_input_size=4, gen_num_residual_blocks=2,
+        image_size=256, quantize=quantize)
+    gen = gen_mod.Wrapper.get_net(
+        args, generator=torch.Generator().manual_seed(0)).to(device).eval()
+    for conv in quantized_convs(gen).values():
+        conv.act_absmax.fill_(4.0)
+    g = torch.Generator(device=device).manual_seed(1)
+    embeds, pose = (torch.randn(2, n, generator=g, device=device)
+                    .to(torch.bfloat16) for n in (512, 256))
+    quant.int8_conv.launches = adain_op.adain.launches = 0
+    with torch.no_grad():
+        rgbs, segm = gen(embeds, pose)
+    torch.cuda.synchronize()
+    assert quant.int8_conv.launches == 22
+    assert adain_op.adain.launches == 17
+    assert rgbs.shape == (2, 256, 256, 3) and torch.isfinite(rgbs).all()

@@ -12,10 +12,25 @@ Tolerances: the frames' crop is bit-equal to the JAX package's C++ loader
 mask, which the JAX package crops with cv2, are held to the JAX suite's own
 bound for its C++ crop against cv2 (``tests/test_native_cropped_loader.py``):
 3.5/255 at most, 0.5/255 on average.
+
+The JAX package's loader is held through a private build of its source
+(:func:`private_jax_loader`): ``latentpose_tpu/data/native_loader.py``
+builds ``native/liblpr_loader.so`` in place with ``make`` when it is
+missing, and under pytest-xdist every worker does so at collection
+(``tests/test_native_loader.py`` asks ``is_available()`` there).  GNU ld
+rewrites an existing output in place, so one worker's link truncates and
+rewrites the library another worker has already loaded, which undoes that
+worker's relocations; another worker may load it half written ("file too
+short") and skip.  The seeded frame draws wait until no loader producer of
+an earlier test is left drawing from the global ``random``.
 """
 
+import gc
+import os
 import random
+import re
 import struct
+import subprocess
 import threading
 import time
 import types
@@ -54,6 +69,64 @@ IDENTITIES = {    # identity -> (frame format, mask format, has bboxes)
 }
 VIDEOS = ("videoA", "videoB")
 FRAMES = 6
+
+
+def _makefile_command(lib):
+    """The compile command of ``native/Makefile`` (its CXXFLAGS, LDLIBS and
+    rule) with ``lib`` as the output."""
+    text = (REPO / "native" / "Makefile").read_text()
+
+    def var(name):
+        return re.search(rf"^{name}\s*\??=(.*)$", text, re.M).group(1).split()
+
+    return ["g++", *var("CXXFLAGS"), "-shared", "-o", str(lib),
+            str(REPO / "native" / "lpr_loader.cpp"), *var("LDLIBS")]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def private_jax_loader(tmp_path_factory):
+    """The JAX package's C++ loader, built from ``native/lpr_loader.cpp``
+    with ``native/Makefile``'s flags into this worker's own directory
+    (written to a temporary file, then renamed), and bound to
+    ``latentpose_tpu.data.native_loader`` for this module's tests, so no
+    other worker's ``make`` rewrites the library these tests read."""
+    lib = tmp_path_factory.mktemp("jax_native_loader") / "liblpr_loader.so"
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(_makefile_command(tmp), capture_output=True,
+                          text=True)
+    assert proc.returncode == 0, proc.stderr
+    os.replace(tmp, lib)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_LIB_PATH", lib)
+        mp.setattr(jnative, "_lib", None)
+        mp.setattr(jnative, "_load_failed", False)
+        assert jnative.is_available(), "the private JAX loader did not load"
+        yield lib
+
+
+LOADER_MODULES = ("latentpose_tpu.data.pipeline", "latentpose_tpu.runners.loop",
+                  "latentpose_tpu_torch.data.pipeline",
+                  "latentpose_tpu_torch.runners.loop")
+
+
+def _producers():
+    """Live producer threads of loaders: either package's ``BatchLoader``
+    and ``device_prefetch`` (the thread's target is defined there)."""
+    return [t for t in threading.enumerate() if t.is_alive()
+            and getattr(getattr(t, "_target", None), "__module__", None)
+            in LOADER_MODULES]
+
+
+def quiesce_loaders(timeout=30.0):
+    """Collect abandoned loader iterators (their ``finally`` stops their
+    producers) and wait for every producer thread to end, so that a seeded
+    draw from the global ``random`` is not shared with one.  A producer
+    whose iterator something still holds outlives the wait blocked on its
+    full queue, where it draws nothing."""
+    gc.collect()
+    deadline = time.time() + timeout
+    for thread in _producers():
+        thread.join(max(0.0, deadline - time.time()))
 
 
 def _smooth(rng, shape):
@@ -367,6 +440,7 @@ def test_dataset_items_match_jax(tree, branch, monkeypatch):
     jset, tset = _datasets(tree, finetune=branch == "finetune")
     assert len(jset) == len(tset) and jset.num_labels == tset.num_labels
     tset.epoch = 2
+    quiesce_loaders()
     for index in range(len(tset)):
         random.seed(tds.frame_key(tset.seed, tset.epoch, index))
         want_data, want_target = jset[index]
@@ -482,6 +556,7 @@ def test_producer_errors_reach_the_consumer():
 def test_other_sample_by_label_matches_jax(tree, same_identity,
                                            deterministic):
     jset, tset = _datasets(tree)
+    quiesce_loaders()
     for label in range(len(tset)):
         random.seed(label)
         want = jset.get_other_sample_by_label(label, same_identity,

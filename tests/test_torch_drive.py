@@ -5,9 +5,11 @@ port's CLI, checkpoint writer and synthetic frames; and the guard that the
 port's card path needs neither JAX nor the JAX package's heavy imports."""
 
 import re
+import struct
 import subprocess
 import sys
 import types
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -27,7 +29,10 @@ from latentpose_tpu.runners import drive as jdrive
 from latentpose_tpu_torch import checkpoint as tckpt
 from latentpose_tpu_torch import convert
 from latentpose_tpu_torch.cli import drive as tcli
+from latentpose_tpu_torch.data.synthetic import render_face
 from latentpose_tpu_torch.runners import drive as tdrive
+from latentpose_tpu_torch.utils.png import write_png
+from latentpose_tpu_torch.utils.video import to_uint8
 
 torch.set_num_threads(1)
 
@@ -65,10 +70,9 @@ class _JitInit:
         return getattr(self._module, name)
 
 
-@pytest.fixture(scope="module")
-def jax_finetuned(tmp_path_factory):
-    """(args, models, state, checkpoint path) of a JAX fine-tuned state whose
-    EMA weights and BatchNorm statistics differ from their defaults."""
+def jax_finetuned_state():
+    """(args, models, state) of a JAX fine-tuned state whose EMA weights and
+    BatchNorm statistics differ from their defaults."""
     args = _args()
     models = {
         "embedder": jemb_mod.Wrapper.get_net(args),
@@ -95,6 +99,13 @@ def jax_finetuned(tmp_path_factory):
         ema_params=jax.tree_util.tree_map(jitter(0.05), state.ema_params),
         batch_stats=jax.tree_util.tree_map(jitter(1.0, 0.5),
                                            state.batch_stats))
+    return args, models, state
+
+
+@pytest.fixture(scope="module")
+def jax_finetuned(tmp_path_factory):
+    """:func:`jax_finetuned_state` and the checkpoint it was saved to."""
+    args, models, state = jax_finetuned_state()
     path = jckpt.save_checkpoint(tmp_path_factory.mktemp("jax_ft"), state,
                                  args)
     return args, models, state, path
@@ -152,11 +163,68 @@ def test_cli_drives_synthetic_to_video(jax_finetuned, tmp_path):
     assert tcli.resolve_args([str(path)]).compute_dtype == "bfloat16"
 
 
-@pytest.mark.parametrize("flags", [["--crop"], ["--quantize", "int8"],
-                                   ["--num_devices", "2"]])
+@pytest.mark.parametrize("flags", [["--crop"], ["--num_devices", "2"]])
 def test_cli_refuses_what_is_not_ported(jax_finetuned, flags):
     with pytest.raises(NotImplementedError, match="not ported"):
         tcli.resolve_args([str(jax_finetuned[3]), *flags])
+
+
+def _read_png(path):
+    """(H, W, 3) uint8 of a PNG from the port's encoder (8-bit RGB, every
+    row unfiltered), read with zlib alone."""
+    data, pos, idat = Path(path).read_bytes(), 8, b""
+    while pos < len(data):
+        size, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + size]
+        if kind == b"IHDR":
+            w, h, depth, colour = struct.unpack(">IIBB", body[:10])
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + size
+    assert (depth, colour) == (8, 2)
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    assert not rows[:, 0].any()
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+@pytest.mark.parametrize("quantize", ["", "int8", "int8_static"])
+def test_cli_writes_frames_without_cv2_pil_or_imageio(jax_finetuned, tmp_path,
+                                                      monkeypatch, quantize):
+    """``cli.drive.main`` on an image directory with cv2, PIL and imageio
+    unimportable, as on the machine with the card: the driver frames decode
+    through the C++ loader, the video writer falls back to a directory of
+    PNG frames written by the port's own encoder, and each frame is the
+    driver beside ``drive_sequence``'s result through ``to_uint8`` (int8:
+    dynamic scales; int8_static: calibrated on the sequence's leading
+    frames first)."""
+    path = jax_finetuned[3]
+    source = tmp_path / "driver"
+    source.mkdir()
+    for f in range(5):
+        img, _ = render_face(2, f, 2 * IMG)
+        write_png(source / f"{f:05d}.png", (img * 255).astype(np.uint8))
+    flags = ["--quantize", quantize] if quantize else []
+    with monkeypatch.context() as mp:
+        for name in ("cv2", "PIL", "imageio"):
+            mp.setitem(sys.modules, name, None)
+        written = tcli.main([str(path), "--images_paths", str(source),
+                             "--destination", str(tmp_path / "out"),
+                             "--device", "cpu", "--drive_batch_size", "2",
+                             *flags])
+    files = sorted(Path(f"{written[0]}.frames").glob("*.png"))
+
+    args, models, state = _port(path, *flags)
+    frames = tcli.load_driver_frames(source, IMG)
+    calib = None if quantize != "int8_static" else \
+        tdrive.calibrate_quant_scales(models, args, state,
+                                      frames[:args.calibration_frames], 2)
+    results = tdrive.drive_sequence(
+        tdrive.make_drive_fn(models, args, quant_calib=calib), state, frames,
+        batch_size=2)
+    assert len(files) == len(frames) == 5
+    for file, driver, result in zip(files, frames, results):
+        np.testing.assert_array_equal(
+            _read_png(file), to_uint8(np.concatenate([driver, result], 1)))
 
 
 def test_checkpoint_keys_neither_read_nor_skipped_are_an_error(jax_finetuned):
@@ -215,13 +283,13 @@ def test_render_face_is_bit_identical(label, frame, size):
     np.testing.assert_array_equal(segm, want_segm)
 
 
-FORBIDDEN = ("jax", "flax", "optax", "yaml", "cv2", "PIL", "pandas",
+FORBIDDEN = ("jax", "flax", "optax", "yaml", "cv2", "PIL", "imageio", "pandas",
              "latentpose_tpu")
 
 
 def test_card_path_imports_no_jax():
     """Every module of the port imports with jax, flax, optax, yaml, cv2,
-    PIL and pandas made unimportable (the card's path needs none of them),
+    PIL, imageio and pandas made unimportable (the card's path needs none of them),
     and with the JAX package unimportable too: the port stands on its
     own."""
     code = "\n".join([
@@ -236,6 +304,7 @@ def test_card_path_imports_no_jax():
         "import latentpose_tpu_torch.data.augmentation",
         "import latentpose_tpu_torch.losses.dis_embed",
         "import latentpose_tpu_torch.runners.drive",
+        "import latentpose_tpu_torch.ops.quant",
         "import latentpose_tpu_torch.data.native_loader",
         "import latentpose_tpu_torch.data.voxceleb2_segmentation_nolandmarks",
         "import latentpose_tpu_torch.data.pipeline",

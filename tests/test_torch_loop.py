@@ -2,7 +2,9 @@
 the JAX package: ``run_epoch``'s steps, the EMA eval forward, validation,
 ê from a fine-tune directory, the meter, saver, visual grid, experiment
 name and PNG writer; save-on-signal in a subprocess of the CLI; checkpoints
-crossing between the two CLIs on the tree.
+crossing between the two CLIs on the tree.  The JAX package's C++ loader
+comes from a private build (``tests/test_torch_data.py``
+:func:`private_jax_loader`).
 
 Small sizes on the CPU, as ``tests/test_torch_metatrain.py`` has them: 32²
 frames, K=2, a tiny generator and discriminator, both embedder towers cut to
@@ -80,6 +82,7 @@ from latentpose_tpu_torch.utils import meter as tmeter
 from latentpose_tpu_torch.utils import saver as tsaver
 from latentpose_tpu_torch.utils import visualize as tvis
 from latentpose_tpu_torch.utils.png import encode_png, write_png
+from test_torch_data import private_jax_loader  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -412,6 +415,7 @@ def test_cli_flags_resolve_as_the_jax_cli():
     the defaults as argparse's append does, the JAX spelling of
     --args-to-ignore is taken, metrics the port has not refuse."""
     args = tcli.resolve_args([
+        "--config_name", "default",
         "--dataloader", "voxceleb2_segmentation_nolandmarks",
         "--fixed_val_ids", "0", "--fixed_val_ids", "3", "--args-to-ignore",
         "a,b", "--metrics", "psnr"])
@@ -421,7 +425,8 @@ def test_cli_flags_resolve_as_the_jax_cli():
             args.set_eval_mode_in_test, args.skip_eval) == (4, 16, 500, True,
                                                             True)
     with pytest.raises(NotImplementedError, match="A.19"):
-        tcli.resolve_args(["--dataloader", "synthetic", "--metrics", "lpips"])
+        tcli.resolve_args(["--config_name", "default", "--dataloader",
+                           "synthetic", "--metrics", "lpips"])
 
 
 def test_run_validation_matches_jax(evals, runs, tmp_path):
@@ -640,7 +645,8 @@ def test_jax_checkpoint_resumes_in_the_port_cli_and_back(runs, tree,
                 "--skip_eval", "--num_epochs", "1", "--batch_size", "4",
                 "--criterions", "adversarial, featmat, dice"]
     state, ft_path = tcli.main([
-        "--finetune", "--checkpoint_path", str(meta_path),
+        "--finetune", "--config_name", "finetuning-base",
+        "--checkpoint_path", str(meta_path),
         "--experiments_dir", str(tmp_path), "--experiment_name", "ft",
         *ft_flags])
     assert state.finetune and state.step == 3

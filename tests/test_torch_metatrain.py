@@ -601,8 +601,8 @@ def test_cli_meta_trains_from_a_fresh_init_and_resumes(tmp_path):
     (augmentation on, as the meta config has it), a checkpoint with both
     Adam states; resuming it takes the next step with step and count
     continued."""
-    argv = ["--dataloader", "synthetic", "--device", "cpu",
-            "--allow_random_vgg", "--image_size", str(IMG),
+    argv = ["--config_name", "default", "--dataloader", "synthetic",
+            "--device", "cpu", "--allow_random_vgg", "--image_size", str(IMG),
             "--num_channels", "4", "--max_num_channels", "16",
             "--embed_channels", "16", "--pose_embedding_size", "8",
             "--dis_num_blocks", "3", "--gen_num_residual_blocks", "1",

@@ -141,7 +141,8 @@ def meta(tmp_path_factory):
 
 def _port_args(path, workdir, *flags):
     return tcli.resolve_args([
-        "--finetune", "--checkpoint_path", str(path), "--dataloader",
+        "--finetune", "--config_name", "finetuning-base",
+        "--checkpoint_path", str(path), "--dataloader",
         "synthetic", "--device", "cpu", "--set_eval_mode_in_train",
         "--allow_random_vgg", "--num_epochs", "1", "--experiments_dir",
         str(workdir), "--no-use_pixelwise_augs", "--no-use_affine_scale",
@@ -479,17 +480,22 @@ def test_cli_runs_meta_train_augmentation_and_accumulation(
     """What the CLI refused before the meta-train slice now runs:
     meta-training, each augmentation alone, and gradient accumulation; one
     step each, from the JAX-written meta checkpoint, with the switches each
-    run's config and flags give."""
+    run's config and flags give: meta-training resumes the checkpoint's
+    args (augmentation off there) with the three switched on by flags;
+    fine-tuning takes the fine-tune config."""
     from latentpose_tpu_torch.data import augmentation
     seen = []
     augment = augmentation.augment_data_dict
     monkeypatch.setattr(augmentation, "augment_data_dict", lambda b, d, **k:
                         seen.append(k) or augment(b, d, **k))
+    config = ["--config_name", "finetuning-base"] if "--finetune" in flags \
+        else ["--use_pixelwise_augs", "--use_affine_scale",
+              "--use_affine_shift"]
     state, path = tcli.main([
         "--checkpoint_path", str(meta[1]), "--dataloader", "synthetic",
         "--device", "cpu", "--allow_random_vgg", "--num_epochs", "1",
         "--batch_size", "2", "--synthetic_num_labels", "2",
-        "--experiments_dir", str(tmp_path), *flags])
+        "--experiments_dir", str(tmp_path), *config, *flags])
     assert state.step == 1 and path.name == "model_00000001.ckpt"
     assert state.finetune == ("--finetune" in flags)
     assert seen == [{"use_pixelwise": "--no-use_pixelwise_augs" not in flags,
@@ -500,15 +506,18 @@ def test_cli_runs_meta_train_augmentation_and_accumulation(
 def test_cli_refuses_other_families_and_fine_tuned_checkpoints(runs, meta,
                                                                tmp_path):
     """Other model families, and meta-training from a fine-tuned checkpoint
-    (it resumes with --finetune)."""
+    (it resumes fine-tuning: its saved args carry ``finetune``, as the JAX
+    CLI reads them; ``--no-finetune`` is refused)."""
     argv = ["--finetune", "--checkpoint_path", str(meta[1]), "--dataloader",
             "synthetic"]
     with pytest.raises(ValueError, match="not ported"):
         tcli.resolve_args(argv + ["--generator", "FSTH"])
     path = jckpt.save_checkpoint(tmp_path, runs["jstate"], runs["jargs"])
+    assert tcli.resolve_args(["--checkpoint_path", str(path),
+                              "--dataloader", "synthetic"]).finetune
     with pytest.raises(ValueError, match="resumes with --finetune"):
         tcli.resolve_args(["--checkpoint_path", str(path), "--dataloader",
-                           "synthetic"])
+                           "synthetic", "--no-finetune"])
 
 
 def test_cli_resumes_a_fine_tuned_checkpoint(runs, tmp_path):
@@ -537,9 +546,10 @@ def test_cli_main_finetunes_and_the_result_drives(meta, tmp_path):
     """``main`` end to end on the CPU: one epoch, the checkpoint written at
     the end carries the fine-tune flag and drives through the port."""
     state, path = tcli.main([
-        "--finetune", "--checkpoint_path", str(meta[1]), "--dataloader",
-        "synthetic", "--device", "cpu", "--allow_random_vgg", "--num_epochs",
-        "1", "--experiments_dir", str(tmp_path)])
+        "--finetune", "--config_name", "finetuning-base", "--checkpoint_path",
+        str(meta[1]), "--dataloader", "synthetic", "--device", "cpu",
+        "--allow_random_vgg", "--num_epochs", "1", "--experiments_dir",
+        str(tmp_path)])
     assert state.step == 2 and path.name == "model_00000002.ckpt"
     meta_json = tdrive_cli.ckpt_lib.peek_args(path)
     assert meta_json["finetune"] and meta_json["num_labels"] == 1
