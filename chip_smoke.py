@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths, meta-train, fine-tune and drive (exact and
-int8), at the flagship model's full widths (256², generator 64..512 channels, embed 512,
-pose 256, discriminator 7 blocks) with seeded random weights, through the
+Drives the port's main paths, meta-train and fine-tune (f32, and bf16 with
+the uint8 wire) and drive (exact and int8), at the flagship model's full
+widths (256², generator 64..512 channels, embed 512, pose 256,
+discriminator 7 blocks) with seeded random weights, through the
 entry points a user calls, and checks every hand-written kernel of those
 paths:
 
@@ -74,11 +75,31 @@ paths:
     within 1e-4 of max |ê|;
 13. one fine-tune step on the card and on the CPU from the same batch
     (batch 2, f32, eval-mode pose encoder, augmentation off), from the
-    state right after ê and from the trained one: losses and the
-    discriminator's gradient within 1e-3 relative (the loss that reads
-    highest named), the generator's and the identity embedding's within
-    FT_GRAD_TOL; beside each, the card's step with the generator's frames
-    3 % off, whose losses must read above the gate;
+    state right after ê and from the trained one (each also with its flat
+    generator constant redrawn): losses and the discriminator's gradient
+    within 1e-3 relative (the loss that reads highest named), the
+    generator's and the identity embedding's within FT_GRAD_TOL (printed,
+    not held, where the constant is flat: see the phase); beside each, the
+    card's step with the generator's frames 3 % off, whose losses must
+    read above the gate;
+6b. the link's train form in bf16 at the same shapes, gate 1.6e-2 of each
+   tensor's max, and AdaIN in bf16 under autograd (the kernel's forward,
+   the plain f32 backward) at the generator's 17 calls of batch 8 against
+   autograd through its plain version: forward and backward ms (events,
+   device), each bound, and for the link ``torch.matmul``'s time;
+8b. the same meta-train path with ``--compute_dtype bfloat16
+   --transfer_dtype uint8`` (staged uint8 batches): its launches a step,
+   median ms beside the f32 step, peak memory, busy and idle shares, the
+   ten longest kernels; save, resume in the same modes, one more step,
+   which counts the link inputs that need a copy to channels_last;
+9b. bf16 against f32 on the card: one meta step from one state and batch
+   (batch 2, towers in eval form, augmentation off) in f32 (T32), in bf16
+   (T16) and in bf16 with both kernels' places taken by their plain
+   versions (P16): ‖T16 - P16‖ <= 2 C ‖P16 - T32‖ for the losses and the
+   generator's, discriminator's and embedder's gradients (C = 1.5, the C of
+   ``tests/test_torch_bf16.py``: each bf16 route within C of a reference
+   bf16 step), and a planted fault (AdaIN's statistics in bf16) that must
+   read above that gate on the generator's gradient;
 14. real data, through the CLIs' ``main``: write a VoxCeleb2-layout tree
     with no cv2 (16 videos of 12 rendered 320² PNG frames, masks, bboxes
     for half the videos, train.csv and val.csv); meta-train the seeded
@@ -91,7 +112,10 @@ paths:
     conv_bn launches; 3 steps of 17 AdaIN), the generator moved; drive it
     from another video's directory (the C++ loader); the loop's Batch_time
     and Data_time, the step through the real loader beside the staged one
-    of phase 8, and the loader's frames/s on this host.
+    of phase 8, and the loader's frames/s on this host; then the same
+    phase again with ``--compute_dtype bfloat16 --transfer_dtype uint8``
+    (uint8 batches from the loader's uint8 entries), its Data_time and
+    Batch_time beside the f32 run's.
 
 jax, flax, optax, yaml, cv2, PIL, imageio and pandas are made unimportable
 first: the card's path needs none of them.
@@ -137,7 +161,7 @@ from latentpose_tpu_torch.data import native_loader  # noqa: E402
 from latentpose_tpu_torch.data.synthetic import render_face  # noqa: E402
 from latentpose_tpu_torch.models.generators import (  # noqa: E402
     vector_pose_unsupervised_segmentation_noBottleneck as gen_mod)
-from latentpose_tpu_torch.nn import backbones  # noqa: E402
+from latentpose_tpu_torch.nn import backbones, blocks  # noqa: E402
 from latentpose_tpu_torch.ops import adain as adain_op  # noqa: E402
 from latentpose_tpu_torch.ops import conv_bn  # noqa: E402
 from latentpose_tpu_torch.ops import quant  # noqa: E402
@@ -192,6 +216,12 @@ STEP_TOL = 1e-3        # card vs CPU, one train step, relative
 GRAD_TOL = 1e-1
 FAULT_SCALE = 0.7
 FT_GRAD_TOL = 1e-2     # the same, one fine-tune step (read 1.3e-3-2.2e-3)
+# bf16 on the card: the kernels' bf16 step (T16) against the plain versions'
+# bf16 step (P16), in units of bf16's effect ‖P16 - T32‖: each bf16 route is
+# within C = 1.5 of a reference bf16 step (tests/test_torch_bf16.py), so the
+# two are within 2 C of each other
+BF16_C = 2 * 1.5
+BF16_MODES = ("--compute_dtype", "bfloat16", "--transfer_dtype", "uint8")
 # the fine-tune gate's witness: the generator's frames 3 % off in the
 # forward (1 % moved the losses by 3.8e-3 at most in a CPU rehearsal at 32²)
 FT_FAULT_SCALE = 1.03
@@ -520,21 +550,31 @@ def link_grads(fn, x, scale, offset, w, cot_y, cot_stats):
             grads[3].t())
 
 
-def phase_conv_bn_train(device):
-    """The link's train form at ResNeXt-50's four shapes, 64 frames, f32:
-    the ``autograd.Function`` (the kernel's forward, the plain backward)
-    against autograd through the plain version, y, stats and the four
-    gradients within TOL of each tensor's max |.|; the backward's time per
-    link beside the forward kernel's.  Returns the backward ms summed over
-    the 16 links of one forward (events, and the profiler's device time)."""
+def phase_conv_bn_train(device, dtype=torch.float32):
+    """The link's train form at ResNeXt-50's four shapes, 64 frames, in
+    ``dtype``: the ``autograd.Function`` (the kernel's forward, the plain
+    backward) against autograd through the plain version, y, stats and the
+    four gradients within TOL of each tensor's max |.|; the forward's and
+    the backward's time per link (events and the profiler's device time),
+    beside the forward's bound and ``torch.matmul``'s time on the same
+    product.  Returns those times summed over the 16 links of one forward,
+    the bound's kind and the largest error relative to its tensor's max."""
     names = ("y", "stats", "dx", "dscale", "doffset", "dW")
-    bwd_total, bwd_device = 0.0, 0.0
+    out = dict(forward_ms=0.0, forward_device_ms=0.0, backward_ms=0.0,
+               backward_device_ms=0.0, bound_ms=0.0, matmul_ms=0.0,
+               max_rel_err=0.0)
+    kinds = {"bytes": 0.0, "operations": 0.0}
+    label = str(dtype)[6:]
+
+    def add(key, value, count):
+        out[key] = None if value is None or out[key] is None else \
+            out[key] + count * value
+
     for rows, cin, cout, count in CONV_LINKS:
         m = 64 * rows
-        x, scale, offset, w = link_inputs(m, cin, cout, torch.float32,
-                                          device, 3)
+        x, scale, offset, w = link_inputs(m, cin, cout, dtype, device, 3)
         g = torch.Generator(device=device).manual_seed(4)
-        cot_y = torch.randn(m, cout, generator=g, device=device)
+        cot_y = torch.randn(m, cout, generator=g, device=device).to(dtype)
         cot_stats = torch.randn(2, cout, generator=g, device=device) / m
         got = link_grads(conv_bn.bn_relu_conv1x1_stats, x, scale, offset, w,
                          cot_y, cot_stats)
@@ -543,12 +583,15 @@ def phase_conv_bn_train(device):
         torch.cuda.synchronize()
         errs = []
         for name, a, b in zip(names, got, want):
-            ref = b.abs().max().item()
-            err = (a - b).abs().max().item()
+            require(a.dtype == b.dtype, f"conv_bn train form {label}: {name} "
+                    f"is {a.dtype}, the plain version's {b.dtype}")
+            ref = b.float().abs().max().item()
+            err = (a.float() - b.float()).abs().max().item()
             errs.append(f"{name} {err / ref:.2g}")
-            require(err <= TOL[torch.float32] * ref,
-                    f"conv_bn train form M={m} {cin}->{cout}: {name} differs "
-                    f"by {err} (max |.| {ref})")
+            out["max_rel_err"] = max(out["max_rel_err"], err / ref)
+            require(err <= TOL[dtype] * ref,
+                    f"conv_bn train form {label} M={m} {cin}->{cout}: {name} "
+                    f"differs by {err} (max |.| {ref})")
         leaves = [t.detach().clone().requires_grad_()
                   for t in (x, scale, offset, w.t())]
         y, stats = conv_bn.bn_relu_conv1x1_stats(
@@ -558,25 +601,115 @@ def phase_conv_bn_train(device):
             torch.autograd.grad((y, stats), leaves, (cot_y, cot_stats),
                                 retain_graph=True)
 
-        fwd = cuda_ms(lambda: conv_bn.bn_relu_conv1x1_stats(
-            x, scale, offset, w), 10)
-        bwd = cuda_ms(backward, 10)
-        fwd_dev, _ = device_busy_ms(lambda: conv_bn.bn_relu_conv1x1_stats(
-            x, scale, offset, w), 10)
+        def forward():
+            conv_bn.bn_relu_conv1x1_stats(x, scale, offset, w)
+
+        fwd, bwd = cuda_ms(forward, 10), cuda_ms(backward, 10)
+        fwd_dev, _ = device_busy_ms(forward, 10)
         bwd_dev, _ = device_busy_ms(backward, 10)
-        print(f"conv_bn train form 64 frames M={m} {cin}->{cout} f32: "
+        h = torch.relu(x.float() * scale + offset).to(w.dtype)
+        lib = cuda_ms(lambda: torch.matmul(h, w), 10)
+        del h
+        lo, by = link_bound_ms(m, cin, cout, dtype)
+        print(f"conv_bn train form 64 frames M={m} {cin}->{cout} {label}: "
               f"max_err/max|.| {', '.join(errs)}; forward kernel_ms="
-              f"{fwd:.4f} backward_ms={bwd:.4f} (plain, events); device_ms "
-              f"forward={_ms(fwd_dev)} backward={_ms(bwd_dev)} (x{count} per "
-              f"forward)", flush=True)
-        bwd_total += count * bwd
-        bwd_device = None if bwd_dev is None or bwd_device is None else \
-            bwd_device + count * bwd_dev
+              f"{fwd:.4f} device_ms={_ms(fwd_dev)} bound_ms={lo:.4f} ({by}) "
+              f"share={lo / fwd:.3f} matmul_ms={lib:.4f}; backward_ms="
+              f"{bwd:.4f} (plain, events) device_ms={_ms(bwd_dev)} (x{count} "
+              f"per forward)", flush=True)
+        for key, value in (("forward_ms", fwd), ("forward_device_ms", fwd_dev),
+                           ("backward_ms", bwd),
+                           ("backward_device_ms", bwd_dev),
+                           ("bound_ms", lo), ("matmul_ms", lib)):
+            add(key, value, count)
+        kinds[by] += count * lo
         del x, y, stats, leaves, got, want, cot_y
-    print(f"conv_bn train form: plain backward of the 16 links of one f32 "
-          f"forward of 64 frames: {bwd_total:.4f} ms (events), "
-          f"{_ms(bwd_device)} ms (device)", flush=True)
-    return bwd_total, bwd_device
+    out["bound_by"] = max(kinds, key=kinds.get)
+    print(f"conv_bn train form, 16 links of one {label} forward of 64 frames: "
+          f"forward {out['forward_ms']:.4f} ms (events), "
+          f"{_ms(out['forward_device_ms'])} ms (device), bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}), torch.matmul "
+          f"{out['matmul_ms']:.4f} ms; plain backward "
+          f"{out['backward_ms']:.4f} ms (events), "
+          f"{_ms(out['backward_device_ms'])} ms (device)",
+          flush=True)
+    return out
+
+
+def adain_grads(fn, x, w, b, cot):
+    """(y, dx, dweight, dbias) of ``fn`` (AdaIN + ReLU) for ``cot``."""
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+    y = fn(*leaves, relu=True)
+    return (y.detach(), *torch.autograd.grad(y, leaves, cot))
+
+
+def phase_adain_train(device):
+    """AdaIN in bf16 under autograd at the generator's 17 calls, batch 8 (a
+    meta or fine-tune step's): the ``autograd.Function`` (the kernel's
+    forward, the plain f32 backward) against autograd through the plain
+    version, y and the three gradients within TOL of each tensor's max |.|;
+    the forward's and the backward's ms per call (events, device) beside
+    the bound of each (x, and the gradient, read once; the outputs written
+    once).  Returns those summed over the 17 calls."""
+    dtype, batch = torch.bfloat16, 8
+    out = dict(forward_ms=0.0, forward_device_ms=0.0, backward_ms=0.0,
+               backward_device_ms=0.0, bound_ms=0.0, backward_bound_ms=0.0,
+               max_rel_err=0.0)
+    for hw, c, count in ADAIN_CALLS:
+        x, w, b = adain_inputs(batch, hw, c, dtype, device, seed=hw + c)
+        cot = torch.randn(x.shape, device=device,
+                          generator=torch.Generator(device=device)
+                          .manual_seed(hw)).to(dtype)
+        got = adain_grads(adain_op.adain, x, w, b, cot)
+        want = adain_grads(adain_op.adain_reference, x, w, b, cot)
+        torch.cuda.synchronize()
+        errs = []
+        for name, a, r in zip(("y", "dx", "dweight", "dbias"), got, want):
+            require(a.dtype == r.dtype == dtype, f"adain train form: {name} "
+                    f"is {a.dtype}, the plain version's {r.dtype}")
+            ref = r.float().abs().max().item()
+            err = (a.float() - r.float()).abs().max().item()
+            errs.append(f"{name} {err / ref:.2g}")
+            out["max_rel_err"] = max(out["max_rel_err"], err / ref)
+            require(err <= TOL[dtype] * ref, f"adain train form HW={hw} "
+                    f"C={c}: {name} differs by {err} (max |.| {ref})")
+        leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+        y = adain_op.adain(*leaves, relu=True)
+
+        def backward():
+            torch.autograd.grad(y, leaves, cot, retain_graph=True)
+
+        def forward():
+            adain_op.adain(x, w, b)
+
+        fwd, bwd = cuda_ms(forward, 20), cuda_ms(backward, 10)
+        fwd_dev, _ = device_busy_ms(forward, 20)
+        bwd_dev, _ = device_busy_ms(backward, 10)
+        lo = adain_bound_ms(x)
+        # the backward reads x, the gradient, weight and bias, writes dx,
+        # dweight and dbias
+        lo_bwd = bound_ms(3 * x.numel() * x.element_size()
+                          + 4 * batch * c * x.element_size())[0]
+        print(f"adain train form B={batch} HW={hw} C={c} bf16: "
+              f"max_err/max|.| {', '.join(errs)}; forward kernel_ms="
+              f"{fwd:.4f} device_ms={_ms(fwd_dev)} bound_ms={lo:.4f} (bytes) "
+              f"share={lo / fwd:.3f}; backward_ms={bwd:.4f} (plain, events) "
+              f"device_ms={_ms(bwd_dev)} bound_ms={lo_bwd:.4f} (bytes) "
+              f"(x{count} per generator forward)", flush=True)
+        for key, value in (("forward_ms", fwd), ("forward_device_ms", fwd_dev),
+                           ("backward_ms", bwd),
+                           ("backward_device_ms", bwd_dev), ("bound_ms", lo),
+                           ("backward_bound_ms", lo_bwd)):
+            out[key] = None if value is None or out[key] is None else \
+                out[key] + count * value
+        del x, y, leaves, got, want, cot
+    print(f"adain train form, 17 calls of one bf16 generator forward at batch "
+          f"{batch}: forward {out['forward_ms']:.4f} ms (events), "
+          f"{_ms(out['forward_device_ms'])} ms (device), bound "
+          f"{out['bound_ms']:.4f} ms; plain backward {out['backward_ms']:.4f} "
+          f"ms (events), {_ms(out['backward_device_ms'])} ms (device), bound "
+          f"{out['backward_bound_ms']:.4f} ms", flush=True)
+    return out
 
 
 def _ms(value):
@@ -850,14 +983,17 @@ def _print_gaps(what, loss, rel):
 
 def _require_step(what, loss, rel, grad_tol):
     """Losses, BatchNorm statistics and the discriminator's gradient within
-    STEP_TOL, the generator side's gradients within ``grad_tol``."""
+    STEP_TOL, the generator side's gradients within ``grad_tol`` (None:
+    printed, not held)."""
     tol = {k: grad_tol if k.endswith("gradient")
            and not k.startswith("discriminator") else STEP_TOL for k in rel}
-    worst = max(rel, key=lambda k: rel[k] / tol[k])
+    tol = {k: v for k, v in tol.items() if v is not None}
     name, gap = _worst_loss(loss)
-    require(gap <= STEP_TOL and rel[worst] <= tol[worst],
-            f"card and CPU {what}s differ: losses {gap} ({name}), {worst} "
-            f"{rel[worst]}")
+    require(gap <= STEP_TOL, f"card and CPU {what}s differ: losses {gap} "
+            f"({name})")
+    for key, limit in tol.items():
+        require(rel[key] <= limit, f"card and CPU {what}s differ: {key} "
+                f"{rel[key]} > {limit}")
 
 
 def _batch_of(loader, size):
@@ -883,6 +1019,16 @@ def _planted_frame_fault(cls):
         cls.forward = forward
 
 
+def _flat_constant(state):
+    """Whether the one-pass variance of the generator constant's first
+    instance norm is lost to rounding: its error, about f32's eps times
+    E[x²], above 1e-3 of the variance in some channel."""
+    x = state.models["generator"].constant.detach().float().flatten(2)
+    var = x.var(dim=2, unbiased=False)
+    meansq = x.square().mean(dim=2)
+    return bool((torch.finfo(torch.float32).eps * meansq > 1e-3 * var).any())
+
+
 def phase_step_card_vs_cpu(args, states, loader, device):
     """One fine-tune step from the same state and batch on the card and on
     the CPU (batch 2, f32, TF32 off, eval-mode pose encoder, augmentation
@@ -894,15 +1040,44 @@ def phase_step_card_vs_cpu(args, states, loader, device):
     is on record; beside each, the card's step with a planted fault (the
     generator's frames FT_FAULT_SCALE off), whose losses must read above
     the gate.  The loss that reads highest is named.  Every reading is
-    printed before any is held to its gate."""
+    printed before any is held to its gate.
+
+    A state whose generator constant is flat is held on its losses and the
+    discriminator's gradient only, and held whole with its constant redrawn
+    from a seeded normal, as the meta step's phase redraws it (ROADMAP.md
+    C.3).  The smoke's states keep the init's constant (ones, moved ~1e-4
+    by a few steps): the first instance norm's one-pass variance then lies
+    below f32's resolution (its rounding error, ~eps·E[x²], is hundreds of
+    times the variance), so that norm, and every generator-side gradient
+    behind it, is rounding on either device (the seeded state's generator
+    gradient read 6.3e-3 and 1.33e-2 in two calls, 6.9e-5 with the
+    constant redrawn)."""
     args = copy.copy(args)
     args.set_eval_mode_in_train = True
     args.use_pixelwise_augs = args.use_affine_scale = \
         args.use_affine_shift = False
     host, keys = _batch_of(loader, 2), holycow.STEP_KEYS
     generator = type(states["trained"].models["generator"])
+    states = dict(states)
+    held = {}       # label: the generator side's tolerance, or None
+    for label in list(states):
+        held[label] = FT_GRAD_TOL
+        if _flat_constant(states[label]):
+            held[label] = None
+            redrawn = _copy_state(states[label], args, torch.device("cpu"))
+            with torch.no_grad():
+                redrawn.models["generator"].constant.normal_(
+                    generator=torch.Generator().manual_seed(1))
+            states[f"{label}, constant redrawn"] = redrawn
+            held[f"{label}, constant redrawn"] = FT_GRAD_TOL
     gaps = {}
     for label, state in states.items():
+        spread = state.models["generator"].constant.detach().std(dim=(2, 3))
+        print(f"finetune step, {label} state: the generator constant's "
+              f"per-channel std min {spread.min():.3g} median "
+              f"{spread.median():.3g} max {spread.max():.3g}; generator "
+              f"side {'held' if held[label] else 'printed, not held'}",
+              flush=True)
         cpu = _run_step(args, state, host, keys, torch.device("cpu"))
         for way, patch in (("card", contextlib.nullcontext),
                            ("card, planted fault",
@@ -914,7 +1089,7 @@ def phase_step_card_vs_cpu(args, states, loader, device):
                         f"s, cpu {cpu[3]:.2f} s)", *gaps[label, way])
     for label in states:
         _require_step(f"finetune step ({label} state)", *gaps[label, "card"],
-                      FT_GRAD_TOL)
+                      held[label])
         name, gap = _worst_loss(gaps[label, "card, planted fault"][0])
         require(gap > STEP_TOL, f"the planted fault passes the fine-tune "
                 f"loss gate ({label} state): {name} {gap} <= {STEP_TOL}")
@@ -999,6 +1174,133 @@ def phase_meta_step_card_vs_cpu(args, state, loader, device):
     require(len(caught) == 2, f"the planted fault passes the gate: {rel}")
 
 
+@contextlib.contextmanager
+def _plain_kernels():
+    """Both hand kernels' places taken by their plain versions, under
+    autograd: ResNeXt-50's links and the generator's AdaIN."""
+    adain = blocks.adain
+    blocks.adain = adain_op.adain_reference
+    try:
+        with _plain_link():
+            yield
+    finally:
+        blocks.adain = adain
+
+
+def _bf16_stats_adain(x, weight, bias, relu=True, eps=1e-4):
+    """AdaIN + ReLU with its statistics in bf16 (the planted fault of the
+    bf16 gate): Σx and Σx² of each (sample, channel) accumulated pixel by
+    pixel in bf16 (beyond 4096 pixels in 4096 rounds, a lane taking every
+    4096th pixel), the lanes summed and the mean, E[x²] and the variance
+    taken in bf16; the rest as the plain version, under autograd."""
+    b, h, w, c = x.shape
+    flat = x.to(torch.bfloat16).reshape(b, h * w, c)
+    rounds = min(4096, h * w)
+    flat = F.pad(flat, (0, 0, 0, -(h * w) % rounds))
+    lanes = flat.reshape(b, rounds, -1, c)
+    total = torch.zeros_like(lanes[:, 0])
+    squares = torch.zeros_like(lanes[:, 0])
+    for i in range(rounds):
+        total = total + lanes[:, i]
+        squares = squares + lanes[:, i] * lanes[:, i]
+    mean = total.sum(dim=1, keepdim=True) / (h * w)
+    var = torch.clamp(squares.sum(dim=1, keepdim=True) / (h * w)
+                      - mean * mean, min=0.0)
+    y = (x.float() - mean.float()[:, None]) * torch.rsqrt(
+        var.float()[:, None] + eps)
+    y = y * weight.float()[:, None, None] + bias.float()[:, None, None]
+    return (torch.relu(y) if relu else y).to(x.dtype)
+
+
+@contextlib.contextmanager
+def _bf16_stats_fault():
+    adain = blocks.adain
+    blocks.adain = _bf16_stats_adain
+    try:
+        yield
+    finally:
+        blocks.adain = adain
+
+
+def _gradient_vectors(run):
+    """{group: flat f64 vector} of one :func:`_run_step`'s gradients: the
+    generator's, the discriminator's, each tower's and the embedder's."""
+    out = {}
+    for (part, kind), leaves in run[2].items():
+        if kind == "gradient":
+            out[part] = torch.cat([v.double().flatten()
+                                   for v in leaves.values()])
+    out["embedder"] = torch.cat([out[k] for k in sorted(out)
+                                 if k.startswith("embedder.")])
+    return out
+
+
+def phase_bf16_step_card(args, state, loader, device):
+    """One meta step in bf16 against the same step in f32, on the card, from
+    the same state and batch (batch 2, augmentation off, the generator's
+    constant redrawn as in :func:`phase_meta_step_card_vs_cpu`, both towers
+    in eval form: in train form their gradients turn any rounding into
+    gaps of 1e-2 to 1 (ROADMAP.md C.3), bf16's effect included, which no
+    planted fault could read above), and the bf16 step with both kernels'
+    places taken by their plain versions: the
+    gate of ``tests/test_torch_bf16.py`` with the plain bf16 step as the
+    second bf16 route, ‖T16 − P16‖ ≤ BF16_C · ‖P16 − T32‖ for the losses
+    and for the generator's, the discriminator's and the embedder's
+    gradients (each tower's is printed too).  The planted fault (AdaIN's
+    statistics in bf16) must read above BF16_C on the generator's gradient
+    in the same run.  Every reading is printed before any is held."""
+    args = copy.copy(args)
+    args.use_pixelwise_augs = args.use_affine_scale = \
+        args.use_affine_shift = False
+    args.set_eval_mode_in_train = True
+    state = _copy_state(state, args, torch.device("cpu"))
+    with torch.no_grad():
+        state.models["generator"].constant.normal_(
+            generator=torch.Generator().manual_seed(1))
+    host, keys = _batch_of(loader, 2), holycow.META_STEP_KEYS
+    bf16 = copy.copy(args)
+    bf16.compute_dtype = "bfloat16"
+    runs = {"T32": _run_step(args, state, host, keys, device),
+            "T16": _run_step(bf16, state, host, keys, device),
+            "P16": _run_step(bf16, state, host, keys, device,
+                             _plain_kernels),
+            "fault": _run_step(bf16, state, host, keys, device,
+                               _bf16_stats_fault)}
+
+    names = sorted(runs["T32"][0])
+    vectors = {}
+    for name, run in runs.items():
+        vectors[name] = _gradient_vectors(run)
+        vectors[name]["losses"] = torch.tensor([run[0][k] for k in names],
+                                               dtype=torch.float64)
+
+    def ratio(a, b, c, group):
+        num = (vectors[a][group] - vectors[b][group]).norm().item()
+        den = (vectors[b][group] - vectors[c][group]).norm().item()
+        return num / den
+
+    groups = sorted(vectors["T32"])
+    gate = {g: ratio("T16", "P16", "T32", g) for g in groups}
+    fault = {g: ratio("fault", "P16", "T32", g) for g in groups}
+    effect = {g: ((vectors["T16"][g] - vectors["T32"][g]).norm()
+                  / vectors["T32"][g].norm()).item() for g in groups}
+    print(f"bf16 vs f32 meta step on the card, batch 2 {args.image_size}² "
+          f"(TF32 off; {runs['T16'][3]:.2f} s bf16, {runs['T32'][3]:.2f} s "
+          f"f32): bf16's effect ‖T16 - T32‖/‖T32‖ " + ", ".join(
+              f"{g} {v:.3g}" for g, v in effect.items()), flush=True)
+    print("bf16 gate ‖T16 - P16‖ / ‖P16 - T32‖ (kernels vs plain, in bf16; "
+          f"gate {BF16_C}): " + ", ".join(f"{g} {v:.3g}"
+                                           for g, v in gate.items())
+          + "; planted fault (AdaIN's statistics in bf16): "
+          + ", ".join(f"{g} {v:.3g}" for g, v in fault.items()), flush=True)
+    held = ("losses", "generator", "discriminator", "embedder")
+    worst = max(held, key=gate.get)
+    require(gate[worst] <= BF16_C, f"the bf16 step on the card: {worst} "
+            f"reads {gate[worst]} > {BF16_C}")
+    require(fault["generator"] > BF16_C, f"the planted fault passes the bf16 "
+            f"gate: generator {fault['generator']} <= {BF16_C}")
+
+
 _META_SAMPLES = {
     "identity tower conv3": lambda s: s.models["embedder"]
     .identity_encoder.layer1_0.conv3.weight,
@@ -1023,15 +1325,37 @@ def _zero_launches():
     adain_op.adain.launches = 0
 
 
-def phase_meta_train(meta_ckpt, workdir, device):
+@contextlib.contextmanager
+def _link_input_layouts(state):
+    """Record, for each Bottleneck of the identity tower, whether its
+    grouped conv's output (the link's input) already lies channels_last, so
+    that the ``.contiguous`` before the link copies nothing."""
+    seen, handles = [], []
+    for module in state.models["embedder"].identity_encoder.modules():
+        if isinstance(module, backbones.Bottleneck):
+            handles.append(module.conv2.register_forward_hook(
+                lambda mod, inputs, out: seen.append(out.is_contiguous(
+                    memory_format=torch.channels_last))))
+    try:
+        yield seen
+    finally:
+        for handle in handles:
+            handle.remove()
+
+
+def phase_meta_train(meta_ckpt, workdir, device, modes=()):
     """The train CLI's meta-train path on the card: resume the seeded meta
-    checkpoint, META_STEPS steps, save, resume the result and take one more
-    step, save.  Returns (args, loader, final checkpoint, launches)."""
+    checkpoint with the flags ``modes`` (``--compute_dtype``,
+    ``--transfer_dtype``), META_STEPS steps on staged batches (as the
+    loader gives them: uint8 on the wire), save, resume the result (its
+    modes from the checkpoint alone) and take one more step, save.  Returns
+    (args, state, loader, final checkpoint, launches, median step ms)."""
     argv = ["--dataloader", "synthetic", "--device", str(device),
             "--allow_random_vgg", "--batch_size", "8", "--num_epochs", "1",
             "--experiments_dir", str(workdir)]
     args = train_cli.resolve_args(argv + ["--checkpoint_path",
-                                          str(meta_ckpt)])
+                                          str(meta_ckpt), *modes])
+    label = f"{args.compute_dtype}, wire {args.transfer_dtype}"
     require(not args.finetune and args.use_pixelwise_augs
             and args.use_affine_scale and args.use_affine_shift
             and args.optimizer == "Adam" and len(args.criterions.split(","))
@@ -1046,6 +1370,10 @@ def phase_meta_train(meta_ckpt, workdir, device):
     batches = [holycow.to_device(loader.get_batch(i), device,
                                  holycow.META_STEP_KEYS)
                for i in range(META_STEPS)]
+    wire = {"uint8": torch.uint8, "float32": torch.float32}
+    require({b[k].dtype for b in batches for k in b if k != "label"}
+            == {wire[args.transfer_dtype]}, f"staged batches are not "
+            f"{args.transfer_dtype}")
     losses, times, launches = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1073,30 +1401,34 @@ def phase_meta_train(meta_ckpt, workdir, device):
         require(not torch.equal(before[key], _sample(f(state))),
                 f"{key} did not change in meta-training")
     median = float(np.median(times))
-    print(f"meta-train: {META_STEPS} steps, step {state.step}, Adam count "
-          f"{state.opt_g.count}; first losses {losses[0]}; last "
+    print(f"meta-train ({label}): {META_STEPS} steps, step {state.step}, "
+          f"Adam count {state.opt_g.count}; first losses {losses[0]}; last "
           f"{losses[-1]}; launches per step {launches[0]}", flush=True)
     busy, _ = device_busy_ms(lambda: step_fn(state, batches[0]), 1)
     idle = "not measured" if busy is None else f"{1 - busy / median:.3f}"
-    print(f"meta-train f32 batch 8 K=8 {args.image_size}², 6 criteria, 3 "
-          f"augmentations: step_ms median={median:.2f} (each "
+    print(f"meta-train {label}, batch 8 K=8 {args.image_size}², 6 criteria, "
+          f"3 augmentations: step_ms median={median:.2f} (each "
           f"{', '.join(f'{t:.1f}' for t in times)}) images/s="
           f"{8 / median * 1e3:.2f} peak_mem_MiB={peak:.0f}; one step "
           f"device_busy_ms={_ms(busy)} idle_share={idle}", flush=True)
     kinds, top = kernel_breakdown(lambda: step_fn(state, batches[1]))
     if kinds is not None:
         traced = sum(kinds.values())
-        print("meta-train step device time by kind: " + "; ".join(
+        print(f"meta-train step ({label}) device time by kind: " + "; ".join(
             f"{k} {v:.2f} ms ({v / traced:.1%})" for k, v in
             sorted(kinds.items(), key=lambda kv: -kv[1])), flush=True)
-        print("meta-train step's ten longest kernels (ms): " + "; ".join(
-            f"{n[:60]} {v:.2f}" for n, v in top), flush=True)
+        print(f"meta-train step's ({label}) ten longest kernels (ms): "
+              + "; ".join(f"{n[:60]} {v:.2f}" for n, v in top), flush=True)
 
     path = train_cli.save(args, state)
     step, count = state.step, state.opt_g.count
     del state, step_fn, batches
     torch.cuda.empty_cache()
+    modes = (args.compute_dtype, args.transfer_dtype)
     args = train_cli.resolve_args(argv + ["--checkpoint_path", str(path)])
+    require((args.compute_dtype, args.transfer_dtype) == modes,
+            f"resumed in {args.compute_dtype}, wire {args.transfer_dtype}; "
+            f"saved in {modes}")
     args.experiment_dir = str(workdir)
     state = train_cli.load_checkpoint(args, device)
     require(state.step == step and state.opt_g.count == count
@@ -1106,17 +1438,23 @@ def phase_meta_train(meta_ckpt, workdir, device):
     step_fn = train_cli.make_step(args, train_cli.build_criteria(args,
                                                                  device))
     _zero_launches()
-    scalars = step_fn(state, holycow.to_device(
-        loader.get_batch(META_STEPS), device, holycow.META_STEP_KEYS))
+    with _link_input_layouts(state) as layouts:
+        scalars = step_fn(state, holycow.to_device(
+            loader.get_batch(META_STEPS), device, holycow.META_STEP_KEYS))
     torch.cuda.synchronize()
     resumed = _launches()
+    require(len(layouts) == 16, f"{len(layouts)} link inputs, expected 16")
+    print(f"meta-train ({label}): {sum(layouts)} of the 16 link inputs "
+          f"leave the grouped conv channels_last ({16 - sum(layouts)} "
+          f"copies a step before the link)", flush=True)
     total = {k: total[k] + v for k, v in resumed.items()}
     require(state.step == step + 1 and state.opt_g.count == count + 1
             and all(np.isfinite(float(v)) for v in scalars.values()),
             f"the resumed step: step {state.step}, count "
             f"{state.opt_g.count}")
     path = train_cli.save(args, state)
-    print(f"meta-train resumed from {Path(args.checkpoint_path).name}: step "
+    print(f"meta-train ({label}) resumed from "
+          f"{Path(args.checkpoint_path).name}: step "
           f"{step} -> {state.step}, Adam count {count} -> "
           f"{state.opt_g.count}; launches {resumed}; saved {path.name}",
           flush=True)
@@ -1178,7 +1516,8 @@ def _counted_steps(record):
             record.append(dict(
                 ms=(time.perf_counter() - t0) * 1e3,
                 launches={k: after[k] - before[k] for k in after},
-                losses={k: float(v) for k, v in scalars.items()}))
+                losses={k: float(v) for k, v in scalars.items()},
+                wire={v.dtype for k, v in batch.items() if k != "label"}))
             return scalars
         return counted
 
@@ -1227,7 +1566,8 @@ def _epoch_meters(meters):
 
 def _loop_times(what, meters, steps):
     """The loop's Data_time and Batch_time (each epoch's mean, ms) and the
-    counted steps' card time; returns the steps' median ms."""
+    counted steps' card time; returns the medians (step, Data_time,
+    Batch_time) in ms."""
     data = [m.get_average("Data_time") * 1e3 for m in meters]
     batch = [m.get_average("Batch_time") * 1e3 for m in meters]
     times = [s["ms"] for s in steps]
@@ -1241,25 +1581,26 @@ def _loop_times(what, meters, steps):
           f"{np.median(data) / np.median(batch):.1%} of Batch_time); step_ms "
           f"median={step:.2f} (each {', '.join(f'{t:.1f}' for t in times)})",
           flush=True)
-    return step
+    return step, float(np.median(data)), float(np.median(batch))
 
 
-def phase_real_data(meta_ckpt, workdir, device, staged_ms):
-    """The real-data path through the CLIs' ``main``: meta-train the seeded
-    flagship meta checkpoint on a VoxCeleb2-layout tree (validation, visuals
-    with the cross-driving columns, fixed probes, PSNR and IoU), fine-tune
-    the result from one video's directory, drive it from another's.
-    Returns (launches on these paths, fine-tuned checkpoint)."""
+def phase_real_data(meta_ckpt, tree, rows, workdir, device, staged_ms,
+                    modes=()):
+    """The real-data path through the CLIs' ``main`` with the flags
+    ``modes`` (``--compute_dtype``, ``--transfer_dtype``): meta-train the
+    seeded flagship meta checkpoint on the VoxCeleb2-layout ``tree``
+    (validation, visuals with the cross-driving columns, fixed probes, PSNR
+    and IoU), fine-tune the result from one video's directory, drive it
+    from another's.  Returns (launches on these paths, {"meta", "finetune":
+    the loop's medians (step, Data_time, Batch_time) ms})."""
     size = META["image_size"]
-    t0 = time.perf_counter()
-    tree, rows = write_tree(Path(workdir) / "tree")
-    print(f"real data: tree of {len(rows)} videos x {TREE['frames']} "
-          f"{SOURCE}² PNG frames and masks in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    wire = torch.uint8 if "uint8" in modes else torch.float32
+    label = " ".join(modes) or "f32"
+    tag = "_bf16" if "bfloat16" in modes else ""
     data = ["--dataloader", "voxceleb2_segmentation_nolandmarks",
             "--data_root", str(tree), "--bboxes_dir",
             str(tree / "bboxes.npy"), "--device", str(device),
-            "--allow_random_vgg", "--experiments_dir", str(workdir)]
+            "--allow_random_vgg", "--experiments_dir", str(workdir), *modes]
     total = {"bn_relu_conv1x1_stats": 0, "adain_fused": 0}
 
     # meta-train: 2 epochs of 2 steps at batch 8, K=8
@@ -1275,7 +1616,8 @@ def phase_real_data(meta_ckpt, workdir, device, staged_ms):
             "--num_epochs", str(REAL_META_EPOCHS), "--no-skip_eval",
             "--metrics", "psnr,segmentation_iou",
             "--log_frequency_images", "2", "--log_frequency_fixed_images",
-            "3", "--fixed_val_ids", "0", "--experiment_name", "real_meta"])
+            "3", "--fixed_val_ids", "0", "--experiment_name",
+            "real_meta" + tag])
     torch.cuda.synchronize()
     launches = _launches()
     total = {k: total[k] + launches[k] for k in total}
@@ -1286,7 +1628,10 @@ def phase_real_data(meta_ckpt, workdir, device, staged_ms):
     require(path.name == f"model_{2 * REAL_META_EPOCHS:08d}.ckpt"
             and state.step == 2 * REAL_META_EPOCHS, f"meta checkpoint "
             f"{path.name} at step {state.step}")
-    experiment = Path(workdir) / "real_meta"
+    require(all(s["wire"] == {wire} for s in steps), f"real-data meta "
+            f"({label}): batches {[s['wire'] for s in steps]}, expected "
+            f"{wire}")
+    experiment = Path(workdir) / ("real_meta" + tag)
     scalars = _scalars(experiment)
     require({"Metrics/train/loss_G", "Metrics/val/PSNR",
              "Fixed_metrics/train/PSNR"} <= set(scalars),
@@ -1305,16 +1650,17 @@ def phase_real_data(meta_ckpt, workdir, device, staged_ms):
                 f"{name} decodes to {shape}, expected {r} x {c} tiles")
     eval_launches = {k: launches[k] - sum(s["launches"][k] for s in steps)
                      for k in launches}
-    print(f"real-data meta-train: {len(steps)} steps, step {state.step}, "
+    print(f"real-data meta-train ({label}): {len(steps)} steps, step "
+          f"{state.step}, "
           f"saved {path.name}; first losses {steps[0]['losses']}; "
           f"launches per step {steps[0]['launches']}; eval forwards' "
           f"launches {eval_launches} (visuals, cross-driving, fixed probes, "
           f"validation); grids {grids}; "
           f"val PSNR {scalars['Metrics/val/PSNR']}", flush=True)
-    meta_step = _loop_times("meta step", meters, steps)
-    print(f"meta step, f32 batch 8 K=8 {size}²: real loader {meta_step:.2f} ms "
-          f"vs staged batches {staged_ms:.2f} ms (same run): "
-          f"{meta_step / staged_ms - 1:+.1%}", flush=True)
+    times = {"meta": _loop_times(f"meta step ({label})", meters, steps)}
+    print(f"meta step, {label} batch 8 K=8 {size}²: real loader "
+          f"{times['meta'][0]:.2f} ms vs staged batches {staged_ms:.2f} ms "
+          f"(same run): {times['meta'][0] / staged_ms - 1:+.1%}", flush=True)
     del state
     torch.cuda.empty_cache()
 
@@ -1340,7 +1686,7 @@ def phase_real_data(meta_ckpt, workdir, device, staged_ms):
                 "--train_split_path", rows[4], "--skip_eval",
                 "--batch_size", "8", "--num_epochs", str(REAL_FT_EPOCHS),
                 "--log_frequency_fixed_images", "1",
-                "--experiment_name", "real_finetune"])
+                "--experiment_name", "real_finetune" + tag])
     finally:
         train_cli.start_finetuning = start_finetuning
     torch.cuda.synchronize()
@@ -1358,11 +1704,14 @@ def phase_real_data(meta_ckpt, workdir, device, staged_ms):
             "the generator did not move in fine-tuning")
     eval_launches = {k: launches[k] - ehat[k]
                      - sum(s["launches"][k] for s in steps) for k in launches}
-    print(f"real-data fine-tune on {rows[4]}: ê launches {ehat}; "
+    require(all(s["wire"] == {wire} for s in steps), f"real-data fine-tune "
+            f"({label}): batches {[s['wire'] for s in steps]}")
+    print(f"real-data fine-tune ({label}) on {rows[4]}: ê launches {ehat}; "
           f"{len(steps)} steps, saved {ft_path.name}; losses "
           f"{steps[-1]['losses']}; fixed probes' launches {eval_launches}",
           flush=True)
-    _loop_times("fine-tune step", meters, steps)
+    times["finetune"] = _loop_times(f"fine-tune step ({label})", meters,
+                                    steps)
     del state
     torch.cuda.empty_cache()
 
@@ -1376,20 +1725,24 @@ def phase_real_data(meta_ckpt, workdir, device, staged_ms):
         ft_path, ["--compute_dtype", "float32"], frames)
     total["adain_fused"] += drive_launches
 
-    # the loader on this host: frames/s of the dataset's crop, and batches
+    # the loader on this host: frames/s of the dataset's crop (the wire's
+    # entry under uint8), and batches
     paths = sorted((tree / "images-cropped").rglob("*.png"))[:72]
     boxes = np.tile([[-0.1, -0.1, 1.1, 1.1]], (len(paths), 1))
     loader = native_loader.NativeBatchLoader()
-    loader.load_cropped(paths[:8], boxes[:8], np.ones(8, np.uint8), size)
+    out = np.uint8 if wire == torch.uint8 else np.float32
+    loader.load_cropped(paths[:8], boxes[:8], np.ones(8, np.uint8), size, out)
     t0 = time.perf_counter()
-    loader.load_cropped(paths, boxes, np.ones(len(paths), np.uint8), size)
+    loader.load_cropped(paths, boxes, np.ones(len(paths), np.uint8), size,
+                        out)
     fps = len(paths) / (time.perf_counter() - t0)
     loader.close()
-    print(f"native loader on this host ({os.cpu_count()} CPUs, JPEG decoder "
+    print(f"native loader ({np.dtype(out).name} entry) on this host "
+          f"({os.cpu_count()} CPUs, JPEG decoder "
           f"{native_loader.jpeg_decoder()}): {fps:.1f} frames/s "
           f"({SOURCE}² PNG -> padded crop -> {size}², 72 frames = one meta "
           f"batch's loads, {72 / fps * 1e3:.1f} ms)", flush=True)
-    return total
+    return total, times
 
 
 def int8_conv_bound_ms(b, cin, cout, k, side, peak):
@@ -1720,7 +2073,9 @@ def main():
     (conv_err, conv_ms, conv_plain_ms, conv_bound, conv_bound_by,
      conv_library_ms, conv_device_ms) = phase_conv_bn(device)
     phase_int8_convs(device)
-    conv_bwd_ms, conv_bwd_device_ms = phase_conv_bn_train(device)
+    conv_train = phase_conv_bn_train(device)
+    conv_train16 = phase_conv_bn_train(device, torch.bfloat16)
+    adain_train16 = phase_adain_train(device)
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as workdir:
@@ -1740,10 +2095,33 @@ def main():
                                        device)
         phase_meta_step_card_vs_cpu(meta_args, meta_state, meta_loader,
                                     device)
+        phase_bf16_step_card(meta_args, meta_state, meta_loader, device)
         del meta_state, meta_loader
         torch.cuda.empty_cache()
-        real_launches = phase_real_data(meta_ckpt, Path(workdir) / "real",
-                                        device, staged_ms)
+        (_, _, _, _, meta16_launches, staged16_ms) = phase_meta_train(
+            meta_ckpt, Path(workdir) / "metatrain_bf16", device, BF16_MODES)
+        print(f"meta step, staged batches, batch 8 K=8: bf16 + uint8 wire "
+              f"{staged16_ms:.2f} ms against f32 {staged_ms:.2f} ms (same "
+              f"run): {staged16_ms / staged_ms:.3f} of the f32 step",
+              flush=True)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tree, rows = write_tree(Path(workdir) / "tree")
+        print(f"real data: tree of {len(rows)} videos x {TREE['frames']} "
+              f"{SOURCE}² PNG frames and masks in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        real_launches, real_times = phase_real_data(
+            meta_ckpt, tree, rows, Path(workdir) / "real", device, staged_ms)
+        real16_launches, real16_times = phase_real_data(
+            meta_ckpt, tree, rows, Path(workdir) / "real", device,
+            staged16_ms, BF16_MODES)
+        for regime in ("meta", "finetune"):
+            (a, b) = real_times[regime], real16_times[regime]
+            print(f"real data, {regime} through the CLI: f32 step_ms "
+                  f"{a[0]:.2f} Data_time_ms {a[1]:.2f} Batch_time_ms "
+                  f"{a[2]:.2f} ({a[1] / a[2]:.1%}); bf16 + uint8 step_ms "
+                  f"{b[0]:.2f} Data_time_ms {b[1]:.2f} Batch_time_ms "
+                  f"{b[2]:.2f} ({b[1] / b[2]:.1%})", flush=True)
         (ft_args, ft_state, ft_seeded, loader, ft_ckpt,
          ft_launches) = phase_finetune(
             trained_ckpt, Path(workdir) / "finetune", device)
@@ -1754,8 +2132,10 @@ def main():
         phase_step_card_vs_cpu(ft_args, {"seeded": ft_seeded,
                                           "trained": ft_state}, loader,
                                device)
+    bf16_launches = {k: meta16_launches[k] + real16_launches[k]
+                     for k in ft_launches}
     launches = {k: meta_launches[k] + ft_launches[k] + real_launches[k]
-                for k in ft_launches}
+                + bf16_launches[k] for k in ft_launches}
     launches["adain_fused"] += int8_adains
 
     print(f"smoke total: {time.perf_counter() - started:.1f} s", flush=True)
@@ -1767,7 +2147,9 @@ def main():
         "ms": adain_ms, "plain_ms": adain_plain_ms, "bound_ms": adain_bound,
         "bound_by": "bytes", "device_ms": adain_device_ms, "library_ms": None,
         "library_call": "none: no single PyTorch call computes instance "
-                        "norm with a per-sample affine and ReLU"}, {
+                        "norm with a per-sample affine and ReLU",
+        "bf16_train_launches": bf16_launches["adain_fused"],
+        "bf16_train": adain_train16}, {
         "name": "bn_relu_conv1x1_stats", "route": "cuda",
         "source": "latentpose_tpu_torch/csrc/conv_bn_fused.cu",
         "replaces": "latentpose_tpu/ops/pallas/conv_bn_fused.py:58",
@@ -1778,8 +2160,10 @@ def main():
         "library_ms": conv_library_ms,
         "library_call": "torch.matmul(h, w), the product alone on the "
                         "already-normalised activation, f32, TF32 off",
-        "train_backward_ms": conv_bwd_ms,
-        "train_backward_device_ms": conv_bwd_device_ms}]}))
+        "train_backward_ms": conv_train["backward_ms"],
+        "train_backward_device_ms": conv_train["backward_device_ms"],
+        "bf16_train_launches": bf16_launches["bn_relu_conv1x1_stats"],
+        "bf16_train": conv_train16}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

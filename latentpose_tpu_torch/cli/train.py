@@ -25,6 +25,11 @@ mean identity embedding over the avatar's frames), re-parameterises and
 trains the generator and ê with RAdam and an EMA of 0.972; from a
 fine-tuned checkpoint it resumes.
 
+``--compute_dtype bfloat16`` trains with bf16 activations where the JAX
+package casts (``runners/holycow.py`` has the dtype map), and
+``--transfer_dtype uint8`` sends the images to the device as bytes, which
+the step divides by 255 there; both are saved with the checkpoint's args.
+
 The loop (``runners/loop.py``) logs scalars and visual grids to the
 experiment's directory, runs the fixed-id probes, validation with
 ``--no-skip_eval`` and the ``--saver``, and saves in the JAX layout,
@@ -238,11 +243,11 @@ def resolve_args(argv=None):
                              "that carries it, or take a config "
                              f"(--config_name, one of {sorted(CONFIGS)})")
 
-    if args.compute_dtype != "float32":
-        _refuse(f"--compute_dtype {args.compute_dtype} in training", "A.14")
-    if args.transfer_dtype != "float32":
-        _refuse(f"--transfer_dtype {args.transfer_dtype} (the loader's uint8 "
-                "wire)", "A.14")
+    for flag, values in (("compute_dtype", holycow.DTYPES),
+                         ("transfer_dtype", ("float32", "uint8"))):
+        if getattr(args, flag) not in values:
+            raise ValueError(f"--{flag} {getattr(args, flag)!r}: one of "
+                             f"{sorted(values)}")
     if args.grad_dtype != "float32" or args.explicit_grad_reduce \
             or (args.num_devices or 1) > 1:
         _refuse("multi-device training (--num_devices > 1, --grad_dtype, "
@@ -346,7 +351,8 @@ def start_finetuning(args, state, dataloader, device):
     """ê over one pass of ``dataloader``, then the fine-tune state."""
     logger.info("Fine-tuning: computing averaged identity embedding from the "
                 "avatar's frames")
-    e_hat = ft.compute_averaged_identity_embedding(state, dataloader, device)
+    e_hat = ft.compute_averaged_identity_embedding(
+        state, dataloader, device, holycow.compute_dtype(args))
     generator = torch.Generator().manual_seed(args.random_seed)
     state = ft.enable_finetuning(state, args, e_hat, generator=generator)
     args.num_labels = 1

@@ -27,6 +27,9 @@
 //                             float* out /* n*S*S */);
 //   int   lpr_crop_segm(mask /* h*w uint8 */, h, w, bbox, has_bbox, out_size,
 //                       float* out /* S*S */);
+//   int   lpr_load_cropped_batch_u8, lpr_load_segm_batch_u8,
+//         lpr_crop_segm_u8(... unsigned char* out);  // the uint8 wire:
+//         the float entries' results as uint8(v * 255 + 0.5)
 //   int   lpr_decode(path, unsigned char* out /* or NULL */, size_t cap,
 //                    int* h, int* w);  // one image at its own size, RGB u8
 // Each batch entry returns the number of images that failed to load (their
@@ -989,6 +992,15 @@ void crop_segm(const unsigned char* src, int H0, int W0, const double* bbox,
   resize_linear_u8(out, h, w, out_size, out_size, dst);
 }
 
+// The wire's quantization of values in [0, 1]: uint8(v * 255 + 0.5), in
+// f32 and clamped, as native/lpr_loader.cpp's lpr_load_cropped_batch_u8.
+void quantize_u8(const float* src, size_t n, unsigned char* dst) {
+  for (size_t j = 0; j < n; ++j) {
+    const float v = src[j] * 255.0f + 0.5f;
+    dst[j] = (unsigned char)(v < 0.f ? 0.f : (v > 255.f ? 255.f : v));
+  }
+}
+
 // ---------- thread pool ----------
 
 class Pool {
@@ -1139,6 +1151,59 @@ int lpr_load_segm_batch(void* pool, const char** paths, int n,
 int lpr_crop_segm(const unsigned char* mask, int h, int w, const double* bbox,
                   int has_bbox, int out_size, float* out) {
   crop_segm(mask, h, w, bbox, has_bbox != 0, out_size, out);
+  return 0;
+}
+
+// The uint8 wire (--transfer_dtype uint8): each entry runs its float
+// entry's pipeline on the loader thread and writes uint8(v * 255 + 0.5),
+// clamped to [0, 255] (latentpose_tpu/runners/loop.py quantize_batch_u8),
+// so a batch crosses to the device as bytes with no pass on the host.
+int lpr_load_cropped_batch_u8(void* pool, const char** paths, int n,
+                              const double* bboxes,
+                              const unsigned char* has_bbox, int out_size,
+                              unsigned char* out) {
+  const size_t stride = size_t(out_size) * out_size * 3;
+  return run_batch(pool, n, [&](int i) {
+    Image img;
+    unsigned char* dst = out + stride * i;
+    if (!decode_file(paths[i], &img)) {
+      std::memset(dst, 0, stride);
+      return false;
+    }
+    std::vector<float> tmp(stride);
+    crop_image(img, bboxes + 4 * i, has_bbox[i] != 0, out_size, tmp.data());
+    quantize_u8(tmp.data(), stride, dst);
+    return true;
+  });
+}
+
+int lpr_load_segm_batch_u8(void* pool, const char** paths, int n,
+                           const double* bboxes, const unsigned char* has_bbox,
+                           int out_size, unsigned char* out) {
+  const size_t stride = size_t(out_size) * out_size;
+  return run_batch(pool, n, [&](int i) {
+    Image img;
+    unsigned char* dst = out + stride * i;
+    if (!decode_file(paths[i], &img)) {
+      std::memset(dst, 0, stride);
+      return false;
+    }
+    std::vector<unsigned char> green(size_t(img.w) * img.h);
+    for (size_t j = 0; j < green.size(); ++j) green[j] = img.rgb[j * 3 + 1];
+    std::vector<float> tmp(stride);
+    crop_segm(green.data(), img.h, img.w, bboxes + 4 * i, has_bbox[i] != 0,
+              out_size, tmp.data());
+    quantize_u8(tmp.data(), stride, dst);
+    return true;
+  });
+}
+
+int lpr_crop_segm_u8(const unsigned char* mask, int h, int w,
+                     const double* bbox, int has_bbox, int out_size,
+                     unsigned char* out) {
+  std::vector<float> tmp(size_t(out_size) * out_size);
+  crop_segm(mask, h, w, bbox, has_bbox != 0, out_size, tmp.data());
+  quantize_u8(tmp.data(), tmp.size(), out);
   return 0;
 }
 

@@ -99,9 +99,16 @@ def library() -> ctypes.CDLL:
     lib.lpr_decode.argtypes = [ctypes.c_char_p, u8, ctypes.c_size_t,
                                ctypes.POINTER(ctypes.c_int),
                                ctypes.POINTER(ctypes.c_int)]
-    lib.lpr_crop_segm.restype = ctypes.c_int
-    lib.lpr_crop_segm.argtypes = [u8, ctypes.c_int, ctypes.c_int, f64,
-                                  ctypes.c_int, ctypes.c_int, f32]
+    for name in ("lpr_load_cropped_batch_u8", "lpr_load_segm_batch_u8"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, c_paths, ctypes.c_int, f64, u8,
+                       ctypes.c_int, u8]
+    for name, out in (("lpr_crop_segm", f32), ("lpr_crop_segm_u8", u8)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [u8, ctypes.c_int, ctypes.c_int, f64, ctypes.c_int,
+                       ctypes.c_int, out]
     return lib
 
 
@@ -122,6 +129,11 @@ def decode(path):
     lib.lpr_decode(name, _ptr(out, ctypes.c_ubyte), out.nbytes,
                    ctypes.byref(h), ctypes.byref(w))
     return out
+
+
+# the C entries of each output dtype: the float ones, and the uint8 wire's
+_SUFFIX = {np.float32: "", np.uint8: "_u8"}
+_CTYPE = {np.float32: ctypes.c_float, np.uint8: ctypes.c_ubyte}
 
 
 def _ptr(array, ctype):
@@ -160,46 +172,51 @@ class NativeBatchLoader:
             target_size, target_size, _ptr(out, ctypes.c_float))
         return out, failed
 
-    def _cropped(self, fn, paths, bboxes, has_bbox, shape):
+    def _cropped(self, name, paths, bboxes, has_bbox, shape, dtype):
         n = len(paths)
-        out = np.empty((n, *shape), np.float32)
+        out = np.empty((n, *shape), dtype)
         bb = np.ascontiguousarray(bboxes, np.float64).reshape(n, 4)
         hb = np.ascontiguousarray(has_bbox, np.uint8).reshape(n)
+        fn = getattr(self._lib, name + _SUFFIX[dtype])
         failed = fn(self._pool, _c_paths(paths), n, _ptr(bb, ctypes.c_double),
                     _ptr(hb, ctypes.c_ubyte), shape[0],
-                    _ptr(out, ctypes.c_float))
+                    _ptr(out, _CTYPE[dtype]))
         return out, failed
 
-    def load_cropped(self, paths, bboxes, has_bbox, out_size):
+    def load_cropped(self, paths, bboxes, has_bbox, out_size,
+                     dtype=np.float32):
         """The dataset's frame crop: decode -> bbox crop with blur-faded
         reflect101 padding (the VoxCeleb2.1 1px border strip when
         ``has_bbox``) -> AREA/CUBIC resize.
 
         paths: N files; bboxes: (N, 4) float64 (l, t, r, b) in [0, 1]
         (already squared and scaled); has_bbox: (N,) bool.
-        Returns (images (N, out, out, 3) float32 in [0, 1], n_failed).
+        Returns (images (N, out, out, 3) float32 in [0, 1], n_failed); with
+        ``dtype`` uint8, those values as the wire's uint8(v * 255 + 0.5),
+        quantized on the loader's threads.
         """
-        return self._cropped(self._lib.lpr_load_cropped_batch, paths, bboxes,
-                             has_bbox, (out_size, out_size, 3))
+        return self._cropped("lpr_load_cropped_batch", paths, bboxes,
+                             has_bbox, (out_size, out_size, 3), dtype)
 
-    def load_segm(self, paths, bboxes, has_bbox, out_size):
+    def load_segm(self, paths, bboxes, has_bbox, out_size, dtype=np.float32):
         """The dataset's segmentation crop of PNG masks (channel 1):
         replicate padding on the sides and bottom, zeros on top, the pads
         blurred and faded to 0 at the sides -> INTER_LINEAR resize.
-        Returns (masks (N, out, out) float32 in [0, 1], n_failed)."""
-        return self._cropped(self._lib.lpr_load_segm_batch, paths, bboxes,
-                             has_bbox, (out_size, out_size))
+        Returns (masks (N, out, out) float32 in [0, 1], n_failed), or uint8
+        as :meth:`load_cropped`."""
+        return self._cropped("lpr_load_segm_batch", paths, bboxes, has_bbox,
+                             (out_size, out_size), dtype)
 
     @staticmethod
-    def crop_segm(mask, bbox, has_bbox, out_size):
+    def crop_segm(mask, bbox, has_bbox, out_size, dtype=np.float32):
         """:meth:`load_segm`'s crop of one (H, W) uint8 mask array."""
         mask = np.ascontiguousarray(mask, np.uint8)
         bb = np.ascontiguousarray(bbox, np.float64)
-        out = np.empty((out_size, out_size), np.float32)
-        library().lpr_crop_segm(_ptr(mask, ctypes.c_ubyte), mask.shape[0],
-                                mask.shape[1], _ptr(bb, ctypes.c_double),
-                                int(bool(has_bbox)), out_size,
-                                _ptr(out, ctypes.c_float))
+        out = np.empty((out_size, out_size), dtype)
+        getattr(library(), "lpr_crop_segm" + _SUFFIX[dtype])(
+            _ptr(mask, ctypes.c_ubyte), mask.shape[0], mask.shape[1],
+            _ptr(bb, ctypes.c_double), int(bool(has_bbox)), out_size,
+            _ptr(out, _CTYPE[dtype]))
         return out
 
     def close(self):

@@ -26,7 +26,8 @@ class Wrapper:
             num_enc_frames=args.num_enc_frames,
             frames_per_video=args.synthetic_frames_per_video,
             finetune=bool(args.finetune),
-            seed=args.random_seed + (0 if part == "train" else 1))
+            seed=args.random_seed + (0 if part == "train" else 1),
+            wire_dtype=getattr(args, "transfer_dtype", "float32"))
 
 
 def _identity_style(label: int):
@@ -86,6 +87,15 @@ def render_face(label: int, frame: int, image_size: int):
         head[..., None], dtype=np.float32))
 
 
+def render_face_u8(label: int, frame: int, image_size: int):
+    """The uint8 wire's twin of :func:`render_face`: (image, segm, target =
+    image * segm), each uint8(x * 255 + 0.5) of the f32 render, so the
+    device's / 255 gives the f32 loader's batch to 8-bit rounding."""
+    img, segm = render_face(label, frame, image_size)
+    return tuple((x * 255.0 + 0.5).astype(np.uint8)
+                 for x in (img, segm, img * segm))
+
+
 class SyntheticDataLoader:
     """Iterable of (data_dict, target_dict) numpy batches, drawn with the JAX
     loader's ``RandomState`` sequence:
@@ -102,18 +112,20 @@ class SyntheticDataLoader:
 
     An epoch has ``max(1, num_labels // batch_size)`` batches.  Renders are
     cached: the pose has period 32, so a run touches at most 32 frames of
-    each identity.
+    each identity.  ``wire_dtype`` 'uint8' emits the wire's bytes from a
+    cache of :func:`render_face_u8` renders, with no pass over a batch.
     """
 
     def __init__(self, image_size, batch_size, num_labels=16,
                  num_enc_frames=8, frames_per_video=32, finetune=True,
-                 seed=0):
+                 seed=0, wire_dtype="float32"):
         self.image_size = image_size
         self.batch_size = batch_size
         self.num_enc_frames = num_enc_frames
         self.frames_per_video = frames_per_video
         self.finetune = finetune
         self.seed = seed
+        self.u8 = {"float32": False, "uint8": True}[wire_dtype]
         self.steps_per_epoch = max(1, num_labels // batch_size)
         # the discriminator's W has one row when fine-tuning
         self.num_labels = 1 if finetune else num_labels
@@ -124,34 +136,39 @@ class SyntheticDataLoader:
         return self.steps_per_epoch
 
     def _render(self, label, frame):
+        """(image, segm, target) of a frame, f32 or the wire's uint8."""
         key = (label, frame % 32)
         if key not in self._cache:
-            self._cache[key] = render_face(label, frame, self.image_size)
+            if self.u8:
+                self._cache[key] = render_face_u8(label, frame,
+                                                  self.image_size)
+            else:
+                img, segm = render_face(label, frame, self.image_size)
+                self._cache[key] = img, segm, img * segm
         return self._cache[key]
 
     def sample(self, label: int, rng):
-        """(enc (K, H, W, 3), driver (H, W, 3), segm (H, W, 1))."""
+        """(enc (K, H, W, 3), driver (H, W, 3), segm (H, W, 1), target
+        (H, W, 3))."""
         frames = rng.randint(0, self.frames_per_video,
                              size=self.num_enc_frames + 2)
         if self.finetune:
-            img, segm = self._render(label, int(frames[0]))
-            return np.stack([img] * self.num_enc_frames), img, segm
+            img, segm, target = self._render(label, int(frames[0]))
+            return np.stack([img] * self.num_enc_frames), img, segm, target
         enc = np.stack([self._render(label, int(f))[0]
                         for f in frames[:self.num_enc_frames]])
-        driver, segm = self._render(label, int(frames[-2]))
-        return enc, driver, segm
+        return (enc, *self._render(label, int(frames[-2])))
 
     def get_batch(self, it: int):
         rng = np.random.RandomState(self.seed + it + 100003 * self.epoch)
         labels = rng.randint(0, self.num_labels, size=self.batch_size)
-        encs, imgs, segms = zip(*(self.sample(int(label), rng)
-                                  for label in labels))
-        imgs, segms = np.stack(imgs), np.stack(segms)
+        encs, imgs, segms, targets = zip(*(self.sample(int(label), rng)
+                                           for label in labels))
         data_dict = {"enc_rgbs": np.stack(encs),
-                     "pose_input_rgbs": imgs[:, None]}
+                     "pose_input_rgbs": np.stack(imgs)[:, None]}
         target_dict = {
-            "target_rgbs": (imgs * segms)[:, None].astype(np.float32),
-            "real_segm": segms[:, None],
+            "target_rgbs": np.stack(targets)[:, None],
+            "real_segm": np.stack(segms)[:, None],
             "label": labels.astype(np.int32),
         }
         return data_dict, target_dict

@@ -24,6 +24,10 @@ on thread order.  The val part and the fixed probes draw deterministically
 
 Keys emitted (NHWC, f32): enc_rgbs (K, H, W, 3), pose_input_rgbs
 (1, H, W, 3), target_rgbs (1, H, W, 3), real_segm (1, H, W, 1), label ().
+With ``--transfer_dtype uint8`` (the wire) the images, masks and target are
+uint8 from the C++ pool on: the float values as uint8(v * 255 + 0.5), the
+target floor(i * s / 255 + 0.5) of the uint8 image and mask, as the JAX
+dataset computes them.
 """
 
 from __future__ import annotations
@@ -49,7 +53,8 @@ class Wrapper:
         dirlist = voxceleb.get_part_data(args, part)
         loader = SegmSampleLoader(
             args.data_root, img_dir=args.img_dir, segm_dir=args.segm_dir,
-            bboxes_dir=args.bboxes_dir, deterministic=part != "train")
+            bboxes_dir=args.bboxes_dir, deterministic=part != "train",
+            wire_dtype=getattr(args, "transfer_dtype", "float32"))
         dataset = VoxCeleb2SegmDataset(
             dirlist, loader, bool(args.inference), args.n_frames_for_encoder,
             args.image_size, seed=args.random_seed)
@@ -61,12 +66,14 @@ class Wrapper:
 
 
 class SegmSampleLoader(voxceleb.SampleLoader):
-    """Adds the bbox crop and the segmentation to the frame sampler."""
+    """Adds the bbox crop and the segmentation to the frame sampler;
+    ``wire_dtype`` 'uint8' loads images and masks as the wire's bytes."""
 
     def __init__(self, data_root, img_dir=None, segm_dir=None,
-                 bboxes_dir=None, deterministic=False):
+                 bboxes_dir=None, deterministic=False, wire_dtype="float32"):
         super().__init__(data_root, img_dir, deterministic=deterministic)
         self.segm_dir = segm_dir
+        self.dtype = {"float32": np.float32, "uint8": np.uint8}[wire_dtype]
         try:
             # the preprocessing's dict {identity: {sequence: (N, 4)}}
             self.bboxes = np.load(str(bboxes_dir), allow_pickle=True).item()
@@ -102,33 +109,37 @@ class SegmSampleLoader(voxceleb.SampleLoader):
         return np.asarray(boxes, np.float64), np.asarray(flags, np.uint8)
 
     def load_images(self, path, ids, imsize):
-        """(N, imsize, imsize, 3) f32: frames ``ids`` of one sequence,
-        decoded, cropped and resized in one call of the C++ pool."""
+        """(N, imsize, imsize, 3) f32 (or the wire's uint8): frames ``ids``
+        of one sequence, decoded, cropped and resized in one call of the
+        C++ pool."""
         boxes, flags = self._boxes(path, ids)
         images, failed = self.native.load_cropped(
-            [self.resolve_image(path, i) for i in ids], boxes, flags, imsize)
+            [self.resolve_image(path, i) for i in ids], boxes, flags, imsize,
+            self.dtype)
         if failed:   # their slots are zeros
             logger.error("%d/%d frames failed to load under %s", failed,
                          len(ids), path)
         return images
 
     def load_segm(self, path, ids, imsize):
-        """(N, imsize, imsize, 1) f32: the masks of frames ``ids``, from
-        ``<i>.png`` (channel 1) or ``<i>.png.npy`` (channel 0)."""
+        """(N, imsize, imsize, 1) f32 (or the wire's uint8): the masks of
+        frames ``ids``, from ``<i>.png`` (channel 1) or ``<i>.png.npy``
+        (channel 0)."""
         base = Path(self.data_root) / self.segm_dir / path
         boxes, flags = self._boxes(path, ids)
-        out = np.empty((len(ids), imsize, imsize, 1), np.float32)
+        out = np.empty((len(ids), imsize, imsize, 1), self.dtype)
         for n, i in enumerate(ids):
             png, npy = base / (i + ".png"), base / (i + ".png.npy")
             if png.exists():
                 masks, failed = self.native.load_segm(
-                    [png], boxes[n:n + 1], flags[n:n + 1], imsize)
+                    [png], boxes[n:n + 1], flags[n:n + 1], imsize, self.dtype)
                 if failed:
                     logger.critical("Couldn't load segmentation %s", png)
                 out[n, ..., 0] = masks[0]
             elif npy.exists():
                 out[n, ..., 0] = self.native.crop_segm(
-                    np.load(str(npy))[:, :, 0], boxes[n], flags[n], imsize)
+                    np.load(str(npy))[:, :, 0], boxes[n], flags[n], imsize,
+                    self.dtype)
             else:
                 raise FileNotFoundError(f"Sample {png} not found")
         return out
@@ -142,6 +153,16 @@ class SegmSampleLoader(voxceleb.SampleLoader):
         if load_segmentation:
             out["segmentation"] = self.load_segm(path, [i], imsize)[0]
         return out
+
+
+def masked_target(image, segm):
+    """target = image * segmentation, in the wire's dtype: uint8 inputs give
+    floor(i * s / 255 + 0.5) in f32 (the JAX dataset's ``_masked_target``),
+    f32 ones their product."""
+    if image.dtype == np.uint8:
+        return np.floor(image.astype(np.float32) * segm.astype(np.float32)
+                        / 255.0 + 0.5).astype(np.uint8)
+    return image * segm
 
 
 def frame_key(seed: int, epoch: int, index: int) -> int:
@@ -178,7 +199,7 @@ class VoxCeleb2SegmDataset(voxceleb.VoxCeleb2DatasetBase):
             data_dict["pose_input_rgbs"] = image
             if not self.inference:
                 segm = sample["segmentation"][None]
-                data_dict["target_rgbs"] = image * segm
+                data_dict["target_rgbs"] = masked_target(image, segm)
                 target_dict["real_segm"] = segm
             target_dict["label"] = 0
         else:
@@ -191,7 +212,7 @@ class VoxCeleb2SegmDataset(voxceleb.VoxCeleb2DatasetBase):
             data_dict["pose_input_rgbs"] = images[-1:]
             if not self.inference:
                 segm = self.loader.load_segm(path, ids[-1:], self.imsize)
-                data_dict["target_rgbs"] = images[-1:] * segm
+                data_dict["target_rgbs"] = masked_target(images[-1:], segm)
                 target_dict["real_segm"] = segm
             target_dict["label"] = index
 

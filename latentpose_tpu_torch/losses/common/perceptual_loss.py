@@ -6,7 +6,10 @@
   (103.939, 116.779, 123.680)/255 in that order (the reference applies the
   BGR means to RGB tensors; reproduced) and std 1/255;
 - loss = weight × Σ over the 13 ReLU maps of mean |f(x) − f(y)|, the target
-  detached.
+  detached;
+- ``compute_dtype`` 'bfloat16' runs the tower in bf16 on the normalised
+  inputs cast to it; each difference f(x) − f(y) is taken in bf16 and its
+  mean in f32, as the JAX package computes it.
 
 Weights are the JAX package's converted ``vgg19_caffe.npz`` /
 ``vgg_face.npz`` (keys ``conv<i>/kernel`` HWIO and ``conv<i>/bias``), found
@@ -51,8 +54,9 @@ def load_tower_arrays(tower, params):
 
 class PerceptualLoss:
     def __init__(self, weight, vgg_weights_dir=None, net="caffe",
-                 allow_random=False, device=None):
+                 allow_random=False, device=None, compute_dtype="float32"):
         self.weight = float(weight)
+        self.dtype = getattr(torch, compute_dtype)
         cfg = VGG19_CFG if net == "caffe" else VGG16_CFG
         self.module = VGGFeatures(cfg, num_layers=30, generator=torch.Generator()
                                   .manual_seed(RANDOM_SEED))
@@ -84,9 +88,10 @@ class PerceptualLoss:
         """input, target: (B, H, W, 3) in the generator's output range."""
         x = (input + 1.0) / 2.0
         y = (target.detach() + 1.0) / 2.0
-        feats_x = self.module(self._normalize(x))
-        feats_y = self.module(self._normalize(y))
+        feats_x = self.module(self._normalize(x).to(self.dtype))
+        feats_y = self.module(self._normalize(y).to(self.dtype))
         loss = 0.0
         for fx, fy in zip(feats_x, feats_y):
+            # the difference in the tower's dtype, its mean in f32
             loss = loss + (fx - fy).abs().float().mean()
         return loss * self.weight

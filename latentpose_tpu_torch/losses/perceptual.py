@@ -10,15 +10,18 @@ class Wrapper:
     @staticmethod
     def get_net(args, device=None):
         return Criterion(args.perc_weight, args.vgg_weights_dir,
-                         allow_random=args.allow_random_vgg, device=device)
+                         allow_random=args.allow_random_vgg, device=device,
+                         compute_dtype=getattr(args, "compute_dtype",
+                                                "float32"))
 
 
 class Criterion:
     def __init__(self, perc_weight, vgg_weights_dir, allow_random=False,
-                 device=None):
+                 device=None, compute_dtype="float32"):
         self.perceptual_crit = PerceptualLoss(
             perc_weight, vgg_weights_dir, net="caffe",
-            allow_random=allow_random, device=device)
+            allow_random=allow_random, device=device,
+            compute_dtype=compute_dtype)
 
     def __call__(self, data_dict):
         fake_rgb = strip_time(data_dict["fake_rgbs"])

@@ -25,7 +25,15 @@ takes its batch statistics from the kernel's (Σy, Σy²) rather than a second
 pass over y.
 
 Parameters stay f32; under bf16 a forward casts conv and linear weights to
-the input's dtype and BatchNorm runs with f32 statistics on bf16 input.
+the input's dtype.  BatchNorm on bf16 input computes what flax 0.12's
+``nn.BatchNorm(dtype=bfloat16)`` computes in train form (``_compute_stats``,
+``_normalize``): the statistics in f32 from the input upcast, ``(x - mean) *
+(rsqrt(var + eps) * scale) + bias`` in f32, one cast to bf16 at the end; the
+running statistics update in f32.  The eval form takes
+``F.batch_norm`` (cuDNN on the card), which folds the statistics into one
+scale and shift before its single rounding.  In the train form the link
+hands bn3 its statistics from the kernel's f32 accumulator, where flax's bn3
+takes them from the bf16-rounded y (ROADMAP.md C.5).
 """
 
 from __future__ import annotations
@@ -74,12 +82,13 @@ class BatchNorm(nn.BatchNorm2d):
 
     def track(self, mean, var):
         """Move the running statistics toward a batch's (mean, biased
-        variance)."""
+        variance), rounding as flax does: ``0.9 * running + 0.1 * batch``,
+        each product rounded (an ``add_`` with ``alpha`` may fuse them)."""
         with torch.no_grad():
-            self.running_mean.mul_(self.MOMENTUM).add_(
-                mean, alpha=1 - self.MOMENTUM)
-            self.running_var.mul_(self.MOMENTUM).add_(
-                var, alpha=1 - self.MOMENTUM)
+            for running, batch in ((self.running_mean, mean),
+                                   (self.running_var, var)):
+                running.copy_(self.MOMENTUM * running
+                              + (1 - self.MOMENTUM) * batch)
 
     def normalize(self, x, mean, var, dim: int = 1):
         """flax's train-form normalisation of x (channels on ``dim``) by
@@ -245,8 +254,8 @@ class ResNeXt50(nn.Module):
     """resnext50_32x4d with a ``num_classes`` fc (512 for identity);
     ``layers``, the bottlenecks of each stage, as the JAX module's field.
     Modules work in ``channels_last``, so the fused link sees a contiguous
-    NHWC buffer without a copy.  The train form runs in f32 (bf16 training
-    is ROADMAP.md A.14)."""
+    NHWC buffer without a copy.  Both forms run in the input's dtype (f32 or
+    bf16)."""
 
     LAYERS = (3, 4, 6, 3)
 
@@ -275,10 +284,6 @@ class ResNeXt50(nn.Module):
     def forward(self, x, train: bool = False):
         """x: (B, C, H, W) -> (B, num_classes).  ``train``: batch
         statistics, updating the running ones."""
-        if train and x.dtype != torch.float32:
-            raise NotImplementedError(
-                f"ResNeXt-50's train form in {x.dtype} is not ported to "
-                "PyTorch yet (bf16 training, ROADMAP.md A.14)")
         h = x.contiguous(memory_format=torch.channels_last)
         h = torch.relu(self.bn1(self.conv1(h), train))
         h = F.max_pool2d(h, 3, 2, padding=1)

@@ -21,6 +21,7 @@ import torch
 from torch.func import functional_call
 
 from latentpose_tpu_torch.ops.spectral_norm import SNEmbed
+from latentpose_tpu_torch.runners.loop import dequantize_batch_host
 from latentpose_tpu_torch.runners.optim import Adam, RAdam
 from latentpose_tpu_torch.runners.state import (TrainState, d_trainable,
                                                 g_trainable)
@@ -30,16 +31,20 @@ logger = logging.getLogger("latentpose_tpu_torch.finetune")
 
 @torch.no_grad()
 def compute_averaged_identity_embedding(state: TrainState, dataloader,
-                                        device):
-    """ê (1, E) over every ``enc_rgbs`` frame of one pass of
-    ``dataloader``, through the EMA embedder in eval mode."""
+                                        device, dtype=torch.float32):
+    """ê (1, E) f32 over every ``enc_rgbs`` frame of one pass of
+    ``dataloader`` (f32 or uint8 frames), through the EMA embedder in eval
+    mode in ``dtype``: the frames' embeddings in ``dtype``, their mean in
+    f32 (the JAX package averages bf16 rows in numpy's bf16, ROADMAP.md
+    C.5)."""
     embedder = state.models["embedder"]
     weights = state.ema_params["embedder"]
     chunks = []
     for data_dict, _ in dataloader:
-        enc = torch.as_tensor(data_dict["enc_rgbs"]).to(device)
+        frames = dequantize_batch_host(data_dict)["enc_rgbs"]
+        enc = torch.as_tensor(frames).to(device).to(dtype)
         _, elemwise, _ = functional_call(embedder, weights, (enc,))
-        chunks.append(elemwise.reshape(-1, elemwise.shape[-1]))
+        chunks.append(elemwise.reshape(-1, elemwise.shape[-1]).float())
     logger.info("Averaged identity embedding over %d frame-chunks",
                 len(chunks))
     return torch.cat(chunks).mean(dim=0, keepdim=True)

@@ -25,6 +25,7 @@ from torch.func import functional_call
 
 from latentpose_tpu_torch.data import augmentation
 from latentpose_tpu_torch.data.pipeline import Handoff, default_collate
+from latentpose_tpu_torch.runners.holycow import compute_dtype
 from latentpose_tpu_torch.utils.meter import Meter
 from latentpose_tpu_torch.utils.visualize import make_visual
 
@@ -32,26 +33,55 @@ logger = logging.getLogger("latentpose_tpu_torch.loop")
 
 # the draw of the fixed probes' augmentation, keyed on (666, chunk start)
 PROBE_SEED = 666
+# image keys that cross to the device as bytes under --transfer_dtype uint8
+TRANSFER_IMAGE_KEYS = ("enc_rgbs", "pose_input_rgbs", "target_rgbs",
+                       "real_segm", "enc_stickmen", "dec_stickmen")
 
 
-def device_prefetch(dataloader, device, keys, depth=2):
+def quantize_batch_u8(batch):
+    """The host side of ``--transfer_dtype uint8``: each f32 image array in
+    [0, 1] of TRANSFER_IMAGE_KEYS as ``uint8(x * 255 + 0.5)``; the step
+    divides by 255 on the device (``runners/holycow.py`` ``dequantize``).
+    Other values pass as they are."""
+    out = dict(batch)
+    for key in TRANSFER_IMAGE_KEYS:
+        value = out.get(key)
+        if getattr(value, "dtype", None) == np.float32:
+            out[key] = (value * 255.0 + 0.5).astype(np.uint8)
+    return out
+
+
+def dequantize_batch_host(batch):
+    """The wire's inverse on the host, for the paths that read raw loader
+    batches (visuals, probes, validation, ê): every uint8 array as f32 / 255
+    (true division, as the step's device dequantize)."""
+    return {k: (np.asarray(v, np.float32) / 255.0
+                if getattr(v, "dtype", None) == np.uint8 else v)
+            for k, v in batch.items()}
+
+
+def device_prefetch(dataloader, device, keys, depth=2,
+                    transfer_dtype="float32"):
     """Iterate (host batch, device batch) pairs: the host batch is the
     loader's (data_dict | target_dict) of numpy arrays, the device batch
     holds ``keys`` of it on ``device`` (labels as int64).
 
-    A producer thread takes each batch from the loader and pins it (on the
-    card); the consumer copies it with ``non_blocking=True`` on its current
-    stream, so the copy of batch k+1 queues behind step k.  Up to ``depth``
-    batches wait in between."""
+    A producer thread takes each batch from the loader, quantizes it with
+    ``transfer_dtype`` uint8 (:func:`quantize_batch_u8`: a loader on the
+    wire already emits bytes) and pins it (on the card); the consumer copies
+    it with ``non_blocking=True`` on its current stream, so the copy of batch
+    k+1 queues behind step k.  Up to ``depth`` batches wait in between."""
     cuda = device.type == "cuda"
     handoff = Handoff(depth)
+    wire = transfer_dtype == "uint8"
 
     def produce():
         batches = iter(dataloader)
         try:
             for data_dict, target_dict in batches:
                 host = {**data_dict, **target_dict}
-                staged = {k: torch.from_numpy(np.ascontiguousarray(host[k]))
+                sent = quantize_batch_u8(host) if wire else host
+                staged = {k: torch.from_numpy(np.ascontiguousarray(sent[k]))
                           for k in keys}
                 if cuda:
                     staged = {k: v.pin_memory() for k, v in staged.items()}
@@ -84,6 +114,7 @@ def make_eval_forward(args):
     train = not args.set_eval_mode_in_test
     use_ema = bool(args.weights_running_average)
     seed = args.random_seed
+    dtype = compute_dtype(args)
 
     @torch.no_grad()
     def eval_forward(state, batch):
@@ -91,9 +122,10 @@ def make_eval_forward(args):
         generator = state.models["generator"]
         device = next(generator.parameters()).device
         ema = state.ema_params if use_ema else {}
+        batch = dequantize_batch_host(batch)
 
-        def get(key):
-            return torch.as_tensor(batch[key]).to(device).float()
+        def get(key):       # the embedder's input, in the compute dtype
+            return torch.as_tensor(batch[key]).to(device).to(dtype)
 
         saved = {k: v.clone() for k, v in embedder.named_buffers()} \
             if train else None
@@ -121,7 +153,7 @@ def make_eval_forward(args):
         fake_rgbs, fake_segm = functional_call(
             generator, ema.get("generator", {}), (embeds, pose),
             {"update_stats": False})
-        return {"fake_rgbs": fake_rgbs, "fake_segm": fake_segm,
+        return {"fake_rgbs": fake_rgbs.float(), "fake_segm": fake_segm.float(),
                 "pose_embedding": pose}
 
     return eval_forward
@@ -141,8 +173,9 @@ def try_other_driving_images(dataloader, eval_forward, state, batch, suffix,
         rng=rng) for label in np.asarray(batch["label"])]
     data, target = default_collate([dataset[i] for i in other])
     swapped = dict(batch)
+    other_batch = dequantize_batch_host({**data, **target})
     for key in ("pose_input_rgbs", "target_rgbs", "real_segm"):
-        swapped[key] = {**data, **target}[key]
+        swapped[key] = other_batch[key]
     outputs = eval_forward(state, swapped)
     return {"pose_input_rgbs" + suffix: swapped["pose_input_rgbs"],
             "fake_rgbs" + suffix: _host(outputs)["fake_rgbs"]}
@@ -167,7 +200,7 @@ def run_fixed_id_eval(dataloader, eval_forward, state, args, writer,
         chunk = ids[start:start + args.batch_size_inference]
         data, target = default_collate(
             [dataset.get(i, deterministic=True) for i in chunk])
-        fixed = {**data, **target}
+        fixed = dequantize_batch_host({**data, **target})
         if any(augments.values()):
             keys = ("pose_input_rgbs", "target_rgbs", "real_segm")
             draw = augmentation.step_draw(PROBE_SEED, start, device)
@@ -200,7 +233,7 @@ def run_validation(dataloader, eval_forward, state, args, epoch,
     end = time.time()
     for it, (data_dict, target_dict) in enumerate(dataloader):
         meter.add("Data_time", time.time() - end)
-        merged = {**data_dict, **target_dict}
+        merged = dequantize_batch_host({**data_dict, **target_dict})
         merged.update(_host(eval_forward(state, merged)))
         for metric in metrics:
             values, counts = metric(merged)
@@ -277,8 +310,9 @@ def run_epoch(dataloader, step_fn, state, args, epoch, device, keys,
     profile = _Profile(args, epoch, device)
     end = time.time()
     try:
-        for it, (host, batch) in enumerate(
-                device_prefetch(dataloader, device, keys)):
+        for it, (host, batch) in enumerate(device_prefetch(
+                dataloader, device, keys,
+                transfer_dtype=getattr(args, "transfer_dtype", "float32"))):
             profile.before_step(it)
             meter.add("Data_time", time.time() - end)
             scalars = step_fn(state, batch)
@@ -297,6 +331,7 @@ def run_epoch(dataloader, step_fn, state, args, epoch, device, keys,
                                           args.iteration)
                 if (args.iteration % args.log_frequency_images == 0
                         and eval_forward is not None):
+                    host = dequantize_batch_host(host)
                     visual = {**host, **_host(eval_forward(state, host))}
                     if not state.finetune:
                         rng = random.Random(args.random_seed * 1_000_003

@@ -184,13 +184,6 @@ def test_identity_embedding_matches_jax_full_width(embedders, average):
     np.testing.assert_allclose(agg.numpy(), np.asarray(want_agg), **TOL)
 
 
-def test_identity_tower_refuses_train_mode(embedders):
-    """The train form runs in f32 only: bf16 training is ROADMAP.md A.14."""
-    temb = embedders[2]
-    with pytest.raises(NotImplementedError, match="A.14"):
-        temb(torch.zeros(1, 1, 32, 32, 3, dtype=torch.bfloat16), train=True)
-
-
 def test_pose_encoder_train_mode_batch_norm_matches_jax(embedders):
     """Train-mode BatchNorm: the updated running statistics (flax momentum
     0.9, biased batch variance) equal the JAX module's.  They are computed

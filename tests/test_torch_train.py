@@ -449,8 +449,6 @@ def test_finetune_defaults_equal_the_config_file():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--finetune", "--compute_dtype", "bfloat16"], "A.14"),
-    (["--finetune", "--transfer_dtype", "uint8"], "A.14"),
     (["--finetune", "--grad_dtype", "bfloat16"], "A.17"),
     (["--finetune", "--explicit_grad_reduce"], "A.17"),
     (["--finetune", "--num_devices", "2"], "A.17"),
