@@ -27,7 +27,7 @@ class Wrapper:
             frames_per_video=args.synthetic_frames_per_video,
             finetune=bool(args.finetune),
             seed=args.random_seed + (0 if part == "train" else 1),
-            wire_dtype=getattr(args, "transfer_dtype", "float32"))
+            wire_dtype=args.transfer_dtype)
 
 
 def _identity_style(label: int):

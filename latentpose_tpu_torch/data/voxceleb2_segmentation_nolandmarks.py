@@ -54,7 +54,7 @@ class Wrapper:
         loader = SegmSampleLoader(
             args.data_root, img_dir=args.img_dir, segm_dir=args.segm_dir,
             bboxes_dir=args.bboxes_dir, deterministic=part != "train",
-            wire_dtype=getattr(args, "transfer_dtype", "float32"))
+            wire_dtype=args.transfer_dtype)
         dataset = VoxCeleb2SegmDataset(
             dirlist, loader, bool(args.inference), args.n_frames_for_encoder,
             args.image_size, seed=args.random_seed)

@@ -18,8 +18,7 @@ class Wrapper:
     def get_net(args, device=None):
         return Criterion(args.idt_embed_weight, args.vgg_weights_dir,
                          allow_random=args.allow_random_vgg, device=device,
-                         compute_dtype=getattr(args, "compute_dtype",
-                                                "float32"))
+                         compute_dtype=args.compute_dtype)
 
 
 class Criterion:

@@ -65,7 +65,7 @@ META_STEP_KEYS = ("enc_rgbs",) + STEP_KEYS
 
 def compute_dtype(args):
     """torch's dtype of ``args.compute_dtype``."""
-    return DTYPES[getattr(args, "compute_dtype", "float32")]
+    return DTYPES[args.compute_dtype]
 
 
 def to_device(batch, device, keys=STEP_KEYS):

@@ -312,7 +312,7 @@ def run_epoch(dataloader, step_fn, state, args, epoch, device, keys,
     try:
         for it, (host, batch) in enumerate(device_prefetch(
                 dataloader, device, keys,
-                transfer_dtype=getattr(args, "transfer_dtype", "float32"))):
+                transfer_dtype=args.transfer_dtype)):
             profile.before_step(it)
             meter.add("Data_time", time.time() - end)
             scalars = step_fn(state, batch)

@@ -38,7 +38,20 @@ generator and discriminator gradients sit 10-49 % from J32 and the port's
 0.3-6.5 %, and there the ratio reads 0.95-1.0: the bound holds T16 near
 J32.  Without its biases the discriminator's gradient reads 0.39 (meta)
 and 0.69 (fine-tune), which the bound also holds; the generator's weights
-take AdaIN's sums through the projector and read 0.95.
+take AdaIN's sums through the projector and read 0.95.  So the generator's
+and the discriminator's gradients are also held against J32, by bf16's
+effect where J16 takes no bf16 sum (the leaves that are neither a bias nor
+the projector's):
+
+    ‖T16 − J32‖ / ‖J32‖ ≤ C · ‖J16 − J32‖_S / ‖J32‖_S
+
+over the whole group, its biases included, S its sound leaves.  Measured:
+the generator 1.36 (meta) and 1.16 (fine-tune), the discriminator 1.09 and
+1.00.  A fault of bf16's size fails it: AdaIN's statistics in bf16 read
+18.6 and 12.7 on the generator, and the discriminator's bias gradients
+summed in one bf16 accumulator 36.8 and 46 on the discriminator.  That
+fault brings the port's discriminator gradient to J16 (‖T16 − J16‖ falls
+to 0.22 and 0.11 of ‖J16 − J32‖), which is how XLA on the CPU sums it.
 
 The steps run where ``tests/test_torch_metatrain.py`` runs its f32 steps and
 with its conditioning fixes: 64² frames with seeded noise, K=2, one block a
@@ -70,10 +83,12 @@ from latentpose_tpu.runners import holycow as jholycow
 from latentpose_tpu_torch import convert
 from latentpose_tpu_torch.cli import train as tcli
 from latentpose_tpu_torch.losses.common import perceptual_loss
+from latentpose_tpu_torch.models.discriminators import no_landmarks as tdis
 from latentpose_tpu_torch.nn import backbones as tbackbones
 from latentpose_tpu_torch.ops import adain as tadain
 from latentpose_tpu_torch.ops import conv_bn as tconv_bn
 from latentpose_tpu_torch.ops import norms as tnorms
+from latentpose_tpu_torch.ops import spectral_norm as tsn
 from latentpose_tpu_torch.runners import holycow as tholycow
 
 import test_torch_metatrain as mt
@@ -173,6 +188,54 @@ def vgg_fault():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(perceptual_loss.PerceptualLoss, "__call__",
                    _bf16_vgg_call)
+        yield
+
+
+class _BF16BiasSum(torch.autograd.Function):
+    """``y + bias`` whose bias gradient is summed over the batch and the
+    pixels in one bf16 accumulator a channel, row after row (as XLA on the
+    CPU sums a bf16 ``reduce_sum``): the discriminator's planted fault."""
+
+    @staticmethod
+    def forward(ctx, y, bias):
+        ctx.nchw = y.dim() == 4
+        return y + (bias[:, None, None] if ctx.nchw else bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[1]:
+            return g, None
+        rows = (g.movedim(1, -1) if ctx.nchw else g).reshape(-1, g.shape[1])
+        total = torch.zeros_like(rows[0])
+        for row in rows:
+            total = total + row
+        return g, total
+
+
+def _conv2d_bias_fault(x, w, bias=None, **kw):
+    y = F.conv2d(x, w, None, **kw)
+    return y if bias is None else _BF16BiasSum.apply(y, bias)
+
+
+def _linear_bias_fault(x, w, bias=None):
+    y = F.linear(x, w)
+    return y if bias is None else _BF16BiasSum.apply(y, bias)
+
+
+@contextlib.contextmanager
+def dis_bias_fault():
+    """The discriminator's passes with :class:`_BF16BiasSum` biases."""
+    faulty = types.SimpleNamespace(conv2d=_conv2d_bias_fault,
+                                   linear=_linear_bias_fault)
+    pass_inputs = tdis.Discriminator.pass_inputs
+
+    def patched(self, *a, **k):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tsn, "F", faulty)
+            return pass_inputs(self, *a, **k)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tdis.Discriminator, "pass_inputs", patched)
         yield
 
 
@@ -628,9 +691,11 @@ def test_identity_embedding_in_bf16(meta, tmp_path):
 
 def _groups(flat, scalars):
     """{'losses': {name: value}, 'generator': [...], 'generator weights':
-    [...], ...}: the losses, each gradient group's leaves (Adam's or RAdam's
-    first moment with beta1 = 0 is the step's gradient), by module, and each
-    group's leaves other than biases (the module docstring says why)."""
+    [...], 'generator sound': [...], ...}: the losses, each gradient group's
+    leaves (Adam's or RAdam's first moment with beta1 = 0 is the step's
+    gradient), by module, each group's leaves other than biases, and of
+    those the ones outside the generator's projector (the module docstring
+    says why)."""
     out = {"losses": scalars}
     for key in sorted(flat):
         fields = key.split("::")
@@ -639,6 +704,8 @@ def _groups(flat, scalars):
             out.setdefault(fields[3], []).append(leaf)
             if fields[-1] != "bias":
                 out.setdefault(fields[3] + " weights", []).append(leaf)
+                if not any(f.startswith("projector") for f in fields[4:]):
+                    out.setdefault(fields[3] + " sound", []).append(leaf)
     return out
 
 
@@ -686,7 +753,8 @@ def _port_runs(targs, jcriteria, batch, keys):
     """The port's step in bf16 (T16), and with each planted fault."""
     runs = {"T16": _port_step(targs, jcriteria, batch, keys)}
     for name, fault in (("adain fault", planted_fault),
-                        ("vgg fault", vgg_fault)):
+                        ("vgg fault", vgg_fault),
+                        ("dis fault", dis_bias_fault)):
         with fault():
             runs[name] = _port_step(targs, jcriteria, batch, keys)
     return runs
@@ -760,7 +828,7 @@ def test_planted_faults_fail_the_step_bound(steps, regime):
     runs = steps[regime]
     ratios = {fault: {g: _ratio(runs[fault][g], runs["J16"][g],
                                 runs["J32"][g]) for g in runs["J16"]}
-              for fault in ("adain fault", "vgg fault")}
+              for fault in ("adain fault", "vgg fault", "dis fault")}
     for fault, by_group in ratios.items():
         print(f"{regime} step, {fault}: " + ", ".join(
             f"{g} {r:.3g}" for g, r in by_group.items()))
@@ -768,6 +836,36 @@ def test_planted_faults_fail_the_step_bound(steps, regime):
     assert ratios["adain fault"]["generator weights"] > C
     if regime == "meta":
         assert ratios["adain fault"]["generator"] > C
+
+
+def _f32_ratio(t16, j16, j32, sound):
+    """‖T16 − J32‖/‖J32‖ over a group, in units of bf16's effect on the
+    group's sound leaves, ‖J16 − J32‖/‖J32‖ there."""
+    effect = _l2([a - b for a, b in zip(j16[sound], j32[sound])]) \
+        / _l2(j32[sound])
+    group = sound.split()[0]
+    return _l2([a - b for a, b in zip(t16[group], j32[group])]) \
+        / _l2(j32[group]) / effect
+
+
+@pytest.mark.parametrize("regime,group", [
+    ("meta", "generator"), ("meta", "discriminator"),
+    ("finetune", "generator"), ("finetune", "discriminator")])
+def test_bf16_gradient_is_within_bf16s_effect_of_the_f32_step(steps, regime,
+                                                              group):
+    """The generator's and the discriminator's gradient, biases included,
+    against J32: ‖T16 − J32‖/‖J32‖ ≤ C · bf16's effect on the group's sound
+    leaves (module docstring), with a planted fault in the same runs that
+    reads above C: AdaIN's statistics in bf16 on the generator, the
+    discriminator's bias gradients summed in bf16 on the discriminator."""
+    runs = steps[regime]
+    fault = {"generator": "adain fault", "discriminator": "dis fault"}[group]
+    ratio, planted = (_f32_ratio(runs[r], runs["J16"], runs["J32"],
+                                 group + " sound") for r in ("T16", fault))
+    print(f"{regime} step, {group} against f32: ratio {ratio:.3g}; "
+          f"{fault} {planted:.3g}")
+    assert ratio <= C
+    assert planted > C
 
 
 def test_the_port_takes_no_autocast_and_no_loss_scaling():

@@ -683,7 +683,8 @@ def _loop_args(**over):
     args = types.SimpleNamespace(
         profile_dir="", profile_steps=5, detailed_metrics=True,
         log_frequency_loss=1, log_frequency_images=100,
-        log_frequency_fixed_images=100, iteration=0, random_seed=0)
+        log_frequency_fixed_images=100, iteration=0, random_seed=0,
+        transfer_dtype="float32")
     for k, v in over.items():
         setattr(args, k, v)
     return args
