@@ -58,7 +58,13 @@ paths:
    1e-3 relative, the generator's and each tower's gradient within GRAD_TOL
    (L2); beside it the card's step with the links through the plain version,
    and with a planted 30 % fault in the embeddings' gradient, which the gate
-   must reject;
+   must reject; then the same step in f64 on the card and on the CPU (both
+   kernels' places taken by their plain versions): every group within
+   GRAD_TOL64 = 1e-8 of its L2, with a 1e-6 fault that must read above it;
+   and each f32 step's distance to its device's f64 step (f32's own
+   rounding), the card's at most F32_C = 3 times the CPU's in each
+   train-form tower's gradient, a gate the 30 % fault must fail (ROADMAP
+   C.3);
 10. fine-tune the meta-trained checkpoint through the train CLI's functions
    on ``synthetic://`` avatar frames, f32, batch 8, the fine-tune config's
    three augmentations on: ê through ResNeXt-50 (16 kernel launches per
@@ -116,7 +122,24 @@ paths:
     of phase 8, and the loader's frames/s on this host; then the same
     phase again with ``--compute_dtype bfloat16 --transfer_dtype uint8``
     (uint8 batches from the loader's uint8 entries), its Data_time and
-    Batch_time beside the f32 run's.
+    Batch_time beside the f32 run's;
+15. preprocessing, through ``cli.preprocess_dataset.main --do_crop
+    --do_compute_segmentation``: seeded S3FD, FAN (4 hourglasses) and
+    Graphonomy (Xception-65) at their published widths, written by the
+    port's inverse converter in the JAX package's flat-npz layout and read
+    back bit-equal; a raw tree of 2 identities x 2 videos x 8 faces on
+    640x360 canvases: the dataset's tree (crops, landmarks, masks), one
+    batch of it through ``voxceleb2_segmentation_nolandmarks``, each
+    stage's frames/s and peak memory (detect, crop, landmarks, segment at
+    four scales), S3FD's candidates before NMS; each net card vs CPU within
+    1e-3 of its max (S3FD's heads at 640x360, FAN's heatmaps at 256²,
+    Graphonomy's probabilities at 512²) with a planted fault above the gate;
+    each net's device ms per batch and frame; one segmentation batch's busy
+    time, idle share and longest kernels;
+16. drive ``--crop`` through ``cli.drive.main`` from those raw frames with
+    the fine-tuned checkpoint, boxes from ``--bboxes_dir`` and from S3FD:
+    the generator's frames equal to the C++ crop of the same boxes, 17 AdaIN
+    launches a forward; frames/s beside drive from the pre-cropped output.
 
 jax, flax, optax, yaml, cv2, PIL, imageio and pandas are made unimportable
 first: the card's path needs none of them.
@@ -174,6 +197,18 @@ from latentpose_tpu_torch.runners import holycow, loop  # noqa: E402
 from latentpose_tpu_torch.runners.state import (  # noqa: E402
     TrainState, ema_of)
 from latentpose_tpu_torch.utils.png import write_png  # noqa: E402
+from latentpose_tpu_torch.cli import preprocess_dataset as prep_cli  # noqa
+from latentpose_tpu_torch.data import (  # noqa: E402
+    voxceleb2_segmentation_nolandmarks as dataset_mod)
+from latentpose_tpu_torch.data.common import crop as crop_lib  # noqa: E402
+from latentpose_tpu_torch.eval import backends  # noqa: E402
+from latentpose_tpu_torch.eval import fan as fan_mod  # noqa: E402
+from latentpose_tpu_torch.ops.resize import resize_linear  # noqa: E402
+from latentpose_tpu_torch.preprocess import croppers  # noqa: E402
+from latentpose_tpu_torch.preprocess import graphonomy as graph_mod  # noqa
+from latentpose_tpu_torch.preprocess import s3fd as s3fd_mod  # noqa: E402
+from latentpose_tpu_torch.preprocess import segmentation  # noqa: E402
+from latentpose_tpu_torch.utils import weights  # noqa: E402
 
 FLAGSHIP = dict(
     generator="vector_pose_unsupervised_segmentation_noBottleneck",
@@ -216,6 +251,20 @@ STEP_TOL = 1e-3        # card vs CPU, one train step, relative
 # 1 - FAULT_SCALE in the embeddings' gradient must read above it (0.30)
 GRAD_TOL = 1e-1
 FAULT_SCALE = 0.7
+# the same step in f64 on the card and on the CPU (both links and AdaIN
+# through their plain versions): every group within GRAD_TOL64 of its L2;
+# a fault of 1 - FAULT_SCALE64 in the embeddings' gradient must read above
+GRAD_TOL64 = 1e-8
+FAULT_SCALE64 = 1.0 - 1e-6
+# f32 against its own rounding: each train-form tower's gradient
+# ‖T32_card - T64_card‖ <= F32_C ‖T32_cpu - T64_cpu‖ (two f32 routes
+# whose roundings are independent, each within C = 1.5 of the other's
+# distance to f64: 2C, as BF16_C); the 30 % fault must read above it.  The
+# generator's and discriminator's f32 rounding is not amplified (5e-5 and
+# 6e-7 of their L2 on the CPU), so the card's is set by which cuDNN
+# algorithm it picks (the choice follows free workspace) and read 0.35-4.93
+# times the CPU's: printed; their card-vs-CPU gates hold them
+F32_C = 2 * 1.5
 FT_GRAD_TOL = 1e-2     # the same, one fine-tune step (read 4e-6-6e-6, H100)
 # bf16 on the card: the kernels' bf16 step (T16) against the plain versions'
 # bf16 step (P16), in units of bf16's effect ‖P16 - T32‖: each bf16 route is
@@ -237,6 +286,16 @@ INT8_FRAMES = 48       # the int8 phase's driver directory: a batch and a tail
 INT8_CALIB_FRAMES = 16  # int8_static calibrates on these leading frames
 INT8_MIN_PSNR = 40.0   # the JAX package's int8 gate (tests/test_quantize.py)
 QUANT_MODES = ("", "int8", "int8_static")
+# the preprocessing phase's raw footage: identities x videos x frames of
+# PREP_FACE² faces pasted on PREP_CANVAS (h, w) canvases; the nets' batch
+PREP = dict(identities=2, videos=2, frames=8)
+PREP_CANVAS = (360, 640)
+PREP_FACE = 144
+PREP_BATCH = 8
+PREP_TOL = 1e-3        # card vs CPU, each net's output, relative to its max
+# the seeded S³FD's face biases: this many of the logit's spreads above its
+# mean, so that ~0.1 % of the anchors pass the decode's threshold of 0.5
+PREP_ANCHOR_SIGMA = 3.0
 
 
 def require(cond, message):
@@ -894,11 +953,13 @@ def phase_ehat_card_vs_cpu(state, loader, device):
             f"card and CPU ê differ: {rel} relative")
 
 
-def _copy_state(state, args, device):
-    """A copy of a TrainState on ``device``, optimizer moments included."""
-    models = {k: copy.deepcopy(m).to(device) for k, m in state.models.items()}
-    ema = {part: ({k: v.to(device, copy=True) for k, v in t.items()}
-                  if isinstance(t, dict) else t.to(device, copy=True))
+def _copy_state(state, args, device, dtype=torch.float32):
+    """A copy of a TrainState on ``device`` in ``dtype``, optimizer moments
+    included."""
+    models = {k: copy.deepcopy(m).to(device=device, dtype=dtype)
+              for k, m in state.models.items()}
+    ema = {part: ({k: v.to(device, dtype, copy=True) for k, v in t.items()}
+                  if isinstance(t, dict) else t.to(device, dtype, copy=True))
            for part, t in state.ema_params.items()}
     embedding = None if not state.finetune else \
         state.finetune_embedding.detach().to(device, copy=True) \
@@ -944,10 +1005,12 @@ def _leaves(state):
     return out
 
 
-def _run_step(args, state, host, keys, device, patch=contextlib.nullcontext):
-    """One train step from a copy of ``state`` on ``device`` with the host
-    batch, inside ``patch()``: (losses, leaves before, leaves after, s)."""
-    st = _copy_state(state, args, device)
+def _run_step(args, state, host, keys, device, patch=contextlib.nullcontext,
+              dtype=torch.float32):
+    """One train step from a copy of ``state`` in ``dtype`` on ``device``
+    with the host batch, inside ``patch()``: (losses, leaves before, leaves
+    after, s)."""
+    st = _copy_state(state, args, device, dtype)
     before = _leaves(st)
     with patch():
         step_fn = train_cli.make_step(args, train_cli.build_criteria(args,
@@ -1082,15 +1145,15 @@ def _plain_link():
 
 
 @contextlib.contextmanager
-def _planted_fault(cls):
-    """The embedder (class ``cls``) passes on FAULT_SCALE of its identity
+def _planted_fault(cls, scale=FAULT_SCALE):
+    """The embedder (class ``cls``) passes on ``scale`` of its identity
     and pose embeddings' gradient, the forward unchanged: a fault in the
     two gradient paths meta-train adds."""
     forward = cls.forward
 
     def scaled(t):
         return None if t is None else \
-            FAULT_SCALE * t + (1.0 - FAULT_SCALE) * t.detach()
+            scale * t + (1.0 - scale) * t.detach()
 
     def faulty(self, *a, **k):
         embeds, elemwise, pose = forward(self, *a, **k)
@@ -1103,6 +1166,40 @@ def _planted_fault(cls):
         cls.forward = forward
 
 
+@contextlib.contextmanager
+def _float64(args):
+    """The meta step in f64 wherever it computes in f32: ``args`` switched
+    to compute dtype float64, every ``.float()`` made ``.double()`` (the
+    plain versions' and BatchNorm's f32 statistics, the losses' means), the
+    VGG towers in f64, and both kernels' places taken by their plain
+    versions (the CUDA kernels take f32 and bf16 only)."""
+    from latentpose_tpu_torch.losses.common.perceptual_loss import \
+        PerceptualLoss
+    to_float, build = torch.Tensor.float, train_cli.build_criteria
+    compute_dtype = args.compute_dtype
+
+    def criteria64(a, device):
+        out = build(a, device)
+        for crit in out:
+            for sub in (crit, *vars(crit).values()):
+                if isinstance(sub, PerceptualLoss):
+                    sub.module.double()
+        return out
+
+    torch.Tensor.float = lambda self, *a, **k: self.double(*a, **k)
+    holycow.DTYPES["float64"] = torch.float64
+    train_cli.build_criteria = criteria64
+    args.compute_dtype = "float64"
+    try:
+        with _plain_kernels():
+            yield
+    finally:
+        torch.Tensor.float = to_float
+        del holycow.DTYPES["float64"]
+        train_cli.build_criteria = build
+        args.compute_dtype = compute_dtype
+
+
 def phase_meta_step_card_vs_cpu(args, state, loader, device):
     """One meta step from the same state and batch on the card and on the
     CPU: batch 2, train-mode BatchNorm in both towers, the same dropout
@@ -1111,13 +1208,21 @@ def phase_meta_step_card_vs_cpu(args, state, loader, device):
 
     The state's generator constant is spread (:func:`phase_meta_checkpoint`
     draws it from a normal).  The towers' train-form gradients at this
-    state still carry a gap of a few 1e-2 (L2) whatever perturbs them, the
-    devices' convolutions or the link's kernel against its plain version:
-    so beside the gate run the card's step with ResNeXt-50's links through
-    the plain version (what the kernel adds; the pose tower has no link, so
-    its reading there is the card's own spread) and with a planted fault
+    state still carry a gap of a few 1e-2 (L2) in f32, the devices'
+    convolutions or the link's kernel against its plain version: so beside
+    the f32 gate run the card's step with ResNeXt-50's links through the
+    plain version (what the kernel adds; the pose tower has no link, so its
+    reading there is the card's own spread) and with a planted fault
     (FAULT_SCALE of the embeddings' gradient), which the gate must reject.
-    Every reading is printed before any is held to its gate."""
+
+    Which of that gap is rounding: the same step in f64 on the card and on
+    the CPU (:func:`_float64`) must agree within GRAD_TOL64 of every group's
+    L2 (the non-kernel path is sound), with its own planted fault
+    (FAULT_SCALE64) above that gate; and each f32 step's distance to its
+    device's f64 step is f32's own rounding, which the train-form towers
+    carry up to 1e-2, so in each tower the card's may be at most F32_C
+    times the CPU's, a gate the 30 % fault must fail.  Every reading is
+    printed before any is held to its gate."""
     args = copy.copy(args)
     args.use_pixelwise_augs = args.use_affine_scale = \
         args.use_affine_shift = False
@@ -1136,11 +1241,68 @@ def phase_meta_step_card_vs_cpu(args, state, loader, device):
                     f"{cpu[3]:.2f} s)", *gaps[way])
     _print_gaps("meta step card, kernel vs plain link",
                 *_gaps(runs["card, plain link"], runs["card"]))
+
+    f64 = torch.float64
+    cpu64 = _run_step(args, state, host, keys, torch.device("cpu"),
+                      lambda: _float64(args), f64)
+    card64 = _run_step(args, state, host, keys, device,
+                       lambda: _float64(args), f64)
+
+    @contextlib.contextmanager
+    def fault64():
+        with _float64(args), _planted_fault(embedder, FAULT_SCALE64):
+            yield
+
+    fault64_run = _run_step(args, state, host, keys, device, fault64, f64)
+    gaps64 = {"card": _gaps(cpu64, card64),
+              "card, planted fault": _gaps(cpu64, fault64_run)}
+    for way, gap in gaps64.items():
+        _print_gaps(f"meta step f64 {way} vs cpu f64, batch 2 "
+                    f"{args.image_size}² (plain link and AdaIN; "
+                    f"{card64[3]:.2f} s, cpu {cpu64[3]:.2f} s)", *gap)
+    # f32 against its own rounding: each f32 step's distance to its own
+    # device's f64 step
+    own = {way: _gaps(card64, runs[way])[1]
+           for way in ("card", "card, planted fault")}
+    cpu_own = _gaps(cpu64, cpu)[1]
+    ratios = {way: {k: own[way][k] / max(cpu_own[k], 1e-30)
+                    for k in cpu_own if k.endswith("gradient")}
+              for way in own}
+    print("meta step f32 rounding: ‖T32 - T64‖ / L2 on the cpu: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in cpu_own.items()),
+          flush=True)
+    for way, ratio in ratios.items():
+        print(f"meta step {way} f32 rounding against the cpu's "
+              f"(‖T32_card - T64_card‖ / ‖T32_cpu - T64_cpu‖, gate "
+              f"{F32_C}): " + ", ".join(f"{k} {v:.3g}"
+                                        for k, v in ratio.items()),
+              flush=True)
+
     _require_step("meta step", *gaps["card"], GRAD_TOL)
     rel = gaps["card, planted fault"][1]
     caught = [k for k in rel if k.startswith("embedder.")
               and k.endswith("gradient") and rel[k] > GRAD_TOL]
     require(len(caught) == 2, f"the planted fault passes the gate: {rel}")
+    loss64, rel64 = gaps64["card"]
+    name, gap = _worst_loss(loss64)
+    require(gap <= GRAD_TOL64, f"card and CPU f64 meta steps differ: "
+            f"losses {gap} ({name})")
+    for key, value in rel64.items():
+        require(value <= GRAD_TOL64, f"card and CPU f64 meta steps differ: "
+                f"{key} {value} > {GRAD_TOL64}")
+    rel = gaps64["card, planted fault"][1]
+    caught = [k for k in rel if k.startswith("embedder.")
+              and k.endswith("gradient") and rel[k] > GRAD_TOL64]
+    require(len(caught) == 2, f"the f64 planted fault passes the f64 gate: "
+            f"{rel}")
+    for key, value in ratios["card"].items():
+        require(value <= F32_C or not key.startswith("embedder."),
+                f"the card's f32 meta step is further from its f64 step "
+                f"than the CPU's: {key} {value} > {F32_C}")
+    caught = [k for k, v in ratios["card, planted fault"].items()
+              if k.startswith("embedder.") and v > F32_C]
+    require(len(caught) == 2, f"the planted fault passes the f32 rounding "
+            f"gate: {ratios['card, planted fault']}")
 
 
 @contextlib.contextmanager
@@ -2010,6 +2172,497 @@ def phase_card_vs_cpu(ckpt, models, state, frames):
     require(diff <= 1e-3, f"card and CPU differ by {diff}")
 
 
+# ---------------------------------------------------------------- preprocess
+
+
+def _seeded(net, seed):
+    """``net`` with seeded weights in eval form: kernels ~ N(0, 1/fan-in),
+    biases and BatchNorm offsets within 0.1 of 0, BatchNorm scales and
+    variances in [0.5, 1.5], means within 0.3 of 0 (eval-form BatchNorm is
+    not the identity); Graphonomy's label adjacency ~ N(0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                m.weight.normal_(0.0, m.weight[0].numel() ** -0.5,
+                                 generator=g)
+                if m.bias is not None:
+                    m.bias.uniform_(-0.1, 0.1, generator=g)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.uniform_(-0.1, 0.1, generator=g)
+                m.running_mean.uniform_(-0.3, 0.3, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+            elif isinstance(m, graph_mod.GraphReasoning):
+                m.adjacency.normal_(generator=g)
+    return net.eval()
+
+
+def _cls_logits(net, frame, device):
+    """S³FD's six class heads' face-minus-background logit on one frame
+    (conv3_3's background the max of its first three channels)."""
+    out, hooks = [], []
+    for i in range(6):
+        hooks.append(getattr(net, f"cls{i}").register_forward_hook(
+            lambda mod, inp, o: out.append(o.detach())))
+    try:
+        with torch.no_grad():
+            net.to(device)(s3fd_mod.preprocess(
+                torch.from_numpy(frame[None]).to(device)))
+    finally:
+        for h in hooks:
+            h.remove()
+    return [o[:, 3] - o[:, :3].amax(1) if i == 0 else o[:, 1] - o[:, 0]
+            for i, o in enumerate(out)]
+
+
+def _background_logit(net, image, device):
+    """Graphonomy's log P(background) / P(person) at each pixel of one
+    (H, W, 3) uint8 image."""
+    x = torch.from_numpy(image[None]).to(device).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        p0 = net.to(device)(x.float() / 255.0)[:, 0].double()
+    return torch.log(p0) - torch.log1p(-p0)
+
+
+def write_prep_weights(wdir, frame, device):
+    """Seeded S³FD, FAN (4 modules) and Graphonomy (Xception-65, 20 CIHP
+    classes) at their published widths, written by the port's inverse
+    converter in the JAX package's flat-npz layout (``s3fd.npz``,
+    ``fan_2d.npz``, ``graphonomy.npz``) and read back bit-equal.  S³FD's
+    offset heads are scaled down (boxes near their anchors) and each class
+    head's face bias set PREP_ANCHOR_SIGMA of its logit's spread on
+    ``frame`` above the mean, so that few anchors pass the decode's fixed
+    threshold; Graphonomy's background bias is set so that its person
+    probability's median on ``frame`` (resized to 256²) is 0.5."""
+    nets = {"s3fd.npz": _seeded(s3fd_mod.S3FD(), 11),
+            "fan_2d.npz": _seeded(fan_mod.FAN(), 12),
+            "graphonomy.npz": _seeded(graph_mod.Graphonomy(), 13)}
+    s3fd_net = nets["s3fd.npz"]
+    with torch.no_grad():
+        for i in range(6):
+            getattr(s3fd_net, f"reg{i}").weight.mul_(0.05)
+        for i, d in enumerate(_cls_logits(s3fd_net, frame, device)):
+            shift = float(d.mean() + PREP_ANCHOR_SIGMA * d.std())
+            getattr(s3fd_net, f"cls{i}").bias[-1] -= shift
+        s3fd_net.cpu()
+        seg_net = nets["graphonomy.npz"]
+        small = resize_linear(torch.from_numpy(frame[None]), (256, 256))[0]
+        seg_net.classifier.bias[0] -= float(
+            _background_logit(seg_net, small.numpy(), device).median())
+        seg_net.cpu()
+    wdir.mkdir(parents=True, exist_ok=True)
+    for name, net in nets.items():
+        np.savez(wdir / name, **weights.flax_from_state_dict(net))
+        back = weights.state_dict_from_flax(
+            net, weights.load_flat_npz_variables(str(wdir / name)))
+        own = net.state_dict()
+        require(all(torch.equal(back[k], own[k]) for k in back)
+                and len(back) == len([k for k in own
+                                      if "num_batches" not in k]),
+                f"{name} does not round-trip bit-equal")
+        size = (wdir / name).stat().st_size
+        print(f"preprocess weights: {name} {len(back)} arrays, "
+              f"{size / 2**20:.1f} MiB, round-trip bit-equal", flush=True)
+
+
+def write_raw_tree(root):
+    """PREP's identities x videos x frames of ``render_face`` pasted off
+    centre on PREP_CANVAS canvases (PNG, the port's encoder), and
+    ``bboxes.npy``: {identity: {video: {frame: LTRB}}} in the dataset's
+    256-space (pixels x 256 / frame height)."""
+    h, w = PREP_CANVAS
+    face = PREP_FACE
+    bboxes = {}
+    for i in range(PREP["identities"]):
+        for v in range(PREP["videos"]):
+            d = root / "images-raw" / f"id{i:05d}" / f"video{v}"
+            d.mkdir(parents=True)
+            boxes = {}
+            for f in range(PREP["frames"]):
+                img = (render_face(i, 5 * f + 13 * v, face)[0] * 255
+                       + 0.5).astype(np.uint8)
+                canvas = np.full((h, w, 3), 90 + 20 * i, np.uint8)
+                y, x = 40 + 9 * f + 20 * v, 80 + 30 * f + 60 * i
+                canvas[y:y + face, x:x + face] = img
+                write_png(d / f"{f:05d}.png", canvas, level=1)
+                boxes[f] = np.array([x, y, x + face, y + face],
+                                    np.float32) * 256 / h
+            bboxes.setdefault(f"id{i:05d}", {})[f"video{v}"] = boxes
+    np.save(root / "bboxes.npy", bboxes, allow_pickle=True)
+    return root / "images-raw", root / "bboxes.npy"
+
+
+@contextlib.contextmanager
+def _stage_timers(record):
+    """Each preprocessing stage's calls timed (host clock, the card
+    synchronised) with its frames and peak device memory: S³FD with its
+    host NMS ("detect"), FAN ("landmarks"), the C++ crop ("crop"),
+    Graphonomy at the test-time scales ("segment")."""
+    targets = [(croppers.S3FDDetector, "__call__", "detect"),
+               (backends.FANBackend, "__call__", "landmarks"),
+               (native_loader.NativeBatchLoader, "crop_boxes", "crop"),
+               (segmentation, "segment_with_tta", "segment")]
+    saved = []
+    for owner, name, stage in targets:
+        fn = getattr(owner, name)
+        saved.append((owner, name, fn))
+
+        def timed(*a, _fn=fn, _stage=stage, **k):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            entry = record.setdefault(_stage, [0.0, 0, 0.0])
+            entry[0] += time.perf_counter() - t0
+            entry[1] += len(a[1])        # each target's second argument
+            entry[2] = max(entry[2],
+                           torch.cuda.max_memory_allocated() / 2**20)
+            return out
+
+        setattr(owner, name, timed)
+    try:
+        yield
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def _rel_gap(got, want):
+    """Largest |got - want| over max |want|."""
+    want = want.double()
+    return float((got.double().cpu() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def _prep_gate(what, runs, faulty):
+    """Print each net's card-vs-CPU reading and its planted fault's, then
+    hold the first within PREP_TOL and the second above it."""
+    print(f"preprocess card vs cpu, {what} (TF32 off): max_rel_diff="
+          f"{runs:.3g}, planted fault {faulty:.3g} (gate {PREP_TOL})",
+          flush=True)
+    require(runs <= PREP_TOL, f"card and CPU {what} differ: {runs}")
+    require(faulty > PREP_TOL, f"the planted fault passes the {what} gate: "
+            f"{faulty}")
+
+
+def phase_prep_card_vs_cpu(wdir, frame, crop, device):
+    """S³FD's six heads at PREP_CANVAS, FAN's four heatmap stacks at 256²
+    and Graphonomy's probabilities at 512² on the card and on the CPU from
+    the same weights and frames, each within PREP_TOL of its max; beside
+    each the card with a planted fault (S³FD: conv3_3's L2Norm scale
+    x1.03; FAN: the stem BatchNorm's eps 1e-5 -> 0.1; Graphonomy: the graph
+    reasoning's residual dropped), which must read above the gate."""
+    cpu = torch.device("cpu")
+    dets = {d: croppers.S3FDDetector(wdir / "s3fd.npz", d)
+            for d in (cpu, device)}
+    want = dets[cpu].heads(frame[None])
+
+    def s3fd_gap():
+        got = dets[device].heads(frame[None])
+        return max(_rel_gap(g, w) for gh, wh in zip(got, want)
+                   for g, w in zip(gh, wh))
+
+    runs = s3fd_gap()
+    with torch.no_grad():
+        dets[device].model.l2norm3.scale.mul_(1.03)
+    _prep_gate(f"S3FD six heads at {PREP_CANVAS[1]}x{PREP_CANVAS[0]}", runs,
+               s3fd_gap())
+    del dets
+
+    fans = {d: backends.FANBackend(wdir / "fan_2d.npz", d)
+            for d in (cpu, device)}
+    want = fans[cpu].heatmaps(crop[None])
+
+    def fan_gap():
+        return max(_rel_gap(g, w) for g, w in
+                   zip(fans[device].heatmaps(crop[None]), want))
+
+    runs = fan_gap()
+    fans[device].model.bn1.eps = 0.1
+    _prep_gate("FAN four heatmap stacks at 256²", runs, fan_gap())
+    del fans
+
+    big = resize_linear(torch.from_numpy(crop[None]),
+                                     (512, 512))
+    x = big.permute(0, 3, 1, 2).float() / 255.0
+    segs = {d: segmentation.GraphonomyBackend(wdir / "graphonomy.npz", d)
+            for d in (cpu, device)}
+    with torch.no_grad():
+        want = segs[cpu].model(x)
+
+        def seg_gap():
+            return _rel_gap(segs[device].model(x.to(device)), want)
+
+        runs = seg_gap()
+        refine = segs[device].model.classifier_refine
+        refine.weight.zero_()
+        refine.bias.zero_()
+        _prep_gate("Graphonomy probabilities at 512²", runs, seg_gap())
+    del segs
+    torch.cuda.empty_cache()
+
+
+def _prep_net_times(wdir, frames, crops, device):
+    """Each net's device time per batch of PREP_BATCH and per frame
+    (events, after a warm-up), and one segmentation batch (the four scales)
+    traced: its device busy time, the idle share of its untraced wall time
+    and its longest kernels."""
+    det = croppers.S3FDDetector(wdir / "s3fd.npz", device)
+    x = s3fd_mod.preprocess(torch.from_numpy(frames[:PREP_BATCH]).to(device))
+    fan = backends.FANBackend(wdir / "fan_2d.npz", device)
+    seg = segmentation.GraphonomyBackend(wdir / "graphonomy.npz", device)
+    c = torch.from_numpy(crops[:PREP_BATCH]).to(device)
+    y = c.permute(0, 3, 1, 2).float() / 255.0
+    with torch.no_grad():
+        calls = {f"S3FD {PREP_CANVAS[1]}x{PREP_CANVAS[0]}":
+                 lambda: det.model(x),
+                 "FAN 256²": lambda: fan.model(y)}
+        for s in segmentation.TTA_SCALES:
+            side = int(256 * s)
+            z = resize_linear(c, (side, side)).permute(
+                0, 3, 1, 2).float() / 255.0
+            calls[f"Graphonomy {side}²"] = lambda z=z: seg.model(z)
+        for name, fn in calls.items():
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(fn, 3)
+            peak = torch.cuda.max_memory_allocated() / 2**20
+            print(f"preprocess net {name}, batch {PREP_BATCH}: {ms:.3f} ms "
+                  f"a batch, {ms / PREP_BATCH:.3f} ms a frame, peak "
+                  f"{peak:.0f} MiB", flush=True)
+
+    def segment():
+        return segmentation.segment_with_tta(seg, crops[:PREP_BATCH])
+
+    wall = cuda_ms(segment, 2)
+    busy, _ = device_busy_ms(segment, 1)
+    kinds, top = kernel_breakdown(segment)
+    traced = "device busy not measured" if busy is None else \
+        f"device busy {busy:.3f} ms, idle {1 - busy / wall:.3f}"
+    print(f"preprocess segmentation batch of {PREP_BATCH} crops, 4 scales: "
+          f"{wall:.3f} ms wall; {traced}", flush=True)
+    if kinds is not None:
+        print("  by kind (ms): " + ", ".join(f"{k} {v:.3f}"
+                                             for k, v in kinds.items()),
+              flush=True)
+        for name, ms in top:
+            print(f"  {ms:8.3f} ms  {name[:110]}", flush=True)
+    del det, fan, seg
+    torch.cuda.empty_cache()
+
+
+def phase_preprocess(root, device):
+    """Raw footage into the port on the card: seeded weights in the JAX
+    layout, a raw tree of PREP frames, then ``cli.preprocess_dataset.main
+    --do_crop --do_compute_segmentation`` (S³FD boxes, the latentpose crop,
+    FAN landmarks, Graphonomy masks at four scales): the dataset's tree,
+    each stage's frames/s and peak memory, one batch through
+    ``voxceleb2_segmentation_nolandmarks``; the nets card vs CPU; their
+    device times.  Returns {raw, bboxes, weights, data_root}."""
+    t_phase = time.perf_counter()
+    raw, bboxes = write_raw_tree(root)
+    frames = np.stack([native_loader.decode(p) for p in
+                       sorted((raw / "id00000" / "video0").glob("*.png"))])
+    wdir = root / "weights"
+    write_prep_weights(wdir, frames[0], device)
+    n = PREP["identities"] * PREP["videos"] * PREP["frames"]
+
+    record = {}
+    t0 = time.perf_counter()
+    with _stage_timers(record):
+        prep_cli.main(["--data_root", str(root), "--do_crop",
+                       "--do_compute_segmentation", "--weights_dir",
+                       str(wdir), "--batch_size", str(PREP_BATCH),
+                       "--device", str(device)])
+    total = time.perf_counter() - t0
+    for stage in ("detect", "crop", "landmarks", "segment"):
+        sec, count, peak = record[stage]
+        print(f"preprocess stage {stage}: {count} frames in {sec:.3f} s, "
+              f"{count / sec:.1f} frames/s, peak {peak:.0f} MiB", flush=True)
+    print(f"preprocess_dataset --do_crop --do_compute_segmentation: {n} "
+          f"frames of {PREP_CANVAS[1]}x{PREP_CANVAS[0]} in {total:.2f} s, "
+          f"{n / total:.1f} frames/s end to end", flush=True)
+
+    for sub, suffix in (("images-cropped", ".png"),
+                        ("keypoints-cropped", ".npy"),
+                        ("segmentation-cropped", ".png")):
+        files = sorted((root / sub).rglob(f"*{suffix}"))
+        require(len(files) == n and {p.parent.parent.name for p in files}
+                == {f"id{i:05d}" for i in range(PREP["identities"])},
+                f"{sub}: {len(files)} files, expected {n}")
+    crops = np.stack([native_loader.decode(p) for p in
+                      sorted((root / "images-cropped").rglob("*.png"))])
+    require(crops.shape == (n, 256, 256, 3), f"crops {crops.shape}")
+    lms = np.stack([np.load(p) for p in
+                    sorted((root / "keypoints-cropped").rglob("*.npy"))])
+    require(lms.shape == (n, 68, 3) and np.isfinite(lms).all(),
+            f"landmarks {lms.shape}")
+    masks = np.stack([native_loader.decode(p) for p in sorted(
+        (root / "segmentation-cropped").rglob("*.png"))])
+    require(set(np.unique(masks)) <= {0, 255} and 0 < masks.mean() < 255,
+            f"masks hold {np.unique(masks)[:5]}")
+    cands = croppers.S3FDDetector(wdir / "s3fd.npz", device)
+    cands(frames)
+    print(f"preprocess: S3FD candidates before NMS {cands.candidates} over "
+          f"{len(frames)} frames; mask foreground {masks.mean() / 255:.3f}",
+          flush=True)
+    del cands
+
+    args = types.SimpleNamespace(
+        data_root=str(root), img_dir="images-cropped",
+        segm_dir="segmentation-cropped", bboxes_dir="/non/existent/file",
+        train_split_path="/non/existent/train.csv", transfer_dtype="float32",
+        finetune=False, checkpoint_path="",
+        inference=False, n_frames_for_encoder=8, image_size=256,
+        random_seed=0, batch_size=4, num_workers=1, prefetch_size=1)
+    batches = iter(dataset_mod.Wrapper.get_dataloader(args, "train"))
+    data, target = next(batches)
+    batches.close()           # stops and joins the loader's producer
+    require(data["enc_rgbs"].shape == (4, 8, 256, 256, 3)
+            and target["real_segm"].shape == (4, 1, 256, 256, 1)
+            and all(np.isfinite(v).all() for v in (*data.values(),
+                                                   *target.values())),
+            f"the preprocessed tree's batch: {data['enc_rgbs'].shape}")
+    print(f"preprocess: one batch of the preprocessed tree through "
+          f"voxceleb2_segmentation_nolandmarks: enc_rgbs "
+          f"{data['enc_rgbs'].shape}, real_segm mean "
+          f"{target['real_segm'].mean():.3f}", flush=True)
+
+    phase_prep_card_vs_cpu(wdir, frames[0], crops[0], device)
+    _prep_net_times(wdir, frames, crops, device)
+    print(f"preprocess phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"raw": raw, "bboxes": bboxes, "weights": wdir, "data_root": root}
+
+
+@contextlib.contextmanager
+def _captured_drives(record):
+    """drive_sequence's frames kept, and each driver source's load and
+    drive seconds (the card synchronised)."""
+    drive_seq = drive_lib.drive_sequence
+    loaders = {"crop": cli.inline_crop_frames,
+               "load": cli.load_driver_frames}
+
+    def drive(fn, state, frames, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = drive_seq(fn, state, frames, **k)
+        torch.cuda.synchronize()
+        record.setdefault("frames", []).append(frames)
+        record["drive"] = record.get("drive", 0.0) \
+            + time.perf_counter() - t0
+        return out
+
+    def timed(name):
+        def load(*a, **k):
+            t0 = time.perf_counter()
+            out = loaders[name](*a, **k)
+            record["load"] = record.get("load", 0.0) \
+                + time.perf_counter() - t0
+            return out
+        return load
+
+    drive_lib.drive_sequence = drive
+    cli.inline_crop_frames = timed("crop")
+    cli.load_driver_frames = timed("load")
+    try:
+        yield
+    finally:
+        drive_lib.drive_sequence = drive_seq
+        cli.inline_crop_frames = loaders["crop"]
+        cli.load_driver_frames = loaders["load"]
+
+
+def phase_drive_crop(ckpt, prep, workdir, device):
+    """``cli.drive.main --crop`` on the fine-tuned checkpoint from raw
+    frames (every video of the raw tree), once with ``--bboxes_dir`` and
+    once with S³FD (the weights through $LATENTPOSE_WEIGHTS_DIR), and drive
+    from the preprocessed (pre-cropped) directories: the frames given to
+    the generator equal the C++ crop of the same boxes (the dict's, or the
+    detector's run apart), 17 AdaIN launches a generator forward; each
+    run's frames/s (load or crop, then drive), after an untimed warm-up.
+    Returns the AdaIN launches of the three timed runs."""
+    t_phase = time.perf_counter()
+    raw, wdir = prep["raw"], prep["weights"]
+    videos = sorted(str(p) for p in raw.glob("*/*"))
+    bboxes = np.load(prep["bboxes"], allow_pickle=True).item()
+    loader = native_loader.NativeBatchLoader()
+    detector = croppers.S3FDDetector(wdir / "s3fd.npz", device)
+    args = cli.resolve_args([str(ckpt), "--device", "cpu"])
+    size = args.image_size
+    per_frame = len(registry.load_wrapper("generators", args.generator)
+                    .get_net(args).adain_features)          # 17 at 256²
+    launches = 0
+    runs = (("--crop, boxes from --bboxes_dir", videos,
+             ["--crop", "--bboxes_dir", str(prep["bboxes"])]),
+            ("--crop, boxes from S3FD", videos,
+             ["--crop", "--bboxes_dir", "/non/existent/file"]),
+            ("pre-cropped frames", sorted(
+                str(p) for p in (prep["data_root"] / "images-cropped")
+                .glob("*/*")), []))
+    os.environ["LATENTPOSE_WEIGHTS_DIR"] = str(wdir)
+    try:
+        # a warm-up of the same drive (cuDNN's first calls), untimed
+        cli.main([str(ckpt), "--images_paths", *runs[2][1], "--destination",
+                  str(workdir / "warm-up"), "--device", str(device),
+                  "--drive_batch_size", str(PREP_BATCH)])
+        for label, paths, flags in runs:
+            record = {}
+            torch.cuda.synchronize()
+            adain_op.adain.launches = 0
+            with _captured_drives(record):
+                cli.main([str(ckpt), "--images_paths", *paths,
+                          "--destination", str(workdir / "crop"),
+                          "--device", str(device),
+                          "--drive_batch_size", str(PREP_BATCH), *flags])
+            torch.cuda.synchronize()
+            count = adain_op.adain.launches
+            launches += count
+            n = sum(len(f) for f in record["frames"])
+            require(count == per_frame * sum(-(-len(f) // PREP_BATCH)
+                                             for f in record["frames"]),
+                    f"drive {label}: {count} AdaIN launches for {n} frames")
+            for path, frames in zip(paths, record["frames"]):
+                if not flags:
+                    continue
+                raw_frames = np.stack([native_loader.decode(p) for p in
+                                       sorted(Path(path).glob("*.png"))])
+                h = raw_frames.shape[1]
+                if "S3FD" in label:
+                    ltrb = [[v / s for v, s in zip(
+                        croppers.choose_one_detection(f)[:4],
+                        (raw_frames.shape[2], h) * 2)]
+                        for f in detector(raw_frames)]
+                else:
+                    ident, video = Path(path).parts[-2:]
+                    ltrb = [(bboxes[ident][video][i] / 256.0).tolist()
+                            for i in range(len(raw_frames))]
+                boxes = []
+                for box in ltrb:
+                    l, t, r, b = crop_lib.square_and_scale_bbox(*box)
+                    boxes.append(crop_lib.bbox_to_integer_coords(
+                        t, l, b, r, h, raw_frames.shape[2]))
+                want = loader.crop_boxes(
+                    raw_frames, boxes,
+                    [size > b - t for t, _, b, _ in boxes], size)
+                require(frames.dtype == np.uint8
+                        and np.array_equal(frames, want),
+                        f"drive {label}: the generator's frames are not the "
+                        f"C++ crop of the same boxes ({path})")
+            print(f"drive {label}: {n} frames, load/crop {record['load']:.3f}"
+                  f" s + drive {record['drive']:.3f} s: "
+                  f"{n / (record['load'] + record['drive']):.1f} frames/s "
+                  f"({n / record['load']:.1f} frames/s loading), AdaIN "
+                  f"launches {count}", flush=True)
+    finally:
+        del os.environ["LATENTPOSE_WEIGHTS_DIR"]
+        loader.close()
+    print(f"drive --crop phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 def main():
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2099,6 +2752,9 @@ def main():
         drive_once(ft_ckpt, [], frames)
         int8_adains = phase_int8_drive(ft_ckpt, Path(workdir) / "int8",
                                        frames, device)
+        prep = phase_preprocess(Path(workdir) / "prep", device)
+        crop_adains = phase_drive_crop(ft_ckpt, prep,
+                                       Path(workdir) / "drive_crop", device)
         phase_ehat_card_vs_cpu(ft_state, loader, device)
         phase_step_card_vs_cpu(ft_args, {"seeded": ft_seeded,
                                           "trained": ft_state}, loader,
@@ -2107,7 +2763,7 @@ def main():
                      for k in ft_launches}
     launches = {k: meta_launches[k] + ft_launches[k] + real_launches[k]
                 + bf16_launches[k] for k in ft_launches}
-    launches["adain_fused"] += int8_adains
+    launches["adain_fused"] += int8_adains + crop_adains
 
     print(f"smoke total: {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": [{

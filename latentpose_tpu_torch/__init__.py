@@ -9,8 +9,11 @@ BN -> ReLU -> 1x1 conv -> stats link (``csrc/conv_bn_fused.cu``, wrapper
 It trains from frames on disk: the VoxCeleb2 dataloader on a C++ image
 loader of its own (``csrc/lpr_loader.cpp``, ``data/native_loader.py``) and
 the epoch loop with validation, visuals and save-on-signal
-(``runners/loop.py``).  Kernels and the loader build from ``csrc/`` into
-``_build/`` at first use.  The package
+(``runners/loop.py``).  Raw footage is preprocessed by the port too: S³FD,
+the latentpose cropper, FAN landmarks and Graphonomy masks
+(``preprocess/``, ``eval/``, ``cli/preprocess_dataset.py``,
+``cli/crop_as_in_dataset.py``, drive's ``--crop``).  Kernels and the loader
+build from ``csrc/`` into ``_build/`` at first use.  The package
 imports ``torch`` and never ``jax``; it reads and writes the JAX package's
 checkpoint format (``checkpoint.py``, ``convert.py``).
 """

@@ -16,6 +16,11 @@ activation scale; ``--quantize int8_static`` with scales calibrated on the
 first driver sequence's leading ``--calibration_frames`` frames, then used
 for every sequence (``ops/quant.py``).  Both are approximate (the JAX
 package gates them at 40 dB PSNR against the exact path).
+
+``--crop`` drives raw footage (a directory of frames, or a video with cv2):
+each frame is cropped as the dataset crops it (:func:`inline_crop_frames`),
+its box from the ``--bboxes_dir`` dict or from S³FD (``s3fd.npz`` under
+``$LATENTPOSE_WEIGHTS_DIR`` or ``<repo>/weights/``).
 """
 
 from __future__ import annotations
@@ -31,8 +36,9 @@ import torch
 
 from latentpose_tpu_torch import checkpoint as ckpt_lib
 from latentpose_tpu_torch import convert, registry
+from latentpose_tpu_torch.data.common import crop as crop_lib
 from latentpose_tpu_torch.data.common.voxceleb import IMAGE_EXTENSIONS
-from latentpose_tpu_torch.data.native_loader import NativeBatchLoader
+from latentpose_tpu_torch.data import native_loader
 from latentpose_tpu_torch.runners import drive as drive_lib
 from latentpose_tpu_torch.utils.video import get_image_writer, to_uint8
 
@@ -57,7 +63,7 @@ def load_driver_frames(path, image_size):
                        if p.suffix.lower() in IMAGE_EXTENSIONS)
         if not files:
             raise FileNotFoundError(f"No frames found in {path}")
-        loader = NativeBatchLoader()
+        loader = native_loader.NativeBatchLoader()
         try:
             images, failed = loader.load(files, image_size)
         finally:
@@ -78,6 +84,113 @@ def load_driver_frames(path, image_size):
     if not frames:
         raise FileNotFoundError(f"No frames found in {path}")
     return np.stack(frames)
+
+
+def load_raw_frames(path):
+    """A driver sequence at its own resolution: (frames, ids), uint8 RGB
+    arrays and each frame's id (its stem when numeric, the bbox dict's key,
+    else its position).  A directory decodes through the C++ loader, a
+    video through cv2."""
+    path = Path(path)
+    frames, ids = [], []
+    if path.is_dir():
+        files = sorted(p for p in path.iterdir()
+                       if p.suffix.lower() in IMAGE_EXTENSIONS)
+        for idx, p in enumerate(files):
+            frames.append(native_loader.decode(p))
+            ids.append(int(p.stem) if p.stem.isdigit() else idx)
+    else:
+        import cv2
+        cap = cv2.VideoCapture(str(path))
+        while True:
+            ok, img = cap.read()
+            if not ok:
+                break
+            ids.append(len(frames))
+            frames.append(img[..., ::-1].copy())
+        cap.release()
+    if not frames:
+        raise FileNotFoundError(f"No frames found in {path}")
+    return frames, ids
+
+
+def load_bboxes(path):
+    """The dataset's per-frame bbox dict at ``path``, or {} where there is
+    none."""
+    try:
+        return np.load(str(path), allow_pickle=True).item()
+    except (FileNotFoundError, OSError, ValueError):
+        return {}
+
+
+def inline_crop_frames(path, args, detector=None):
+    """Raw driver footage cropped as the inference dataloader crops it (port
+    of ``latentpose_tpu/cli/drive.py`` ``inline_crop_frames``): each frame's
+    box from the ``args.bboxes_dir`` dict ([identity][sequence][frame],
+    256-space LTRB), else from ``detector`` (S³FD: ``s3fd.npz`` where the
+    weights are searched, when the dict is empty), else the whole frame ->
+    square x1.8 -> integer box -> the blur-faded padded crop -> INTER_CUBIC
+    (when ``args.image_size`` exceeds the crop's height) or INTER_AREA to
+    ``args.image_size``², in C++.  Returns (N, S, S, 3) uint8, the wire
+    format drive rescales on the device."""
+    from latentpose_tpu_torch.preprocess.croppers import (
+        choose_one_detection, make_face_detector)
+
+    frames, frame_ids = load_raw_frames(path)
+    bboxes = load_bboxes(args.bboxes_dir)
+    identity, sequence = (["", ""] + str(path).rstrip("/").split("/"))[-2:]
+    if not bboxes and detector is None:
+        detector = make_face_detector(None, args.device)
+        if detector is None:
+            raise RuntimeError(
+                "--crop needs per-frame bboxes: provide --bboxes_dir "
+                "(precomputed .npy dict, the dataset contract) or converted "
+                "S3FD weights (see WEIGHTS.md). Alternatively pre-crop with "
+                "cli/crop_as_in_dataset.py and drive without --crop.")
+
+    ltrb = [None] * len(frames)
+    for i, idx in enumerate(frame_ids):
+        try:
+            raw = bboxes[identity][sequence][idx]
+            ltrb[i] = (np.asarray(raw, np.float32) / 256.0).tolist()
+        except (KeyError, ValueError, IndexError):
+            pass
+    # the frames without a box: through the detector, a batch a size
+    todo = [i for i in range(len(frames)) if ltrb[i] is None]
+    for shape in sorted({frames[i].shape for i in todo}):
+        group = [i for i in todo if frames[i].shape == shape]
+        h, w = shape[:2]
+        if detector is None:
+            found = [[0.0, 0.0, 1.0, 1.0]] * len(group)  # pre-cropped
+        else:
+            found = [[v / s for v, s in zip(
+                choose_one_detection(faces)[:4], (w, h, w, h))]
+                for faces in detector(np.stack([frames[i] for i in group]))]
+        for i, box in zip(group, found):
+            ltrb[i] = box
+
+    size = args.image_size
+    out = np.empty((len(frames), size, size, 3), np.uint8)
+    loader = native_loader.NativeBatchLoader()
+    try:
+        for shape in sorted({f.shape for f in frames}):
+            group = [i for i, f in enumerate(frames) if f.shape == shape]
+            h, w = shape[:2]
+            boxes = []
+            for i in group:
+                l, t, r, b = ltrb[i]
+                if (l, t, r, b) == (0.0, 0.0, 1.0, 1.0):
+                    boxes.append((0, 0, h, w))
+                else:
+                    l, t, r, b = crop_lib.square_and_scale_bbox(l, t, r, b)
+                    boxes.append(crop_lib.bbox_to_integer_coords(
+                        t, l, b, r, h, w))
+            cubic = [size > b - t for t, _, b, _ in boxes]
+            out[group] = loader.crop_boxes(
+                np.stack([frames[i] for i in group]), boxes, cubic, size)
+    finally:
+        loader.close()
+    return out
 
 
 def load_finetuned(args, device):
@@ -120,9 +233,12 @@ def build_parser():
     parser.add_argument("--calibration_frames", type=int, default=64,
                         help="int8_static: how many leading driver frames "
                              "feed the calibration pass")
-    # accepted for the JAX CLI's surface; refused below until ported
     parser.add_argument("--crop", action=argparse.BooleanOptionalAction,
-                        default=False)
+                        default=False,
+                        help="crop raw driver footage as the dataset does")
+    parser.add_argument("--bboxes_dir", default=None,
+                        help="--crop: the per-frame bbox .npy dict "
+                             "(default: the checkpoint's)")
     return parser
 
 
@@ -143,11 +259,8 @@ def resolve_args(argv=None):
     args.inference = True
     if cli.compute_dtype is None:
         args.compute_dtype = "bfloat16"    # serving default
-    if args.crop:
-        raise NotImplementedError(
-            "--crop is not ported to PyTorch yet (it needs the face "
-            "detector: ROADMAP.md queue A, eval / preprocess nets); pre-crop "
-            "the footage or drive it with the JAX package's drive.py")
+    if not hasattr(args, "bboxes_dir"):
+        args.bboxes_dir = "/non/existent/file"
     if (getattr(args, "num_devices", 0) or 1) > 1:
         raise NotImplementedError(
             f"--num_devices {args.num_devices}: multi-device drive is not "
@@ -164,6 +277,12 @@ def main(argv=None):
     # sequence's leading frames
     drive_fn = None if args.quantize == "int8_static" else \
         drive_lib.make_drive_fn(models, args)
+    # --crop without a bbox dict: one S3FD for every sequence
+    detector = None
+    if args.crop and not load_bboxes(args.bboxes_dir):
+        from latentpose_tpu_torch.preprocess.croppers import \
+            make_face_detector
+        detector = make_face_detector(None, args.device)
 
     os.makedirs(args.destination, exist_ok=True)
     results = []
@@ -176,7 +295,10 @@ def main(argv=None):
                          / images_path)
             if candidate.exists():
                 resolved = candidate
-        frames = load_driver_frames(resolved, args.image_size)
+        if args.crop and not str(resolved).startswith("synthetic"):
+            frames = inline_crop_frames(resolved, args, detector)
+        else:
+            frames = load_driver_frames(resolved, args.image_size)
         if drive_fn is None:
             calib_frames = frames[:max(args.calibration_frames, 1)]
             if calib_frames.dtype == np.uint8:

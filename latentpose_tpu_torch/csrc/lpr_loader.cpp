@@ -32,6 +32,11 @@
 //         the float entries' results as uint8(v * 255 + 0.5)
 //   int   lpr_decode(path, unsigned char* out /* or NULL */, size_t cap,
 //                    int* h, int* w);  // one image at its own size, RGB u8
+//   int   lpr_crop_boxes_u8(pool, imgs /* n*h*w*3 uint8 RGB */, n, h, w,
+//                           boxes /* n x (t, l, b, r) pixels */, cubic /* n */,
+//                           out_size, unsigned char* out /* n*S*S*3 */);
+//         // the cropper's and drive --crop's blur-faded padded crop of
+//         // frames in memory, INTER_CUBIC / INTER_AREA to S², uint8 out
 // Each batch entry returns the number of images that failed to load (their
 // slots are zeroed).
 
@@ -1205,6 +1210,44 @@ int lpr_crop_segm_u8(const unsigned char* mask, int h, int w,
   crop_segm(mask, h, w, bbox, has_bbox != 0, out_size, tmp.data());
   quantize_u8(tmp.data(), tmp.size(), out);
   return 0;
+}
+
+// Frames in memory (n x h x w x 3 uint8 RGB): each one's integer box
+// [t, b) x [l, r) (out-of-bounds allowed) through the blur-faded reflect101
+// padded crop, then INTER_CUBIC (cubic[i] != 0) or INTER_AREA to
+// out_size^2, rounded to uint8 as cv2.resize rounds (half to even).  The
+// face cropper's and drive --crop's path (latentpose_tpu/preprocess/
+// croppers.py, latentpose_tpu/cli/drive.py inline_crop_frames).
+int lpr_crop_boxes_u8(void* pool, const unsigned char* imgs, int n, int h,
+                      int w, const int* boxes, const unsigned char* cubic,
+                      int out_size, unsigned char* out) {
+  const size_t in_stride = size_t(h) * w * 3;
+  const size_t stride = size_t(out_size) * out_size * 3;
+  return run_batch(pool, n, [&](int i) {
+    Image img;
+    img.h = h;
+    img.w = w;
+    img.rgb.assign(imgs + in_stride * i, imgs + in_stride * (i + 1));
+    const int* box = boxes + 4 * i;
+    const int t = box[0], l = box[1], b = box[2], r = box[3];
+    unsigned char* dst = out + stride * i;
+    if (b <= t || r <= l) {
+      std::memset(dst, 0, stride);
+      return false;
+    }
+    std::vector<unsigned char> cropped;
+    crop_padded_u8(img, 0, 0, h, w, t, l, b, r, &cropped);
+    std::vector<float> tmp(stride);
+    if (cubic[i])
+      resize_cubic(cropped, b - t, r - l, out_size, out_size, tmp.data());
+    else
+      resize_area(cropped, b - t, r - l, out_size, out_size, tmp.data());
+    for (size_t j = 0; j < stride; ++j) {
+      const float v = rint_f(tmp[j] * 255.0f);
+      dst[j] = (unsigned char)(v < 0.f ? 0.f : (v > 255.f ? 255.f : v));
+    }
+    return true;
+  });
 }
 
 // One image at its own size: its h and w, and (when `out` holds cap >=

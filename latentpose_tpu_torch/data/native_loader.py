@@ -109,6 +109,10 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = [u8, ctypes.c_int, ctypes.c_int, f64, ctypes.c_int,
                        ctypes.c_int, out]
+    lib.lpr_crop_boxes_u8.restype = ctypes.c_int
+    lib.lpr_crop_boxes_u8.argtypes = [
+        ctypes.c_void_p, u8, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int), u8, ctypes.c_int, u8]
     return lib
 
 
@@ -217,6 +221,28 @@ class NativeBatchLoader:
             _ptr(mask, ctypes.c_ubyte), mask.shape[0], mask.shape[1],
             _ptr(bb, ctypes.c_double), int(bool(has_bbox)), out_size,
             _ptr(out, _CTYPE[dtype]))
+        return out
+
+    def crop_boxes(self, images, boxes, cubic, out_size):
+        """The face cropper's crop of frames in memory: images (N, H, W, 3)
+        uint8 RGB; boxes (N, 4) int pixel (t, l, b, r), exclusive, out of
+        the frame allowed (blur-faded reflect101 padding); cubic (N,) bool:
+        INTER_CUBIC, else INTER_AREA, to out_size².  Returns (N, out, out,
+        3) uint8."""
+        images = np.ascontiguousarray(images, np.uint8)
+        n, h, w = images.shape[:3]
+        if images.shape != (n, h, w, 3):
+            raise ValueError(f"crop_boxes takes (N, H, W, 3) uint8, got "
+                             f"{images.shape}")
+        bx = np.ascontiguousarray(boxes, np.int32).reshape(n, 4)
+        cu = np.ascontiguousarray(cubic, np.uint8).reshape(n)
+        out = np.empty((n, out_size, out_size, 3), np.uint8)
+        failed = self._lib.lpr_crop_boxes_u8(
+            self._pool, _ptr(images, ctypes.c_ubyte), n, h, w,
+            _ptr(bx, ctypes.c_int), _ptr(cu, ctypes.c_ubyte), out_size,
+            _ptr(out, ctypes.c_ubyte))
+        if failed:
+            raise ValueError(f"crop_boxes: {failed} empty boxes in {bx}")
         return out
 
     def close(self):

@@ -163,10 +163,96 @@ def test_cli_drives_synthetic_to_video(jax_finetuned, tmp_path):
     assert tcli.resolve_args([str(path)]).compute_dtype == "bfloat16"
 
 
-@pytest.mark.parametrize("flags", [["--crop"], ["--num_devices", "2"]])
+@pytest.mark.parametrize("flags", [["--num_devices", "2"]])
 def test_cli_refuses_what_is_not_ported(jax_finetuned, flags):
     with pytest.raises(NotImplementedError, match="not ported"):
         tcli.resolve_args([str(jax_finetuned[3]), *flags])
+
+
+def _raw_sequence(root, n_frames=4, canvas=(96, 128)):
+    """Rendered faces pasted off-centre on canvases (PNG, so that both
+    packages decode the same pixels) in ``root/raw/idA/seq1``, and the
+    bbox dict (256-space LTRB of the source) for all frames but the last."""
+    h, w = canvas
+    seq = root / "raw" / "idA" / "seq1"
+    seq.mkdir(parents=True)
+    boxes = {}
+    for f in range(n_frames):
+        face = (render_face(3, f, 40)[0] * 255).astype(np.uint8)
+        img = np.full((h, w, 3), 50, np.uint8)
+        y, x = 10 + 4 * f, 60 - 6 * f
+        img[y:y + 40, x:x + 40] = face
+        write_png(seq / f"{f:05d}.png", img)
+        if f < n_frames - 1:
+            boxes[f] = np.array([x, y, x + 40, y + 40], np.float32) * 256 / h
+    np.save(root / "bboxes.npy", {"idA": {"seq1": boxes}}, allow_pickle=True)
+    return seq, root / "bboxes.npy"
+
+
+def _s3fd_weights(root):
+    """A seeded S³FD written by the port's inverse converter in the JAX
+    layout (``s3fd.npz``); its offset heads scaled down, so that its boxes
+    stay near their anchors."""
+    from latentpose_tpu_torch.preprocess.s3fd import S3FD
+    from latentpose_tpu_torch.utils.weights import flax_from_state_dict
+    torch.manual_seed(3)
+    net = S3FD()
+    with torch.no_grad():
+        for i in range(6):
+            getattr(net, f"reg{i}").weight.mul_(0.05)
+    root.mkdir(exist_ok=True)
+    np.savez(root / "s3fd.npz", **flax_from_state_dict(net))
+    return root
+
+
+@pytest.mark.parametrize("source", ["bboxes", "detector"])
+def test_inline_crop_matches_jax(tmp_path, monkeypatch, source):
+    """drive --crop's frames against the JAX package's
+    ``inline_crop_frames``: boxes from the dict (the last frame has none:
+    the whole frame), or from a seeded S³FD found through
+    $LATENTPOSE_WEIGHTS_DIR; within the C++ crop's bound against cv2's
+    (ROADMAP C.5: ~1/255, at most 3.5/255; the seeded detector's boxes are
+    anchor-sized, so its crops are mostly the blur-faded pad, where the
+    two differ most)."""
+    from latentpose_tpu.cli.drive import inline_crop_frames as jax_crop
+    seq, bboxes = _raw_sequence(tmp_path)
+    if source == "detector":
+        bboxes = tmp_path / "none.npy"
+        monkeypatch.setenv("LATENTPOSE_WEIGHTS_DIR",
+                           str(_s3fd_weights(tmp_path / "weights")))
+    args = types.SimpleNamespace(bboxes_dir=str(bboxes), image_size=48,
+                                 device="cpu")
+    want = jax_crop(str(seq), args)
+    got = tcli.inline_crop_frames(seq, args)
+    assert got.shape == want.shape == (4, 48, 48, 3)
+    assert got.dtype == np.uint8
+    err = np.abs(got.astype(np.float32) / 255.0 - want)
+    assert err.max() <= 3.5 / 255 and err.mean() < 1.5 / 255
+
+
+def test_cli_drives_raw_frames_with_crop(jax_finetuned, tmp_path,
+                                         monkeypatch):
+    """``cli.drive.main --crop --bboxes_dir`` with cv2, PIL and imageio
+    unimportable: the generator is given the inline crop's frames."""
+    path = jax_finetuned[3]
+    seq, bboxes = _raw_sequence(tmp_path)
+    with monkeypatch.context() as mp:
+        for name in ("cv2", "PIL", "imageio"):
+            mp.setitem(sys.modules, name, None)
+        written = tcli.main([str(path), "--images_paths", str(seq),
+                             "--destination", str(tmp_path / "out"),
+                             "--device", "cpu", "--drive_batch_size", "2",
+                             "--crop", "--bboxes_dir", str(bboxes)])
+    files = sorted(Path(f"{written[0]}.frames").glob("*.png"))
+    args, models, state = _port(path, "--crop", "--bboxes_dir", str(bboxes))
+    frames = tcli.inline_crop_frames(seq, args)
+    results = tdrive.drive_sequence(tdrive.make_drive_fn(models, args),
+                                    state, frames, batch_size=2)
+    assert len(files) == len(frames) == 4
+    for file, driver, result in zip(files, frames, results):
+        np.testing.assert_array_equal(
+            _read_png(file), to_uint8(np.concatenate(
+                [driver.astype(np.float32) / 255.0, result], 1)))
 
 
 def _read_png(path):
@@ -310,6 +396,17 @@ def test_card_path_imports_no_jax():
         "import latentpose_tpu_torch.data.pipeline",
         "import latentpose_tpu_torch.runners.loop",
         "import latentpose_tpu_torch.utils.logging_writer",
+        "import latentpose_tpu_torch.utils.weights",
+        "import latentpose_tpu_torch.ops.resize",
+        "import latentpose_tpu_torch.preprocess.s3fd",
+        "import latentpose_tpu_torch.preprocess.croppers",
+        "import latentpose_tpu_torch.preprocess.readers",
+        "import latentpose_tpu_torch.preprocess.graphonomy",
+        "import latentpose_tpu_torch.preprocess.segmentation",
+        "import latentpose_tpu_torch.eval.fan",
+        "import latentpose_tpu_torch.eval.backends",
+        "import latentpose_tpu_torch.cli.crop_as_in_dataset",
+        "import latentpose_tpu_torch.cli.preprocess_dataset",
         "import latentpose_tpu_torch.models.generators."
         "vector_pose_unsupervised_segmentation_noBottleneck",
         "print('imported', len(sys.modules))",
