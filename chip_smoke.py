@@ -139,7 +139,23 @@ paths:
 16. drive ``--crop`` through ``cli.drive.main`` from those raw frames with
     the fine-tuned checkpoint, boxes from ``--bboxes_dir`` and from S3FD:
     the generator's frames equal to the C++ crop of the same boxes, 17 AdaIN
-    launches a forward; frames/s beside drive from the pre-cropped output.
+    launches a forward; frames/s beside drive from the pre-cropped output;
+17. the paper's evaluation protocol: 3 identities of 32 identity and 32
+    driver frames at 256² (with masks), seeded ArcFace-r100 and FAN (4
+    hourglasses) at their published widths in the JAX layout; the crop
+    resizes bit-equal card vs CPU, ArcFace within 1e-3 of its max and LPIPS
+    within 1e-3 relative, each with a planted fault above its gate;
+    ArcFace's ms a batch of 64 crops with the flip beside its FLOP bound;
+    ``cli.batched_finetune.main`` from the meta checkpoint (8 steps an
+    identity) and ``cli.batched_drive.main`` (every avatar, every driver),
+    as child processes that inherit the blocked imports (a sitecustomize on
+    their PYTHONPATH), each child's start-up and work and its kernel
+    launches (counted in the child, beside the count reckoned from the
+    code); ``cli.compute_pose_identity_error.main`` on the card (again from
+    its caches), on the CPU (identity error within 1e-4, pose errors within
+    1e-4 relative; one identity's reenactments swapped for another's must
+    read above), and with the proxies: each stage's time, frames scored a
+    second, peak memory.
 
 jax, flax, optax, yaml, cv2, PIL, imageio and pandas are made unimportable
 first: the card's path needs none of them.
@@ -165,8 +181,8 @@ from pathlib import Path
 
 # The card's path needs none of these (the machine with the card may have
 # some of them): make them unimportable, so that the run shows it.
-for _name in ("jax", "flax", "optax", "yaml", "cv2", "PIL", "imageio",
-              "pandas"):
+BLOCKED = ("jax", "flax", "optax", "yaml", "cv2", "PIL", "imageio", "pandas")
+for _name in BLOCKED:
     sys.modules[_name] = None
 
 import numpy as np  # noqa: E402
@@ -204,6 +220,13 @@ from latentpose_tpu_torch.data.common import crop as crop_lib  # noqa: E402
 from latentpose_tpu_torch.eval import backends  # noqa: E402
 from latentpose_tpu_torch.eval import fan as fan_mod  # noqa: E402
 from latentpose_tpu_torch.ops.resize import resize_linear  # noqa: E402
+from latentpose_tpu_torch.cli import batched_drive  # noqa: E402
+from latentpose_tpu_torch.cli import batched_finetune  # noqa: E402
+from latentpose_tpu_torch.cli import (  # noqa: E402
+    compute_pose_identity_error as eval_cli)
+from latentpose_tpu_torch.eval import arcface, lpips  # noqa: E402
+from latentpose_tpu_torch.ops.resize import (  # noqa: E402
+    resize_area, resize_cubic)
 from latentpose_tpu_torch.preprocess import croppers  # noqa: E402
 from latentpose_tpu_torch.preprocess import graphonomy as graph_mod  # noqa
 from latentpose_tpu_torch.preprocess import s3fd as s3fd_mod  # noqa: E402
@@ -296,6 +319,13 @@ PREP_TOL = 1e-3        # card vs CPU, each net's output, relative to its max
 # the seeded S³FD's face biases: this many of the logit's spreads above its
 # mean, so that ~0.1 % of the anchors pass the decode's threshold of 0.5
 PREP_ANCHOR_SIGMA = 3.0
+# the eval phase's tree: identities, each with this many identity and
+# driver frames at size²; the fine-tune children's steps
+EVAL = dict(identities=3, frames=32, size=256)
+EVAL_FT_ITERATIONS = 8
+EVAL_NET_TOL = 1e-3    # card vs CPU: ArcFace (of max |e|), LPIPS (relative)
+EVAL_ID_TOL = 1e-4     # card vs CPU: the identity error, absolute
+EVAL_POSE_TOL = 1e-4   # card vs CPU: each pose error, relative
 
 
 def require(cond, message):
@@ -2188,7 +2218,7 @@ def _seeded(net, seed):
                                  generator=g)
                 if m.bias is not None:
                     m.bias.uniform_(-0.1, 0.1, generator=g)
-            elif isinstance(m, torch.nn.BatchNorm2d):
+            elif isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
                 m.weight.uniform_(0.5, 1.5, generator=g)
                 m.bias.uniform_(-0.1, 0.1, generator=g)
                 m.running_mean.uniform_(-0.3, 0.3, generator=g)
@@ -2663,6 +2693,469 @@ def phase_drive_crop(ckpt, prep, workdir, device):
     return launches
 
 
+# ---------------------------------------------------------------------- eval
+
+
+# the blocked imports of this process, carried into the batched CLIs'
+# children by a sitecustomize on their PYTHONPATH, which also imports the
+# CLIs, loads both kernels and opens the card (the child's start-up) and
+# reports each kernel's launches and the peak device memory at exit
+CHILD_SITE = '''
+import atexit, sys, time
+for _name in {blocked!r}:
+    sys.modules[_name] = None
+import torch
+import latentpose_tpu_torch.cli.drive, latentpose_tpu_torch.cli.train
+from latentpose_tpu_torch.ops import adain, conv_bn
+if torch.cuda.is_available():
+    adain.kernel_entry()
+    conv_bn.kernel_entry()
+    torch.cuda.init()
+print("smoke child: started", file=sys.stderr, flush=True)
+
+
+def _report():
+    peak = torch.cuda.max_memory_allocated() / 2**20 \
+        if torch.cuda.is_available() else 0.0
+    print(f"smoke child: launches adain_fused {{adain.adain.launches}} "
+          f"bn_relu_conv1x1_stats "
+          f"{{conv_bn.bn_relu_conv1x1_stats.launches}} peak_mib {{peak:.0f}}",
+          file=sys.stderr, flush=True)
+
+
+atexit.register(_report)
+'''
+
+
+class _Children:
+    """Stands in for ``subprocess`` in the batched CLIs: each child runs
+    with ``env`` (the blocked imports), its output read line by line;
+    records each child's wall time, its start-up (until the site's
+    "started" line: interpreter, imports, the kernels' load, the card's
+    context), its kernel launches and its peak device memory.  A child
+    that fails fails the smoke."""
+
+    def __init__(self, env):
+        self.env = env
+        self.runs = []
+
+    def run(self, command, check=True):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(command, env=self.env, cwd=ROOT,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        startup, launches, lines = None, None, []
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("smoke child: started"):
+                startup = time.perf_counter() - t0
+            elif line.startswith("smoke child: launches"):
+                words = line.split()[3:]
+                launches = {k: int(v) for k, v in zip(words[::2],
+                                                      words[1::2])}
+        rc = proc.wait()
+        wall = time.perf_counter() - t0
+        if rc or startup is None or launches is None:
+            print("".join(lines[-40:]), flush=True)
+        require(rc == 0, f"child {command[2]} exited with {rc}")
+        require(startup is not None and launches is not None,
+                f"child {command[2]} did not run with the smoke's site")
+        cli_name = command[2].rsplit(".", 1)[1]
+        name = (command[command.index("--experiment_name") + 1]
+                if cli_name == "train"
+                else Path(command[3]).parent.parent.name)
+        self.runs.append({"cli": cli_name, "name": name, "wall": wall,
+                          "startup": startup, "launches": launches})
+        return subprocess.CompletedProcess(command, rc)
+
+
+@contextlib.contextmanager
+def _children_of(module, children):
+    saved = module.subprocess
+    module.subprocess = children
+    try:
+        yield
+    finally:
+        module.subprocess = saved
+
+
+def child_env(root):
+    """The environment of the batched CLIs' children: CHILD_SITE's
+    directory and the repository on PYTHONPATH; checks that a child cannot
+    import cv2 there."""
+    site = root / "child_site"
+    site.mkdir(parents=True, exist_ok=True)
+    (site / "sitecustomize.py").write_text(CHILD_SITE.format(
+        blocked=BLOCKED))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(site), str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    probe = subprocess.run(
+        [sys.executable, "-c", "import cv2"], env=env, cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    require(probe.returncode != 0 and "smoke child: started" in probe.stderr,
+            f"a child imports cv2 or skips the site: {probe.stderr[-500:]}")
+    return env
+
+
+def write_eval_tree(root):
+    """EVAL's identities, each ``id<i>/vid0/{identity,driver}`` with
+    EVAL["frames"] rendered EVAL["size"]² PNG frames (driver frames later in
+    the head's motion than the identity's) and their head masks under
+    ``segmentation-cropped`` (grey PNGs), as the eval harness reads them."""
+    size = EVAL["size"]
+    identities = []
+    for i in range(EVAL["identities"]):
+        ident = f"id{i:05d}/vid0"
+        for sub, offset in (("identity", 0), ("driver", 40)):
+            img_dir = root / "images-cropped" / ident / sub
+            segm_dir = root / "segmentation-cropped" / ident / sub
+            img_dir.mkdir(parents=True)
+            segm_dir.mkdir(parents=True)
+            for f in range(EVAL["frames"]):
+                img, segm = render_face(i, f + offset, size)
+                write_png(img_dir / f"{f:05d}.png",
+                          (img * 255 + 0.5).astype(np.uint8), level=1)
+                write_png(segm_dir / f"{f:05d}.png",
+                          (segm[..., 0] * 255 + 0.5).astype(np.uint8),
+                          level=1)
+        identities.append(ident)
+    return identities
+
+
+def write_eval_weights(wdir):
+    """Seeded ArcFace-r100 (the published (3, 13, 30, 3) stages of 64..512
+    features) and FAN (4 hourglasses) in the JAX package's flat-npz layout
+    (``arcface_r100.npz``, ``fan_2d.npz``), read back bit-equal."""
+    wdir.mkdir(parents=True, exist_ok=True)
+    for name, net in (("arcface_r100.npz", _seeded(arcface.ArcFaceR100(), 21)),
+                      ("fan_2d.npz", _seeded(fan_mod.FAN(), 22))):
+        np.savez(wdir / name, **weights.flax_from_state_dict(net))
+        back = weights.state_dict_from_flax(
+            net, weights.load_flat_npz_variables(str(wdir / name)))
+        own = net.state_dict()
+        require(all(torch.equal(back[k], own[k]) for k in back)
+                and len(back) == len([k for k in own
+                                      if "num_batches" not in k]),
+                f"{name} does not round-trip bit-equal")
+        print(f"eval weights: {name} {len(back)} arrays, "
+              f"{(wdir / name).stat().st_size / 2**20:.1f} MiB, round-trip "
+              f"bit-equal", flush=True)
+    return wdir
+
+
+def _flops(net, x):
+    """Multiply-adds x 2 of the convolutions and products of ``net(x)``."""
+    total, hooks = [0], []
+
+    def count(mod, inp, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            total[0] += out.numel() * mod.weight[0].numel()
+        else:
+            total[0] += out.numel() * mod.in_features
+    for mod in net.modules():
+        if isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear)):
+            hooks.append(mod.register_forward_hook(count))
+    try:
+        with torch.no_grad():
+            net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return 2.0 * total[0]
+
+
+def _gate(what, runs, faulty, tol):
+    print(f"eval card vs cpu, {what}: {runs:.3g}, planted fault "
+          f"{faulty:.3g} (gate {tol})", flush=True)
+    require(runs <= tol, f"card and CPU {what} differ: {runs}")
+    require(faulty > tol, f"the planted fault passes the {what} gate: "
+            f"{faulty}")
+
+
+def phase_eval_nets(wdir, frames, device):
+    """The eval harness's pieces on the card against the CPU: the crop
+    resizes (INTER_CUBIC both forms, INTER_AREA at a non-integer and two
+    integer factors) bit-equal, ArcFace-r100's embeddings of 8 crops within
+    EVAL_NET_TOL of their max, LPIPS (the unarmed AlexNet tower, 4 pairs at
+    256²) within EVAL_NET_TOL relative; each with a planted fault above its
+    gate; ArcFace's ms per batch of 64 crops with the flip beside its FLOP
+    bound, LPIPS's per batch."""
+    cpu = torch.device("cpu")
+    bbox = backends.get_default_bbox("latentpose")
+    x = torch.from_numpy(frames)
+    small = resize_linear(x, (64, 64))
+    cases = [("cubic 256² frames' crops -> 112²", x, 112, resize_cubic),
+             ("cubic 64² frames' crops -> 112² (up)", small, 112,
+              resize_cubic),
+             ("area 256² frames' crops -> 16²", x, 16, resize_area),
+             ("area 64² -> 16² (integer x4)", small, 16, None),
+             ("area 32² -> 16² (integer 2x2)", resize_linear(x, (32, 32)), 16,
+              None)]
+    for what, batch, side, resize in cases:
+        if resize is None:      # the whole frame
+            def fn(b, dev, side=side):
+                return resize_area(b.to(dev), (side, side))
+        else:
+            def fn(b, dev, side=side, resize=resize):
+                return backends.face_crops(list(b.numpy()), bbox,
+                                           (side, side), resize, dev)
+        want = fn(batch, cpu)
+        differ = int((fn(batch, device).cpu() != want).sum())
+        planted = batch.clone()
+        planted[0, batch.shape[1] // 2, batch.shape[2] // 2] ^= 0x40
+        fault = int((fn(planted, device).cpu() != want).sum())
+        print(f"eval resize {what}, {len(batch)} frames: {differ} values "
+              f"differ card vs cpu; planted one-pixel fault {fault}",
+              flush=True)
+        require(differ == 0 and fault > 0, f"resize {what}: {differ} "
+                f"differ, the fault moved {fault}")
+
+    crops = backends.face_crops(list(frames[:8]), bbox, (112, 112),
+                                resize_cubic, cpu)
+    net = weights.load_flax_weights(arcface.ArcFaceR100(),
+                                    str(wdir / "arcface_r100.npz")).eval()
+    with torch.no_grad():
+        want = net(crops)
+        card = net.to(device)
+        runs = _rel_gap(card(crops.to(device)), want)
+        card.stage3_unit1.bn2.eps = 0.01
+        faulty = _rel_gap(card(crops.to(device)), want)
+    _gate("ArcFace-r100 embeddings of 8 crops, TF32 off, max_rel_diff "
+          "(fault: stage 3 unit 1 bn2 eps 2e-5 -> 1e-2)", runs, faulty,
+          EVAL_NET_TOL)
+    backend = backends.ArcFaceBackend(wdir / "arcface_r100.npz",
+                                      device=device)
+    batch = backends.face_crops(list(np.concatenate([frames] * 2)[:64]),
+                                bbox, (112, 112), resize_cubic,
+                                device)
+    emb = backend.embed(batch)
+    require(torch.isfinite(emb).all() and float(
+        (emb.norm(dim=-1) - 1).abs().max()) < 1e-5,
+        "ArcFace descriptors are not finite unit vectors")
+    ms = cuda_ms(lambda: backend.embed(batch), 3)
+    flops = _flops(backend.model, torch.cat([batch, batch]))
+    bounds = {k: flops / PEAK_FLOPS[k] * 1e3 for k in PEAK_FLOPS}
+    print(f"eval ArcFace-r100, 64 crops at 112² with the flip (128 tower "
+          f"forwards), f32, TF32 off: {ms:.3f} ms; {flops / 1e12:.3f} TFLOP: "
+          f"bound {bounds[torch.float32]:.3f} ms at 495 TFLOP/s (TF32), "
+          f"{bounds[torch.bfloat16]:.3f} ms at 989 TFLOP/s (bf16); "
+          f"{ms / 64:.3f} ms a crop", flush=True)
+    del net, card, backend
+    torch.cuda.empty_cache()
+
+    g = torch.Generator().manual_seed(23)
+    a = torch.rand(4, 256, 256, 3, generator=g)
+    b = (a + 0.1 * torch.randn(a.shape, generator=g)).clamp(0, 1)
+    want = lpips.lpips_fn("", allow_random=True, device=cpu)[0](a, b)
+    card_fn = lpips.lpips_fn("", allow_random=True, device=device)[0]
+    runs = _rel_gap(card_fn(a, b), want)
+    params, _ = lpips.load_lpips_params("", allow_random=True, device=device)
+    for i in range(len(lpips.ALEX_CHANNELS)):
+        params[f"lin{i}"] *= 1.01
+    faulty = _rel_gap(lpips.lpips(params, a.to(device), b.to(device)), want)
+    _gate("LPIPS (unarmed AlexNet tower) of 4 pairs at 256², TF32 off, "
+          "max_rel_diff (fault: every lin head x1.01)", runs, faulty,
+          EVAL_NET_TOL)
+    a, b = a.to(device), b.to(device)
+    ms = cuda_ms(lambda: card_fn(a, b), 5)
+    print(f"eval LPIPS, 4 pairs at 256²: {ms:.3f} ms; distances "
+          f"{[round(float(v), 4) for v in want]}", flush=True)
+
+
+def _results_root(root, sweep, identities, swap_from=None):
+    """A results root whose avatars' ``driving-results`` are the sweep's
+    (links), so that each eval run writes its own caches.  ``swap_from``
+    (the tree's ``images-cropped``): avatar 0's reenactment frames are
+    identity 1's own driver frames instead (driver | frame PNGs, as drive
+    writes them)."""
+    def name(i):
+        return identities[i].replace("/", "_")
+
+    for i in range(len(identities)):
+        avatar = root / (name(i) + "_identity") / "driving-results"
+        avatar.parent.mkdir(parents=True)
+        if swap_from is None or i != 0:
+            avatar.symlink_to(sweep / (name(i) + "_identity")
+                              / "driving-results")
+            continue
+        other = sorted((swap_from / identities[1] / "driver").glob("*.png"))
+        for j in range(len(identities)):
+            out = avatar / f"{name(j)}_driver.mp4.frames"
+            out.mkdir(parents=True)
+            drivers = sorted((swap_from / identities[j] / "driver")
+                             .glob("*.png"))
+            for k, (a, b) in enumerate(zip(drivers, other)):
+                write_png(out / f"{k:06d}.png", np.concatenate(
+                    [native_loader.decode(a), native_loader.decode(b)], 1),
+                    level=1)
+    return root
+
+
+def _eval_run(data_root, results, identities, device, *flags):
+    """``cli.compute_pose_identity_error.main`` once: (its dict, wall s,
+    {stage: (s, calls)}, peak MiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer = backends.StageTimer()
+    t0 = time.perf_counter()
+    out = eval_cli.main([
+        "--results_root", str(results), "--data_root", str(data_root),
+        "--identities", *identities, "--num_frames", str(EVAL["frames"]),
+        "--image_size", str(EVAL["size"]), "--device", str(device), *flags],
+        timer)
+    wall = time.perf_counter() - t0
+    stages = {k: (v, timer.calls[k]) for k, v in timer.seconds.items()}
+    return out, wall, stages, torch.cuda.max_memory_allocated() / 2**20
+
+
+def _eval_gaps(got, want):
+    """(identity error's absolute gap, the pose errors' largest relative
+    gap)."""
+    pose = max(abs(got[k] - want[k]) / abs(want[k]) for k in
+               ("pose_reconstruction_error",
+                "pose_reconstruction_error_aligned"))
+    return abs(got["identity_error"] - want["identity_error"]), pose
+
+
+def phase_eval(meta_ckpt, root, device, child_device="cuda"):
+    """The paper's protocol through the port's CLIs' ``main``: EVAL's
+    identities written as the dataset lays them out; ``batched_finetune``
+    from the meta checkpoint (EVAL_FT_ITERATIONS steps on each identity's
+    frames) and ``batched_drive`` (every avatar with every identity's
+    driver) as children with the smoke's imports blocked; then
+    ``compute_pose_identity_error`` with the seeded ArcFace and FAN on the
+    card (again, from its caches), on the CPU (the gate, and a run with one
+    identity's reenactments swapped for another's that must read above it),
+    and with the proxies.  Returns each kernel's launches in the
+    children."""
+    t_phase = time.perf_counter()
+    data_root = root / "data"
+    identities = write_eval_tree(data_root)
+    wdir = write_eval_weights(root / "weights")
+    frames = np.stack([native_loader.decode(p) for p in sorted(
+        (data_root / "images-cropped" / identities[0] / "identity")
+        .glob("*.png"))])
+    phase_eval_nets(wdir, frames, device)
+    print(f"eval tree, weights and nets: {time.perf_counter() - t_phase:.1f} "
+          f"s", flush=True)
+
+    children = _Children(child_env(root))
+    torch.cuda.empty_cache()
+    with _children_of(batched_finetune, children):
+        batched_finetune.main([
+            "--model", str(meta_ckpt), "--data_root", str(data_root),
+            "--identities", *[f"{i}/identity" for i in identities],
+            "--output_dir", str(root / "puppeteering"),
+            "--target_iterations", str(EVAL_FT_ITERATIONS),
+            "--extra_args", "--dataloader",
+            "voxceleb2_segmentation_nolandmarks", "--allow_random_vgg",
+            "--device", child_device])
+    sweep = root / "puppeteering" / (
+        meta_ckpt.parent.parent.name + "_" + meta_ckpt.name)
+    with _children_of(batched_drive, children):
+        batched_drive.main([
+            "--puppeteering_dir", str(sweep), "--data_root", str(data_root),
+            "--drivers", *[f"{i}/driver" for i in identities],
+            "--extra_args", "--device", child_device])
+    n, f = len(identities), EVAL["frames"]
+    for ident in identities:
+        out = sweep / (ident.replace("/", "_") + "_identity") \
+            / "driving-results"
+        written = sorted(out.iterdir())
+        require([p.name for p in written] == [
+            i.replace("/", "_") + "_driver.mp4.frames" for i in identities]
+            and all(len(list(p.glob("*.png"))) == f for p in written),
+            f"{out}: {[p.name for p in written]}")
+    # from the code: ê is one ResNeXt-50 forward (16 links) a batch of
+    # batched_finetune's batch (min(frames, 8)); a step one generator
+    # forward (17 AdaINs), and the loop's two image probes at iteration 0
+    # (the visuals and the fixed ids: finetuning-base logs them every
+    # 9999999 and 15 steps) two more; drive one generator forward a batch
+    # of DRIVE_BATCH frames
+    ft_batch = min(f, 8)
+    reckoned = {"train": {"bn_relu_conv1x1_stats": 16 * (f // ft_batch),
+                          "adain_fused": 17 * (EVAL_FT_ITERATIONS + 2)},
+                "drive": {"bn_relu_conv1x1_stats": 0,
+                          "adain_fused": 17 * n * -(-f // DRIVE_BATCH)}}
+    child_launches = {"bn_relu_conv1x1_stats": 0, "adain_fused": 0}
+    for run in children.runs:
+        want = reckoned[run["cli"]]
+        print(f"eval child {run['cli']} {run['name']}: wall "
+              f"{run['wall']:.1f} s = start-up {run['startup']:.1f} s "
+              f"(interpreter, imports, kernels' load, the card's context) + "
+              f"work {run['wall'] - run['startup']:.1f} s; peak "
+              f"{run['launches'].pop('peak_mib')} MiB; launches "
+              f"{run['launches']} (reckoned {want})", flush=True)
+        for k in child_launches:
+            child_launches[k] += run["launches"][k]
+        require(child_device != "cuda" or run["launches"] == want,
+                f"child {run['cli']} {run['name']} launched "
+                f"{run['launches']}, reckoned {want}")
+    print(f"eval batched_finetune + batched_drive: {len(children.runs)} "
+          f"children, launches {child_launches}", flush=True)
+
+    def results(name, swap_from=None):
+        return _results_root(root / name, sweep, identities, swap_from)
+
+    seeded = ["--eval_weights_dir", str(wdir)]
+    card, wall, stages, peak = _eval_run(data_root, results("card"),
+                                         identities, device, *seeded)
+    scored = n * n * f
+    print(f"eval compute_pose_identity_error, seeded ArcFace + FAN, card: "
+          f"{card}; {wall:.2f} s end to end, {scored} reenactment frames "
+          f"({scored / wall:.1f} frames/s); peak {peak:.0f} MiB", flush=True)
+    per_call = {k: 1e3 * s / c for k, (s, c) in stages.items()}
+    print("  stages: " + ", ".join(
+        f"{k} {s:.3f} s ({c} calls)" for k, (s, c) in sorted(stages.items()))
+        + f"; FAN {per_call['fan']:.2f} ms a batch of {f}; ArcFace "
+        f"{per_call['arcface']:.2f} ms a batch of {f} with the flip",
+        flush=True)
+    again, wall2, stages2, _ = _eval_run(data_root, root / "card", identities,
+                                         device, *seeded)
+    require(again == card and set(stages2) == {"metrics"},
+            f"the second run did not come from its caches: {stages2}")
+    print(f"eval from the caches: the same numbers in {wall2:.2f} s",
+          flush=True)
+    for k, v in card.items():
+        require(np.isfinite(v), f"{k} is {v}")
+    for ident in identities:
+        desc = np.load(root / "card" / (ident.replace("/", "_") + "_identity")
+                       / "our_identity_descriptors"
+                       / (ident.replace("/", "_") + ".npy"))
+        require(desc.shape == (n, f, 512) and np.isfinite(desc).all()
+                and np.abs(np.linalg.norm(desc, axis=-1) - 1).max() < 1e-5,
+                f"{ident}'s descriptors are not finite unit vectors")
+
+    t0 = time.perf_counter()
+    cpu, _, _, _ = _eval_run(data_root, results("cpu"), identities,
+                             torch.device("cpu"), *seeded)
+    cpu_wall = time.perf_counter() - t0
+    fault, _, _, _ = _eval_run(
+        data_root, results("fault", data_root / "images-cropped"),
+        identities, device, *seeded)
+    runs, faulty = _eval_gaps(card, cpu), _eval_gaps(fault, cpu)
+    print(f"eval compute_pose_identity_error card vs cpu ({cpu_wall:.1f} s "
+          f"on the CPU): identity error {runs[0]:.3g} absolute, pose errors "
+          f"{runs[1]:.3g} relative; the fault (avatar 0's reenactments "
+          f"swapped for identity 1's driver frames) {faulty[0]:.3g} and "
+          f"{faulty[1]:.3g} (gates "
+          f"{EVAL_ID_TOL}, {EVAL_POSE_TOL})", flush=True)
+    require(runs[0] <= EVAL_ID_TOL and runs[1] <= EVAL_POSE_TOL,
+            f"card and CPU protocols differ: {runs}")
+    require(faulty[0] > EVAL_ID_TOL and faulty[1] > EVAL_POSE_TOL,
+            f"the swapped reenactments pass the gate: {faulty}")
+
+    proxy, wall, stages, _ = _eval_run(
+        data_root, results("proxy"), identities, device,
+        "--eval_weights_dir", str(root / "no_weights"), "--allow_proxy_eval")
+    require(all(np.isfinite(v) for v in proxy.values()), f"proxy {proxy}")
+    print(f"eval compute_pose_identity_error, proxies, card: {proxy}; "
+          f"{wall:.2f} s", flush=True)
+    print(f"eval phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return child_launches
+
+
 def main():
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2759,6 +3252,10 @@ def main():
         phase_step_card_vs_cpu(ft_args, {"seeded": ft_seeded,
                                           "trained": ft_state}, loader,
                                device)
+        del ft_args, ft_state, ft_seeded, loader
+        torch.cuda.empty_cache()
+        protocol_launches = phase_eval(meta_ckpt, Path(workdir) / "eval",
+                                       device)
     bf16_launches = {k: meta16_launches[k] + real16_launches[k]
                      for k in ft_launches}
     launches = {k: meta_launches[k] + ft_launches[k] + real_launches[k]
@@ -2776,7 +3273,8 @@ def main():
         "library_call": "none: no single PyTorch call computes instance "
                         "norm with a per-sample affine and ReLU",
         "bf16_train_launches": bf16_launches["adain_fused"],
-        "bf16_train": adain_train16}, {
+        "bf16_train": adain_train16,
+        "eval_child_launches": protocol_launches["adain_fused"]}, {
         "name": "bn_relu_conv1x1_stats", "route": "cuda",
         "source": "latentpose_tpu_torch/csrc/conv_bn_fused.cu",
         "replaces": "latentpose_tpu/ops/pallas/conv_bn_fused.py:58",
@@ -2790,7 +3288,8 @@ def main():
         "train_backward_ms": conv_train["backward_ms"],
         "train_backward_device_ms": conv_train["backward_device_ms"],
         "bf16_train_launches": bf16_launches["bn_relu_conv1x1_stats"],
-        "bf16_train": conv_train16}]}))
+        "bf16_train": conv_train16,
+        "eval_child_launches": protocol_launches["bn_relu_conv1x1_stats"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -325,3 +325,75 @@ def test_int8_generator_forward_launches(device, quantize):
     assert quant.int8_conv.launches == 22
     assert adain_op.adain.launches == 17
     assert rgbs.shape == (2, 256, 256, 3) and torch.isfinite(rgbs).all()
+
+
+@pytest.mark.parametrize("hw,size", [((150, 150), (112, 112)),
+                                     ((38, 38), (112, 112)),
+                                     ((150, 150), (16, 16)),
+                                     ((64, 64), (16, 16))])
+def test_eval_resizes_card_bit_equal_to_cpu(device, hw, size):
+    """The eval harness's crop resizes (ops/resize.py) on the card: the
+    same uint8 values as on the CPU."""
+    from latentpose_tpu_torch.ops.resize import resize_area, resize_cubic
+    g = torch.Generator().manual_seed(sum(hw) + sum(size))
+    x = torch.randint(0, 256, (4, *hw, 3), generator=g, dtype=torch.uint8)
+    assert torch.equal(resize_cubic(x.to(device), size).cpu(),
+                       resize_cubic(x, size))
+    if size[0] <= hw[1]:
+        assert torch.equal(resize_area(x.to(device), size).cpu(),
+                           resize_area(x, size))
+
+
+def _seeded_eval(net, seed):
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                m.weight.normal_(0.0, m.weight[0].numel() ** -0.5,
+                                 generator=g)
+            elif isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.uniform_(-0.1, 0.1, generator=g)
+                m.running_mean.uniform_(-0.3, 0.3, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    return net.eval()
+
+
+def test_arcface_card_matches_cpu(device):
+    """The published ArcFace-r100 tower, seeded, 8 crops at 112² (TF32
+    off): within 1e-3 of the embedding's largest magnitude."""
+    from latentpose_tpu_torch.eval.arcface import ArcFaceR100
+    net = _seeded_eval(ArcFaceR100(), 5)
+    x = torch.randint(0, 256, (8, 112, 112, 3),
+                      generator=torch.Generator().manual_seed(6),
+                      dtype=torch.uint8)
+    tf32 = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = net(x)
+            got = net.to(device)(x.to(device)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+def test_lpips_card_matches_cpu(device):
+    """The unarmed AlexNet tower at 256² (TF32 off): 1e-3 relative."""
+    from latentpose_tpu_torch.eval import lpips
+    g = torch.Generator().manual_seed(7)
+    a = torch.rand(4, 256, 256, 3, generator=g)
+    b = (a + 0.1 * torch.randn(a.shape, generator=g)).clamp(0, 1)
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = lpips.lpips_fn("", allow_random=True, device="cpu")[0](a, b)
+        got = lpips.lpips_fn("", allow_random=True, device=device)[0](
+            a, b).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=0)
