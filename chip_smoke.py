@@ -2,8 +2,11 @@
 """Smoke run of the PyTorch port (``latentpose_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --meta-repro [default|deterministic|cudnn ...]
 
-Drives the port's main paths, meta-train and fine-tune (f32, and bf16 with
+The second form only compares the card's meta-training in two processes
+for each mode, leaf by leaf (ROADMAP C.8; :func:`meta_repro`).  The first
+drives the port's main paths, meta-train and fine-tune (f32, and bf16 with
 the uint8 wire) and drive (exact and int8), at the flagship model's full
 widths (256², generator 64..512 channels, embed 512, pose 256,
 discriminator 7 blocks) with seeded random weights, through the
@@ -50,8 +53,9 @@ paths:
    AdaIN launches per step; median step ms, images/s, peak memory, one
    step's device-busy ms and idle share; then save, resume through the CLI
    and take one more step, the step and Adam count continuing;
-9. one meta step on the card and on the CPU from the same state and
-   batch (batch 2, f32,
+9. one meta step on the card and on the CPU from the seeded meta
+   checkpoint's state (ROADMAP C.8: a state the card meta-trained differs
+   from call to call) and the same batch (batch 2, f32,
    train-mode BatchNorm in both towers, the same dropout masks,
    augmentation off: its per-pixel fields are drawn on the device): losses,
    the BatchNorm statistics' update and the discriminator's gradient within
@@ -155,7 +159,32 @@ paths:
     its caches), on the CPU (identity error within 1e-4, pose errors within
     1e-4 relative; one identity's reenactments swapped for another's must
     read above), and with the proxies: each stage's time, frames scored a
-    second, peak memory.
+    second, peak memory; then (ROADMAP C.6) the eval CLI as a child with
+    its own defaults (nets in full f32) held against the CPU run at the
+    same gates, and how far cuDNN's TF32 moves ArcFace's embeddings and
+    FAN's heatmaps on the tree's frames, with each net's time both ways;
+    and (C.7) the tree written as JPEG at quality 95 by a child that may
+    import cv2, scored on the card through nvJPEG against cv2's decode of
+    the same files (written as PNG): the decoders' gap within the bound
+    predicted for it, and the planted fault at least 3x above that bound;
+18. serving export through ``cli.export.main`` from the fine-tuned
+    checkpoint at batch 32 on the uint8 wire, bf16 and int8_static
+    (calibrated on the 32 frames, named explicitly): each ``.pt2`` runs in
+    a child with the blocked imports within 1e-3 of eager
+    ``drive_sequence``, with 17 AdaIN launches a forward through the
+    ``latentpose::adain_fused`` operator; an artifact with the head
+    AdaIN's weights moved must read above the gate; the export's seconds
+    and bytes, the artifact's step beside eager's;
+19. the reference's checkpoints without JAX: ``tools/
+    fabricate_reference_checkpoint.py`` in a child writes a 256²
+    reference ``.pth`` (meta and fine-tuned); the port's
+    ``cli.convert_reference_checkpoint`` converts both; the meta one loads
+    whole into the train state on the card, the fine-tuned one drives 32
+    frames through ``cli.drive.main`` (17 AdaIN launches).
+
+Step 3 also times the AdaIN wrapper's host cost by call path: the
+wrapper, the operator alone, and the checks and the ctypes launch called
+directly.
 
 jax, flax, optax, yaml, cv2, PIL, imageio and pandas are made unimportable
 first: the card's path needs none of them.
@@ -170,6 +199,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import hashlib
 import json
 import os
 import subprocess
@@ -177,6 +207,7 @@ import sys
 import tempfile
 import time
 import types
+import warnings
 from pathlib import Path
 
 # The card's path needs none of these (the machine with the card may have
@@ -246,6 +277,7 @@ FLAGSHIP = dict(
 # (H*W, C) of the generator's 17 AdaIN + ReLU calls per frame, with counts
 ADAIN_CALLS = [(16, 512, 5), (64, 512, 2), (256, 512, 2), (1024, 512, 2),
                (4096, 256, 2), (16384, 128, 2), (65536, 64, 2)]
+ADAIN_PER_FORWARD = sum(count for _, _, count in ADAIN_CALLS)
 TOL = {torch.float32: 2e-4, torch.bfloat16: 1.6e-2}   # bf16: ~2 ulps
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 # dense tensor-core peaks by input type: bf16, and TF32 for f32 inputs
@@ -326,6 +358,11 @@ EVAL_FT_ITERATIONS = 8
 EVAL_NET_TOL = 1e-3    # card vs CPU: ArcFace (of max |e|), LPIPS (relative)
 EVAL_ID_TOL = 1e-4     # card vs CPU: the identity error, absolute
 EVAL_POSE_TOL = 1e-4   # card vs CPU: each pose error, relative
+# the protocol on a JPEG tree (ROADMAP C.7): the numbers from nvJPEG's decode
+# against those from cv2's decode of the same files within JPEG_BOUND (the
+# bound predicted before its first card run, PERF.md's findings); the planted
+# fault must read at least 3x above it
+JPEG_BOUND = (5e-4, 2e-3)   # identity error absolute, pose errors relative
 
 
 def require(cond, message):
@@ -445,9 +482,13 @@ def adain_bound_ms(x):
 
 
 def adain_host_us(device):
-    """Host microseconds per AdaIN call: a host clock over 200 enqueues of
-    a (16, 512) call at batch 32, before the one synchronise that ends
-    them; and with it."""
+    """Host microseconds per AdaIN call, (16, 512) bf16 at batch 32: a host
+    clock over 200 enqueues before the one synchronise that ends them, and
+    with it, for the wrapper (through the ``latentpose::adain_fused``
+    operator).  Beside it, in rounds taken in turns (the median of 5): the
+    wrapper; the operator alone; the operator's CUDA implementation (its
+    checks and the ctypes launch) called directly, which is what the
+    wrapper was before the operator existed."""
     x, w, b = adain_inputs(DRIVE_BATCH, 16, 512, torch.bfloat16, device, 7)
     for _ in range(10):
         adain_op.adain(x, w, b)
@@ -458,7 +499,21 @@ def adain_host_us(device):
     enqueue = (time.perf_counter() - t0) / 200 * 1e6
     torch.cuda.synchronize()
     total = (time.perf_counter() - t0) / 200 * 1e6
-    return enqueue, total
+    calls = {"wrapper": lambda: adain_op.adain(x, w, b),
+             "operator": lambda: adain_op.ADAIN_OP(x, w, b, True, 1e-4),
+             "direct ctypes": lambda: adain_op._launch(x, w, b, True, 1e-4)}
+    rounds = {k: [] for k in calls}
+    for _ in range(5):
+        for name, fn in calls.items():
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            rounds[name].append((time.perf_counter() - t0) / 200 * 1e6)
+            torch.cuda.synchronize()
+    return enqueue, total, {k: float(np.median(v)) for k, v in rounds.items()}
 
 
 def adain_kernels_per_call(device):
@@ -521,10 +576,14 @@ def phase_kernels(device):
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
           f"(bytes, 3.35 TB/s), share {bound / ms:.3f}; "
           f"{_device(busy, bound)}", flush=True)
-    enqueue, total = adain_host_us(device)
+    enqueue, total, paths = adain_host_us(device)
     print(f"adain host cost, (16, 512) bf16 batch {DRIVE_BATCH}: "
           f"{enqueue:.1f} us per call enqueued (200 calls), {total:.1f} us "
           f"with the closing synchronise", flush=True)
+    print("adain host cost by call path, us per call enqueued (median of 5 "
+          "rounds in turns): " + ", ".join(f"{k} {v:.2f}"
+                                           for k, v in paths.items()),
+          flush=True)
     kernels, names = adain_kernels_per_call(device)
     print(f"adain: CUDA kernels in one call (torch.profiler): "
           f"{kernels if kernels is not None else 'not measured'} {names}",
@@ -1230,14 +1289,19 @@ def _float64(args):
         args.compute_dtype = compute_dtype
 
 
-def phase_meta_step_card_vs_cpu(args, state, loader, device):
+def phase_meta_step_card_vs_cpu(args, meta_ckpt, loader, device):
     """One meta step from the same state and batch on the card and on the
     CPU: batch 2, train-mode BatchNorm in both towers, the same dropout
     masks (drawn on the CPU, keyed on seed and step), augmentation off (its
     per-pixel fields come from a generator on the device).
 
-    The state's generator constant is spread (:func:`phase_meta_checkpoint`
-    draws it from a normal).  The towers' train-form gradients at this
+    The state is the seeded meta checkpoint's, ``meta_ckpt``, the same in
+    every call.  (A state that the card meta-trained is not: PyTorch's
+    default cuDNN backward algorithms are nondeterministic, so two
+    processes' first steps differ in f32's last bits and a few steps spread
+    that over every leaf, the towers' conditioning with it; ROADMAP C.8,
+    ``--meta-repro``.)  Its generator constant is spread
+    (:func:`phase_meta_checkpoint` draws it from a normal).  The towers' train-form gradients at this
     state still carry a gap of a few 1e-2 (L2) in f32, the devices'
     convolutions or the link's kernel against its plain version: so beside
     the f32 gate run the card's step with ResNeXt-50's links through the
@@ -1256,7 +1320,8 @@ def phase_meta_step_card_vs_cpu(args, state, loader, device):
     args = copy.copy(args)
     args.use_pixelwise_augs = args.use_affine_scale = \
         args.use_affine_shift = False
-    state = _copy_state(state, args, torch.device("cpu"))
+    args.checkpoint_path = str(meta_ckpt)
+    state = train_cli.load_checkpoint(args, torch.device("cpu"))
     host, keys = _batch_of(loader, 2), holycow.META_STEP_KEYS
     embedder = type(state.models["embedder"])
     ways = {"card": contextlib.nullcontext, "card, plain link": _plain_link,
@@ -2202,6 +2267,227 @@ def phase_card_vs_cpu(ckpt, models, state, frames):
     require(diff <= 1e-3, f"card and CPU differ by {diff}")
 
 
+# ------------------------------------------------------ export, reference .pth
+
+# Run in a child with the blocked imports (CHILD_SITE): load a ``.pt2``, run
+# it once over the frames with the kernel's launches counted, save the
+# frames, then time its step with CUDA events.
+EXPORT_CHILD = '''
+import json, sys, time
+import numpy as np, torch
+from latentpose_tpu_torch.cli.export import load_serving_artifact
+from latentpose_tpu_torch.ops import adain
+pt2, frames_path, out_path, device = sys.argv[1:5]
+cuda = device == "cuda"
+sync = torch.cuda.synchronize if cuda else (lambda: None)
+t0 = time.perf_counter()
+serve = load_serving_artifact(pt2)
+load_s = time.perf_counter() - t0
+frames = torch.from_numpy(np.load(frames_path)).to(device)
+sync()
+adain.adain.launches = 0
+with torch.inference_mode():
+    rgbs, segm = serve(frames)
+sync()
+launches = adain.adain.launches
+np.save(out_path, rgbs.cpu().numpy())
+for _ in range(3):
+    serve(frames)
+if cuda:
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    sync()
+    start.record()
+    for _ in range(10):
+        serve(frames)
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / 10
+else:
+    t0 = time.perf_counter()
+    serve(frames)
+    step_ms = (time.perf_counter() - t0) * 1e3
+print("export child: " + json.dumps({
+    "launches": launches, "load_s": load_s, "step_ms": step_ms,
+    "segm": list(segm.shape)}), flush=True)
+'''
+
+
+def _on(device):
+    """The flag that moves a CLI off its default device, the card."""
+    return [] if device.type == "cuda" else ["--device", str(device)]
+
+
+def _run_child(command, env, prefix=None):
+    """A child process with ``env``; (its last output line that starts with
+    ``prefix``, parsed as JSON after it, or None; wall seconds; the
+    completed process).  A child that fails fails the smoke."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(command, env=env, cwd=ROOT, capture_output=True,
+                          text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+    require(proc.returncode == 0, f"child {command[1:3]} exited with "
+            f"{proc.returncode}")
+    found = [line[len(prefix):] for line in proc.stdout.splitlines()
+             if prefix and line.startswith(prefix)]
+    return (json.loads(found[-1]) if found else None), wall, proc
+
+
+def phase_export(ckpt, workdir, frames, device):
+    """``cli.export.main`` on the card from the fine-tuned checkpoint, at
+    batch 32 on the uint8 wire: bf16, and int8_static calibrated on the
+    smoke's 32 frames (``synthetic://3``, named explicitly).  Each ``.pt2``
+    runs in a child with the blocked imports over the same frames, against
+    eager ``drive_sequence`` here within 1e-3, with 17 AdaIN launches a
+    forward through the operator; an artifact exported with the head
+    AdaIN's weights moved by 0.05 must read above that gate.  The export's
+    seconds and bytes, the artifact's step (CUDA events) beside eager's.
+    Returns the children's AdaIN launches."""
+    from latentpose_tpu_torch.cli import export as export_cli
+    t_phase = time.perf_counter()
+    workdir.mkdir(parents=True, exist_ok=True)
+    env = child_env(workdir)
+    (workdir / "export_child.py").write_text(EXPORT_CHILD)
+    wire = (frames * 255 + 0.5).astype(np.uint8)
+    np.save(workdir / "frames.npy", wire)
+    host = torch.from_numpy(wire).to(device)
+    per_forward = ADAIN_PER_FORWARD
+    launches = 0
+    for mode, flags in (("bf16", []), ("int8_static", [
+            "--quantize", "int8_static", "--calibration_source",
+            "synthetic://3"])):
+        dest = workdir / f"{mode}.pt2"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        export_cli.main([str(ckpt), "--destination", str(dest), *flags,
+                         *_on(device)])
+        torch.cuda.synchronize()
+        export_s = time.perf_counter() - t0
+        meta = json.loads(Path(f"{dest}.json").read_text())
+        require(meta["platforms"] == [device.type] and meta["batch_size"] ==
+                DRIVE_BATCH and meta["transfer_dtype"] == "uint8",
+                f"export {mode}: {meta}")
+
+        args = cli.resolve_args([str(ckpt), *flags[:2]])
+        models, state = cli.load_finetuned(args, device)
+        calib = None if mode == "bf16" else drive_lib.calibrate_quant_scales(
+            models, args, state, frames, batch_size=DRIVE_BATCH)
+        drive_fn = drive_lib.make_drive_fn(models, args, quant_calib=calib)
+        want = drive_lib.drive_sequence(drive_fn, state, wire, DRIVE_BATCH)
+        eager_ms = cuda_ms(lambda: drive_fn(state, host), 10)
+
+        record, wall, _ = _run_child(
+            [sys.executable, str(workdir / "export_child.py"), str(dest),
+             str(workdir / "frames.npy"), str(workdir / f"{mode}.npy"),
+             device.type],
+            env, "export child: ")
+        require(record is not None, f"export {mode}: the child printed no "
+                "record")
+        got = np.load(workdir / f"{mode}.npy")
+        gap = float(np.abs(got - want).max())
+        launches += record["launches"]
+        print(f"export {mode}: cli.export {export_s:.2f} s, {meta['bytes']} "
+              f"bytes ({meta['bytes'] / 2**20:.1f} MiB); child {wall:.1f} s "
+              f"(load {record['load_s']:.2f} s); artifact vs eager "
+              f"drive_sequence, {len(wire)} frames: max_abs_diff {gap:.3g} "
+              f"(gate 1e-3); adain launches in one forward "
+              f"{record['launches']} (reckoned {per_forward}); step at batch "
+              f"{DRIVE_BATCH}: artifact {record['step_ms']:.3f} ms, eager "
+              f"{eager_ms:.3f} ms (events)", flush=True)
+        size = FLAGSHIP["image_size"]
+        require(np.isfinite(got).all() and got.shape == want.shape and
+                record["segm"] == [len(wire), size, size, 1],
+                f"export {mode}: frames {got.shape}, segm {record['segm']}")
+        require(gap <= 1e-3, f"export {mode}: the artifact differs from "
+                f"eager drive by {gap}")
+        require(record["launches"] == per_forward,
+                f"export {mode}: {record['launches']} AdaIN launches a "
+                f"forward, reckoned {per_forward}")
+        if mode == "bf16":
+            head = models["generator"].adain_features[-1]
+            with torch.no_grad():
+                models["generator"].projector_1.bias[-head:] += 0.05
+            faulty = export_cli.export_serving_artifact(
+                models, state, args, DRIVE_BATCH, torch.uint8)
+            torch.export.save(faulty, str(workdir / "fault.pt2"))
+            serve = export_cli.load_serving_artifact(workdir / "fault.pt2")
+            with torch.inference_mode():
+                fault = float((serve(host)[0].cpu().numpy() - want).__abs__()
+                              .max())
+            print(f"export planted fault (the head AdaIN's weights + 0.05): "
+                  f"max_abs_diff {fault:.3g} (gate 1e-3)", flush=True)
+            require(fault > 1e-3, f"the planted export fault passes the "
+                    f"gate: {fault}")
+        del models, state, drive_fn
+        torch.cuda.empty_cache()
+    print(f"export phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def phase_reference_checkpoint(workdir, device):
+    """The reference's checkpoints without JAX: ``tools/
+    fabricate_reference_checkpoint.py`` as a child with the blocked imports
+    writes a reference-shaped ``.pth`` at 256² in its meta and fine-tuned
+    forms; the port's ``cli.convert_reference_checkpoint`` converts both
+    here; the meta one loads whole into the train state on the card
+    (``cli.train``'s loader), the fine-tuned one drives ``synthetic://3``
+    through ``cli.drive.main`` (17 AdaIN launches).  Returns those
+    launches."""
+    from latentpose_tpu_torch.cli import convert_reference_checkpoint as conv
+    t_phase = time.perf_counter()
+    workdir.mkdir(parents=True, exist_ok=True)
+    env = child_env(workdir)
+    out, forms = {}, (("meta", []), ("finetuned", ["--finetune"]))
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(forms)) as pool:
+        walls = [future.result()[1] for future in [pool.submit(
+            _run_child, [sys.executable, str(
+                ROOT / "tools" / "fabricate_reference_checkpoint.py"),
+                str(workdir / f"{form}.pth"), "--image_size", "256",
+                "--iteration", "1230", *flags], env)
+            for form, flags in forms]]
+    print(f"reference checkpoint: both forms fabricated by two children at "
+          f"once in {time.perf_counter() - t0:.1f} s", flush=True)
+    for (form, _), wall in zip(forms, walls):
+        pth = workdir / f"{form}.pth"
+        t0 = time.perf_counter()
+        out[form] = conv.main([str(pth), str(workdir / form)])
+        convert_s = time.perf_counter() - t0
+        arrays = out[form] / "arrays.npz"
+        with np.load(arrays) as raw:
+            count = len(raw.files)
+        print(f"reference checkpoint {form}: fabricated in a child "
+              f"{wall:.1f} s ({pth.stat().st_size / 2**20:.1f} MiB .pth); "
+              f"converted by the port in {convert_s:.2f} s: {count} arrays, "
+              f"{arrays.stat().st_size / 2**20:.1f} MiB", flush=True)
+        pth.unlink()
+    args = train_cli.resolve_args(["--checkpoint_path", str(out["meta"]),
+                                   *_on(device)])
+    state = train_cli.load_checkpoint(args, device)
+    require(state.step == 1230 and not state.finetune and args.num_labels
+            == 100, f"converted meta checkpoint: step {state.step}")
+    del state
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    adain_op.adain.launches = 0
+    written = cli.main([str(out["finetuned"]), "--images_paths",
+                        "synthetic://3", "--destination",
+                        str(workdir / "drive"), "--drive_batch_size",
+                        str(DRIVE_BATCH), *_on(device)])
+    torch.cuda.synchronize()
+    launches = adain_op.adain.launches
+    frames = sorted(Path(f"{written[0]}.frames").glob("*.png"))
+    print(f"reference checkpoint: the meta form loads whole into the train "
+          f"state on the card (step 1230, 100 labels); the fine-tuned form "
+          f"drives synthetic://3 through cli.drive.main: {len(frames)} "
+          f"frames, adain launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    require(len(frames) == 32 and launches == ADAIN_PER_FORWARD,
+            f"reference drive: {len(frames)} frames, {launches} launches")
+    return launches
+
+
 # ---------------------------------------------------------------- preprocess
 
 
@@ -2963,6 +3249,171 @@ def phase_eval_nets(wdir, frames, device):
           f"{[round(float(v), 4) for v in want]}", flush=True)
 
 
+# Run with cv2 importable: each PNG frame of a tree written again as JPEG at
+# quality 95 (as the reference's and the JAX package's crops are written), and
+# cv2's decode of that JPEG written as a lossless PNG with the port's encoder.
+JPEG_CHILD = '''
+import sys
+from pathlib import Path
+import cv2
+from latentpose_tpu_torch.utils.png import write_png
+src, jpeg, png = (Path(p) for p in sys.argv[1:4])
+count = 0
+for f in sorted(src.rglob("*.png")):
+    rel = f.relative_to(src)
+    j, p = jpeg / rel.with_suffix(".jpg"), png / rel
+    j.parent.mkdir(parents=True, exist_ok=True)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    assert cv2.imwrite(str(j), cv2.imread(str(f)),
+                       [cv2.IMWRITE_JPEG_QUALITY, 95])
+    write_png(p, cv2.imread(str(j))[..., ::-1], level=1)
+    count += 1
+print("jpeg child: " + str(count) + " frames, cv2 " + cv2.__version__)
+'''
+
+
+def _cli_numbers(stdout):
+    """The eval CLI's three printed numbers."""
+    keys = {"Identity error: ": "identity_error",
+            "Pose reconstruction error: ": "pose_reconstruction_error",
+            "Pose reconstruction error (with optimal alignment): ":
+            "pose_reconstruction_error_aligned"}
+    out = {}
+    for line in stdout.splitlines():
+        for prefix, key in keys.items():
+            if line.startswith(prefix):
+                out[key] = float(line[len(prefix):])
+    require(len(out) == 3, f"the eval CLI printed {out}")
+    return out
+
+
+def phase_eval_tf32(data_root, results, identities, wdir, frames, cpu, env,
+                    device, child_device):
+    """ROADMAP C.6: ``compute_pose_identity_error`` as a user runs it, a
+    child with its own defaults (the blocked imports; the backends run
+    their nets in full f32 whatever the process sets), held against the
+    CPU run at EVAL_ID_TOL and EVAL_POSE_TOL.  In this process, on the
+    tree's real rendered frames: how far cuDNN's TF32 moves ArcFace's
+    embeddings and FAN's heatmaps from f32, as a share of each max, and
+    each net's forward time both ways (CUDA events); and the CLI's
+    ``main`` once with TF32 in the nets (``backends.full_f32`` made a
+    no-op), its numbers against the CPU run's and its time, not gated."""
+    bgr = np.ascontiguousarray(frames[..., ::-1])
+    bbox = backends.get_default_bbox("latentpose")
+    crops = backends.face_crops(list(bgr), bbox, (112, 112), resize_cubic,
+                                device)
+    crops = torch.cat([crops, torch.flip(crops, [2])])
+    arc = backends.ArcFaceBackend(wdir / "arcface_r100.npz", device=device)
+    fan = backends.FANBackend(wdir / "fan_2d.npz", device=device)
+    x = resize_linear(torch.from_numpy(bgr).to(device), (256, 256))
+    x = (x.float() / 255.0).permute(0, 3, 1, 2).contiguous()
+    n = len(bgr)
+
+    def embeddings():       # as ArcFaceBackend.embed, the nets' flags aside
+        e = arc.model(crops)
+        return arcface.normalize_embeddings(e[:n] + e[n:])
+
+    nets = {"ArcFace embeddings": embeddings,
+            "FAN heatmaps": lambda: fan.model(x)[-1]}
+    shift, ms = {}, {}
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        with torch.no_grad():
+            for name, fn in nets.items():
+                out = {}
+                for on in (False, True):
+                    torch.backends.cudnn.allow_tf32 = on
+                    out[on] = fn()
+                    ms[name, on] = cuda_ms(fn, 5)
+                shift[name] = _rel_gap(out[True], out[False].cpu())
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    del arc, fan
+    torch.cuda.empty_cache()
+    full_f32 = backends.full_f32
+    backends.full_f32 = contextlib.nullcontext
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32, tf32_wall, _, _ = _eval_run(
+            data_root, results("c6_tf32"), identities, device,
+            "--eval_weights_dir", str(wdir))
+    finally:
+        backends.full_f32 = full_f32
+        torch.backends.cudnn.allow_tf32 = saved
+    tf32_gaps = _eval_gaps(tf32, cpu)
+    print(f"eval TF32 against f32 on the tree's {n} rendered identity "
+          f"frames, max |diff| / max |f32|: " + ", ".join(
+              f"{k} {v:.3g}" for k, v in shift.items())
+          + " (ArcFace's card-vs-CPU gate: 1e-3 of its max); forward ms "
+          f"f32 / TF32: " + ", ".join(
+              f"{k.split()[0]} {ms[k, False]:.3f} / {ms[k, True]:.3f}"
+              for k in nets), flush=True)
+    print(f"eval C.6, the CLI's main in this process with cuDNN's TF32 in "
+          f"the nets: {tf32}; {tf32_wall:.2f} s; against the CPU run: "
+          f"identity error {tf32_gaps[0]:.3g} absolute, pose errors "
+          f"{tf32_gaps[1]:.3g} relative (not gated)", flush=True)
+
+    _, wall, proc = _run_child([
+        sys.executable, "-m",
+        "latentpose_tpu_torch.cli.compute_pose_identity_error",
+        "--results_root", str(results("c6")), "--data_root", str(data_root),
+        "--identities", *identities, "--num_frames", str(EVAL["frames"]),
+        "--image_size", str(EVAL["size"]), "--eval_weights_dir", str(wdir),
+        *_on(child_device)], env)
+    numbers = _cli_numbers(proc.stdout)
+    gaps = _eval_gaps(numbers, cpu)
+    print(f"eval C.6 child (its own defaults): {numbers}; {wall:.2f} s "
+          f"wall; against the CPU run: identity error {gaps[0]:.3g} "
+          f"absolute, pose errors {gaps[1]:.3g} relative (gates "
+          f"{EVAL_ID_TOL}, {EVAL_POSE_TOL})", flush=True)
+    require(gaps[0] <= EVAL_ID_TOL and gaps[1] <= EVAL_POSE_TOL,
+            f"the eval CLI's own defaults differ from the CPU run: {gaps}")
+
+
+def phase_eval_jpeg(root, data_root, results, identities, seeded, device):
+    """ROADMAP C.7: the tree written as JPEG (quality 95, cv2, in a child
+    that may import cv2) and cv2's decode of those JPEGs written as PNG; the
+    port scores both on the card, the JPEG tree through nvJPEG, so the two
+    runs differ only in the decoder.  A planted fault (avatar 0's
+    reenactments swapped for identity 1's frames) on the JPEG tree against
+    the cv2 run: the gap within JPEG_BOUND, the fault 3x above it."""
+    trees = {"jpeg": root / "data_jpeg", "cv2": root / "data_cv2png"}
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    _, wall, proc = _run_child(
+        [sys.executable, "-c", JPEG_CHILD,
+         str(data_root / "images-cropped"),
+         str(trees["jpeg"] / "images-cropped"),
+         str(trees["cv2"] / "images-cropped")], env)
+    print(f"eval C.7: {proc.stdout.strip()}; {wall:.1f} s", flush=True)
+    for tree in trees.values():
+        (tree / "segmentation-cropped").symlink_to(
+            data_root / "segmentation-cropped")
+    scores = {}
+    for name, tree in trees.items():
+        scores[name], wall, _, _ = _eval_run(
+            tree, results(f"c7_{name}"), identities, device, *seeded)
+        print(f"eval C.7, {name} tree on the card: {scores[name]}; "
+              f"{wall:.2f} s", flush=True)
+    fault, _, _, _ = _eval_run(
+        trees["jpeg"], results("c7_fault", data_root / "images-cropped"),
+        identities, device, *seeded)
+    gap, faulty = _eval_gaps(scores["jpeg"], scores["cv2"]), \
+        _eval_gaps(fault, scores["cv2"])
+    print(f"eval C.7: nvJPEG against cv2's decode of the same JPEGs: "
+          f"identity error {gap[0]:.3g} absolute, pose errors {gap[1]:.3g} "
+          f"relative (bound {JPEG_BOUND}); the fault {faulty[0]:.3g} and "
+          f"{faulty[1]:.3g} ({faulty[0] / JPEG_BOUND[0]:.3g}x and "
+          f"{faulty[1] / JPEG_BOUND[1]:.3g}x the bound)", flush=True)
+    require(all(g <= b for g, b in zip(gap, JPEG_BOUND)),
+            f"the decoders' gap {gap} is above the protocol's bound on JPEG "
+            f"trees {JPEG_BOUND}")
+    require(all(f >= 3 * b for f, b in zip(faulty, JPEG_BOUND)),
+            f"the planted fault {faulty} does not read 3x above the bound "
+            f"{JPEG_BOUND}")
+
+
 def _results_root(root, sweep, identities, swap_from=None):
     """A results root whose avatars' ``driving-results`` are the sweep's
     (links), so that each eval run writes its own caches.  ``swap_from``
@@ -3145,6 +3596,9 @@ def phase_eval(meta_ckpt, root, device, child_device="cuda"):
             f"card and CPU protocols differ: {runs}")
     require(faulty[0] > EVAL_ID_TOL and faulty[1] > EVAL_POSE_TOL,
             f"the swapped reenactments pass the gate: {faulty}")
+    phase_eval_tf32(data_root, results, identities, wdir, frames, cpu,
+                    children.env, device, torch.device(child_device))
+    phase_eval_jpeg(root, data_root, results, identities, seeded, device)
 
     proxy, wall, stages, _ = _eval_run(
         data_root, results("proxy"), identities, device,
@@ -3154,6 +3608,158 @@ def phase_eval(meta_ckpt, root, device, child_device="cuda"):
           f"{wall:.2f} s", flush=True)
     print(f"eval phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return child_launches
+
+
+def _named_leaves(state):
+    """{name: CPU copy} of a meta-train state: every parameter, BatchNorm
+    statistic and gradient (Adam's first moment, beta1 = 0), gradients
+    named by their parameter."""
+    models = state.models
+    g_names = [f"{part}.{n}" for part in ("generator", "embedder")
+               for n, _ in models[part].named_parameters()]
+    d_names = [f"discriminator.{n}"
+               for n, _ in models["discriminator"].named_parameters()]
+    out = {}
+    for part, m in models.items():
+        out.update({f"param {part}.{k}": v for k, v in m.named_parameters()})
+        out.update({f"stat {part}.{k}": v for k, v in m.named_buffers()
+                    if "running" in k})
+    for names, opt in ((g_names, state.opt_g), (d_names, state.opt_d)):
+        require(len(names) == len(opt.mu), "gradients and names differ")
+        out.update({f"grad {n}": mu for n, mu in zip(names, opt.mu)})
+    return {k: v.detach().cpu().clone() for k, v in out.items()}
+
+
+def _digests(leaves):
+    return {k: hashlib.sha1(v.numpy().tobytes()).hexdigest()
+            for k, v in leaves.items()}
+
+
+def meta_repro_child(meta_ckpt, workdir, mode):
+    """One process of :func:`meta_repro`: from the seeded meta checkpoint,
+    META_STEPS meta steps on phase_meta_train's staged batches, each
+    step's leaves digested (the first step's kept whole), then
+    :func:`phase_meta_train` itself (its final state digested); in mode
+    ``deterministic``, PyTorch's deterministic algorithms (cuDNN's and
+    cuBLAS's included) with a warning for each op that has none; in mode
+    ``cudnn``, cuDNN's deterministic algorithms alone; in mode ``default``,
+    then :func:`phase_meta_step_card_vs_cpu` (C.3's gates)."""
+    workdir = Path(workdir)
+    if mode == "deterministic":
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = mode == "cudnn"
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    argv = ["--dataloader", "synthetic", "--device", str(device),
+            "--allow_random_vgg", "--batch_size", "8", "--num_epochs", "1",
+            "--experiments_dir", str(workdir / "train"),
+            "--checkpoint_path", str(meta_ckpt)]
+    args = train_cli.resolve_args(argv)
+    args.experiment_dir = str(workdir / "train")
+    loader = train_cli.build_dataloader(args)
+    state = train_cli.load_checkpoint(args, device)
+    step_fn = train_cli.make_step(args, train_cli.build_criteria(args,
+                                                                 device))
+    steps = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for i in range(META_STEPS):
+            batch = holycow.to_device(loader.get_batch(i), device,
+                                      holycow.META_STEP_KEYS)
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+            leaves = _named_leaves(state)
+            steps.append(_digests(leaves))
+            if i == 0:
+                torch.save({k: v for k, v in leaves.items()
+                            if not k.startswith("param")},
+                           workdir / "step1.pt")
+        warned = sorted({str(w.message).split(" does not have a "
+                                              "deterministic")[0]
+                         for w in caught if "does not have a deterministic"
+                         in str(w.message)})
+        (workdir / "digests.json").write_text(json.dumps(
+            {"steps": steps, "warned": warned}))
+        del state, step_fn
+        torch.cuda.empty_cache()
+        _, trained, *_ = phase_meta_train(meta_ckpt, workdir / "smoke",
+                                          device)
+        (workdir / "final.json").write_text(json.dumps(
+            _digests(_named_leaves(trained))))
+        del trained
+    if mode == "default":
+        phase_meta_step_card_vs_cpu(args, meta_ckpt, loader, device)
+
+
+def meta_repro(modes=("default", "deterministic")):
+    """``python3 chip_smoke.py --meta-repro [MODE ...]`` (ROADMAP C.8): is
+    the card's meta-training the same in two processes?  Writes the seeded
+    meta checkpoint, then runs :func:`meta_repro_child` in two processes
+    for each mode (``default``: PyTorch's defaults; ``deterministic``: its
+    deterministic algorithms; ``cudnn``: cuDNN's alone), and compares each
+    pair leaf by leaf: how many leaves differ after each step, the first
+    step's gradients and statistics that differ (relative L2 of each, in
+    the order of the state), the final states of :func:`phase_meta_train`,
+    and the ops that have no deterministic implementation."""
+    require(torch.cuda.is_available(), "--meta-repro needs a CUDA device")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip(), flush=True)
+    for mod in (adain_op, conv_bn):
+        mod.kernel_entry()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as workdir:
+        workdir = Path(workdir)
+        meta_ckpt = phase_meta_checkpoint(workdir / "meta")
+        runs = {}
+        for mode in modes:
+            for rep in range(2):
+                out = workdir / f"{mode}{rep}"
+                out.mkdir()
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--meta-repro-child", str(meta_ckpt), str(out), mode],
+                    cwd=ROOT, capture_output=True, text=True, timeout=900)
+                lines = [line for line in proc.stdout.splitlines()
+                         if line.startswith(("meta step", "meta-train ("))]
+                print(f"{mode} process {rep}: exit {proc.returncode}, "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
+                print("\n".join(lines), flush=True)
+                if proc.returncode:
+                    print(proc.stderr[-3000:], flush=True)
+                require((out / "digests.json").exists(),
+                        f"{mode} process {rep} took no step")
+                runs[mode, rep] = out
+            a, b = (json.loads((runs[mode, r] / "digests.json").read_text())
+                    for r in range(2))
+            print(f"{mode}: ops with no deterministic implementation: "
+                  f"{a['warned'] or 'none'}", flush=True)
+            for i, (da, db) in enumerate(zip(a["steps"], b["steps"])):
+                differ = [k for k in da if da[k] != db[k]]
+                kinds = {kind: sum(k.startswith(kind) for k in differ)
+                         for kind in ("param", "stat", "grad")}
+                print(f"{mode}: after step {i + 1}, {len(differ)} of "
+                      f"{len(da)} leaves differ between the processes "
+                      f"{kinds}", flush=True)
+            finals = [runs[mode, r] / "final.json" for r in range(2)]
+            if all(f.exists() for f in finals):
+                fa, fb = (json.loads(f.read_text()) for f in finals)
+                differ = [k for k in fa if fa[k] != fb[k]]
+                print(f"{mode}: phase_meta_train's final states: "
+                      f"{len(differ)} of {len(fa)} leaves differ", flush=True)
+            la, lb = (torch.load(runs[mode, r] / "step1.pt")
+                      for r in range(2))
+            gaps = {k: float((la[k].double() - lb[k].double()).norm()
+                             / la[k].double().norm().clamp_min(1e-300))
+                    for k in la if not torch.equal(la[k], lb[k])}
+            print(f"{mode}: step 1, {len(gaps)} of {len(la)} gradients and "
+                  f"statistics differ; in the order of the state: "
+                  + "; ".join(f"{k} {v:.3g}" for k, v in gaps.items()),
+                  flush=True)
 
 
 def main():
@@ -3210,7 +3816,7 @@ def main():
         (meta_args, meta_state, meta_loader, trained_ckpt, meta_launches,
          staged_ms) = phase_meta_train(meta_ckpt, Path(workdir) / "metatrain",
                                        device)
-        phase_meta_step_card_vs_cpu(meta_args, meta_state, meta_loader,
+        phase_meta_step_card_vs_cpu(meta_args, meta_ckpt, meta_loader,
                                     device)
         phase_bf16_step_card(meta_args, meta_state, meta_loader, device)
         del meta_state, meta_loader
@@ -3254,13 +3860,18 @@ def main():
                                device)
         del ft_args, ft_state, ft_seeded, loader
         torch.cuda.empty_cache()
+        export_launches = phase_export(ft_ckpt, Path(workdir) / "export",
+                                       frames, device)
+        reference_launches = phase_reference_checkpoint(
+            Path(workdir) / "reference", device)
+        torch.cuda.empty_cache()
         protocol_launches = phase_eval(meta_ckpt, Path(workdir) / "eval",
                                        device)
     bf16_launches = {k: meta16_launches[k] + real16_launches[k]
                      for k in ft_launches}
     launches = {k: meta_launches[k] + ft_launches[k] + real_launches[k]
                 + bf16_launches[k] for k in ft_launches}
-    launches["adain_fused"] += int8_adains + crop_adains
+    launches["adain_fused"] += int8_adains + crop_adains + reference_launches
 
     print(f"smoke total: {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
@@ -3274,7 +3885,9 @@ def main():
                         "norm with a per-sample affine and ReLU",
         "bf16_train_launches": bf16_launches["adain_fused"],
         "bf16_train": adain_train16,
-        "eval_child_launches": protocol_launches["adain_fused"]}, {
+        "eval_child_launches": protocol_launches["adain_fused"],
+        "export_child_launches": export_launches,
+        "reference_drive_launches": reference_launches}, {
         "name": "bn_relu_conv1x1_stats", "route": "cuda",
         "source": "latentpose_tpu_torch/csrc/conv_bn_fused.cu",
         "replaces": "latentpose_tpu/ops/pallas/conv_bn_fused.py:58",
@@ -3296,4 +3909,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--meta-repro"]:
+        meta_repro(*[sys.argv[2:]] if sys.argv[2:] else [])
+    elif sys.argv[1:2] == ["--meta-repro-child"]:
+        meta_repro_child(*sys.argv[2:5])
+    else:
+        main()

@@ -39,6 +39,27 @@ def peek_args(checkpoint_path) -> dict:
     return args
 
 
+def flatten(tree, prefix: str = "") -> dict:
+    """Nested dicts of arrays -> flat ``::`` keys (the JAX package's
+    ``checkpoint._flatten``): an empty dict or a None leaves no key."""
+    flat = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            flat.update(flatten(v, f"{prefix}{k}{SEP}"))
+    elif tree is not None:
+        flat[prefix[:-len(SEP)]] = np.asarray(tree)
+    return flat
+
+
+def write_arrays(path, arrays: dict, meta: dict):
+    """``arrays.npz`` (flat ``::`` arrays) and ``meta.json`` into the
+    directory ``path``, made if needed."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    np.savez(path / "arrays.npz", **arrays)
+    (path / "meta.json").write_text(json.dumps(meta, indent=1))
+
+
 def save_checkpoint(experiment_dir, arrays: dict, args: dict, iteration: int,
                     finetune: bool):
     """Write ``<experiment_dir>/checkpoints/model_<iteration>.ckpt`` (suffixed
@@ -51,10 +72,9 @@ def save_checkpoint(experiment_dir, arrays: dict, args: dict, iteration: int,
         path = path.with_name(path.name + "_0")
     path.mkdir(parents=True)
     try:
-        np.savez(path / "arrays.npz", **arrays)
-        meta = {"format_version": 1, "iteration": int(iteration),
-                "finetune": bool(finetune), "args": args}
-        (path / "meta.json").write_text(json.dumps(meta, indent=1))
+        write_arrays(path, arrays, {
+            "format_version": 1, "iteration": int(iteration),
+            "finetune": bool(finetune), "args": args})
     except OSError:
         logger.exception("Failed writing checkpoint %s — removing partial "
                          "file (disk full?)", path)

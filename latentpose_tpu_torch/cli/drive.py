@@ -245,13 +245,21 @@ def build_parser():
 def resolve_args(argv=None):
     """CLI flags over the checkpoint's saved args, with drive's overrides."""
     cli = build_parser().parse_args(argv)
-    if not os.path.exists(os.path.join(cli.checkpoint_path, "meta.json")):
-        raise FileNotFoundError(
-            f"Checkpoint `{cli.checkpoint_path}` not found — drive needs a "
-            "fine-tuned checkpoint")
-    args = types.SimpleNamespace(**ckpt_lib.peek_args(cli.checkpoint_path))
     cli.data_root = cli.data_root or cli.data_root_positional
     del cli.data_root_positional
+    return inference_args(cli, "drive")
+
+
+def inference_args(cli, what):
+    """The parsed flags ``cli`` (with ``checkpoint_path``) over the
+    checkpoint's saved args, with the inference overrides of drive and
+    export (the reference's ``drive.py:48-59``): fine-tune and inference
+    on, bf16 compute unless ``--compute_dtype`` was given, one device."""
+    if not os.path.exists(os.path.join(cli.checkpoint_path, "meta.json")):
+        raise FileNotFoundError(
+            f"Checkpoint `{cli.checkpoint_path}` not found — {what} needs a "
+            "fine-tuned checkpoint")
+    args = types.SimpleNamespace(**ckpt_lib.peek_args(cli.checkpoint_path))
     for key, value in vars(cli).items():
         if value is not None:
             setattr(args, key, value)
@@ -259,8 +267,11 @@ def resolve_args(argv=None):
     args.inference = True
     if cli.compute_dtype is None:
         args.compute_dtype = "bfloat16"    # serving default
-    if not hasattr(args, "bboxes_dir"):
-        args.bboxes_dir = "/non/existent/file"
+    # a checkpoint converted from the reference's may lack these
+    for key, default in (("bboxes_dir", "/non/existent/file"),
+                         ("data_root", None)):
+        if not hasattr(args, key):
+            setattr(args, key, default)
     if (getattr(args, "num_devices", 0) or 1) > 1:
         raise NotImplementedError(
             f"--num_devices {args.num_devices}: multi-device drive is not "

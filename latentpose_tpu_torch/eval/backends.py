@@ -13,6 +13,11 @@ channel order it reads them: BGR) and is channel-agnostic itself.  The face
 crops are resized as cv2 does there (``ops/resize.py``), on ``device``.
 Each backend times its parts in a :class:`StageTimer`, its own or the
 caller's.
+
+ArcFace's and FAN's convolutions run in full f32 on the card: cuDNN's default
+TF32 moves the protocol's numbers above the card-vs-CPU gate (ROADMAP C.6,
+PERF.md).  The setting is scoped to the nets' forward passes
+(:func:`full_f32`); nothing process-wide changes.
 """
 
 from __future__ import annotations
@@ -59,6 +64,19 @@ class StageTimer:
                 torch.cuda.synchronize(device)
             self.seconds[name] += time.perf_counter() - start
             self.calls[name] += 1
+
+
+@contextlib.contextmanager
+def full_f32():
+    """cuDNN's TF32 off inside, restored after.  (Not
+    ``torch.backends.cudnn.flags``, which also resets cuDNN's other flags
+    to its own defaults, ``enabled=False`` among them.)"""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
 
 
 def get_default_bbox(kind):
@@ -178,7 +196,7 @@ class ArcFaceBackend:
         run in the same batch."""
         from latentpose_tpu_torch.eval.arcface import normalize_embeddings
         n = crops.shape[0]
-        with torch.no_grad():
+        with torch.no_grad(), full_f32():
             if self.flip:
                 e = self.model(torch.cat([crops, torch.flip(crops, [2])]))
                 e = e[:n] + e[n:]
@@ -242,7 +260,7 @@ class FANBackend:
         with self.timer("crop_resize", self.device):
             x = torch.as_tensor(np.asarray(images)).to(self.device)
             x = resize_linear(x, (256, 256)).float() / 255.0
-        with self.timer("fan", self.device), torch.no_grad():
+        with self.timer("fan", self.device), torch.no_grad(), full_f32():
             return self.model(x.permute(0, 3, 1, 2).contiguous())
 
     def __call__(self, images):

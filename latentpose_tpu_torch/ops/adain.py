@@ -10,11 +10,17 @@ exchange partial sums through distributed shared memory in a fixed order, and
 each block writes its slice normalised, with the ReLU fused.  The launch plan
 (:func:`plan_launch`) is chosen here, in Python, so the CPU tests reach it.
 
-A CPU tensor goes to :func:`adain_reference`; a CUDA tensor launches the
-kernel or raises.  ``adain.launches`` counts the calls that launched the
-kernel (one CUDA launch each), so a run can show that its main path went
-through it.  Training differentiates through a ``torch.autograd.Function``
-whose backward (:func:`adain_backward`) is plain PyTorch in f32.
+The forward is one PyTorch operator, ``torch.ops.latentpose.adain_fused(x,
+weight, bias, relu, eps)``, registered with ``torch.library``: both its CPU
+implementation (:func:`adain_reference`) and its CUDA implementation (the
+kernel, or raise) first check the inputs' dtypes, shapes and layout, and its
+fake implementation gives the output's shape and dtype.  So ``torch.export`` keeps the operator itself in a graph, and the
+kernel binds when the exported program runs.  The library is built at the
+first launch, never at import.  ``adain.launches`` counts the calls that
+launched the kernel (one CUDA launch each), so a run can show that its main
+path went through it.  Training differentiates through a
+``torch.autograd.Function`` whose forward is the operator and whose backward
+(:func:`adain_backward`) is plain PyTorch in f32.
 """
 
 from __future__ import annotations
@@ -163,7 +169,6 @@ def adain(x, weight, bias, relu: bool = True, eps: float = 1e-4):
 
     Differentiable in x, weight and bias: the forward is the kernel (or the
     plain version on the CPU), the backward :func:`adain_backward`."""
-    _check(x, weight, bias)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"adain: unsupported device {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
@@ -213,13 +218,19 @@ class _AdaIN(torch.autograd.Function):
 
 
 def _forward(x, weight, bias, relu, eps):
-    if x.device.type == "cpu":
-        return adain_reference(x, weight, bias, relu, eps)
-    return _launch(x, weight, bias, relu, eps)
+    return ADAIN_OP(x, weight, bias, relu, eps)
+
+
+def _plain(x, weight, bias, relu, eps):
+    """The operator's CPU implementation: :func:`adain_reference` on what
+    the kernel takes."""
+    _check(x, weight, bias)
+    return adain_reference(x, weight, bias, relu, eps)
 
 
 def _launch(x, weight, bias, relu, eps):
-    """The kernel on a CUDA tensor: one launch, no scratch."""
+    """The operator's CUDA implementation: one launch, no scratch."""
+    _check(x, weight, bias)
     check_kernel_layout(x)
     b, h, w, c = x.shape
     _, plan = card_plan(h * w, c, x.dtype)
@@ -242,3 +253,22 @@ def _launch(x, weight, bias, relu, eps):
 
 
 adain.launches = 0
+
+# The operator (``latentpose::adain_fused``).  ``Library`` with ``impl`` per
+# dispatch key, not ``torch.library.custom_op``: the wrapper runs 17 times a
+# generator forward, and the lower-level registration adds less host time a
+# call (PERF.md).
+LIBRARY_OPS = torch.library.Library("latentpose", "DEF")
+LIBRARY_OPS.define("adain_fused(Tensor x, Tensor weight, Tensor bias, "
+                   "bool relu, float eps) -> Tensor")
+LIBRARY_OPS.impl("adain_fused", _plain, "CPU")
+LIBRARY_OPS.impl("adain_fused", _launch, "CUDA")
+
+
+@torch.library.register_fake("latentpose::adain_fused", lib=LIBRARY_OPS)
+def _adain_fake(x, weight, bias, relu, eps):
+    return torch.empty_like(x)
+
+
+# the overload itself: the packet's overload lookup costs host time a call
+ADAIN_OP = torch.ops.latentpose.adain_fused.default

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from latentpose_tpu_torch.ops.spectral_norm import calibrating, quantized_convs
 
@@ -29,33 +30,62 @@ def load_quant_calib(generator, quant_calib):
             conv.act_absmax.copy_(torch.as_tensor(quant_calib[name]))
 
 
+def compute_dtype(args):
+    """The drive's compute dtype from ``args.compute_dtype``."""
+    return torch.bfloat16 if getattr(args, "compute_dtype", "float32") \
+        == "bfloat16" else torch.float32
+
+
+class DriveModule(nn.Module):
+    """The drive step as a module: a wire batch of driver frames ->
+    (rgbs, segm).  It holds the embedder's pose encoder (not its identity
+    tower, which drive does not run: an exported program keeps every
+    weight of its module), the generator and the avatar's (1, E) identity
+    as a buffer (``None`` where each call passes its own), so that
+    ``torch.export`` can export it whole (``cli/export.py``).
+
+    pose_frames (B, H, W, 3) on the modules' device, float in [0, 1] or
+    uint8 (the wire format, rescaled as ``/255`` then cast to ``dtype``).
+    Returns f32 (B, H, W, 3) rgbs and (B, H, W, 1) segmentation."""
+
+    def __init__(self, embedder, generator, identity=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.pose_encoder = embedder.pose_encoder
+        self.generator = generator
+        self.register_buffer("identity", identity)
+        self.dtype = dtype
+
+    def forward(self, pose_frames, identity=None):
+        identity = self.identity if identity is None else identity
+        if pose_frames.dtype == torch.uint8:
+            x = (pose_frames.float() / 255.0).to(self.dtype)
+        else:
+            x = pose_frames.to(self.dtype)
+        # the embedder's get_pose_embedding of each frame
+        pose = self.pose_encoder(x.permute(0, 3, 1, 2))
+        idt = identity.expand(x.shape[0], -1).to(self.dtype)
+        rgbs, segm = self.generator(idt, pose.to(self.dtype))
+        return rgbs.float(), segm.float()
+
+
 def make_drive_fn(models, args, quant_calib=None):
-    """The frame-batch driver: ``(state, pose_frames) -> (rgbs, segm)``.
+    """The frame-batch driver: ``(state, pose_frames) -> (rgbs, segm)``,
+    :class:`DriveModule` under ``torch.inference_mode``.
 
     ``state["finetune_embedding"]`` is the (1, E) identity on the models'
-    device; pose_frames (B, H, W, 3) on that device, float in [0, 1] or
-    uint8 (the wire format, rescaled as ``/255`` then cast to the compute
-    dtype).  Returns f32 (B, H, W, 3) rgbs and (B, H, W, 1) segmentation.
+    device; pose_frames as :class:`DriveModule` takes them.
     ``quant_calib``: the calibrated activation maxima of an
     ``int8_static`` generator, loaded into it here.
     """
-    embedder, generator = models["embedder"], models["generator"]
     if quant_calib is not None:
-        load_quant_calib(generator, quant_calib)
-    dtype = torch.bfloat16 if getattr(args, "compute_dtype", "float32") \
-        == "bfloat16" else torch.float32
+        load_quant_calib(models["generator"], quant_calib)
+    module = DriveModule(models["embedder"], models["generator"],
+                         dtype=compute_dtype(args))
 
     @torch.inference_mode()
     def drive_step(state, pose_frames):
-        if pose_frames.dtype == torch.uint8:
-            x = (pose_frames.float() / 255.0).to(dtype)
-        else:
-            x = pose_frames.to(dtype)
-        pose = embedder.get_pose_embedding(x[:, None])
-        identity = state["finetune_embedding"]
-        idt = identity.expand(x.shape[0], -1).to(dtype)
-        rgbs, segm = generator(idt, pose.to(dtype))
-        return rgbs.float(), segm.float()
+        return module(pose_frames, state["finetune_embedding"])
 
     return drive_step
 

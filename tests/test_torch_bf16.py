@@ -285,6 +285,25 @@ def test_adain_bf16_forward_and_backward(shape):
     assert ratio <= C < fault
 
 
+@pytest.mark.parametrize("shape", [(2, 8, 8, 16), (3, 16, 16, 8)])
+def test_adain_bf16_operator_forward_and_plain_backward(shape):
+    """In bf16 the wrapper's forward is the ``latentpose::adain_fused``
+    operator (the plain version on the CPU) and its gradients are
+    ``adain_backward``'s, bit for bit."""
+    x, w, b, g = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in _adain_case(shape, sum(shape) + 1))
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    y = tadain.adain(*leaves)
+    torch.testing.assert_close(
+        y.detach(), torch.ops.latentpose.adain_fused(x, w, b, True, 1e-4),
+        rtol=0, atol=0)
+    got = torch.autograd.grad(y, leaves, g)
+    want = tadain.adain_backward(x, w, b, g, True, 1e-4)
+    for t, ref in zip(got, want):
+        assert t.dtype == torch.bfloat16
+        torch.testing.assert_close(t, ref, rtol=0, atol=0)
+
+
 def _link_case(m, cin, cout, seed):
     rng = np.random.RandomState(seed)
     x = _bf16(rng.standard_normal((m, cin)) + 0.3)

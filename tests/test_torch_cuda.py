@@ -397,3 +397,42 @@ def test_lpips_card_matches_cpu(device):
     finally:
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
     torch.testing.assert_close(got, want, rtol=1e-3, atol=0)
+
+
+@pytest.mark.parametrize("compute", ["bfloat16", "float32"])
+def test_exported_drive_step_launches_the_kernel(device, tmp_path, compute):
+    """A tiny drive step exported on the card (``cli/export.py``), saved and
+    reloaded: it equals eager drive and launches the AdaIN kernel once for
+    each of the generator's AdaINs a forward, through the operator."""
+    import types
+    from latentpose_tpu_torch import registry
+    from latentpose_tpu_torch.cli import export as export_cli
+    from latentpose_tpu_torch.runners import drive as drive_lib
+    args = types.SimpleNamespace(
+        generator="vector_pose_unsupervised_segmentation_noBottleneck",
+        embedder="unsupervised_pose_separate_embResNeXt_segmentation",
+        image_size=32, in_channels=3, out_channels=3, num_channels=8,
+        max_num_channels=32, embed_channels=16, pose_embedding_size=8,
+        gen_padding="zero", gen_constant_input_size=4,
+        gen_num_residual_blocks=1, norm_layer="in", average_function="sum",
+        compute_dtype=compute)
+    g = torch.Generator().manual_seed(0)
+    models = {k: registry.load_wrapper(k + "s", getattr(args, k))
+              .get_net(args, generator=g).to(device).eval()
+              for k in ("embedder", "generator")}
+    state = {"finetune_embedding": torch.rand(1, 16, generator=g).to(device)}
+    frames = torch.randint(0, 256, (4, 32, 32, 3), dtype=torch.uint8,
+                           generator=g).to(device)
+    exported = export_cli.export_serving_artifact(models, state, args, 4,
+                                                  torch.uint8)
+    torch.export.save(exported, str(tmp_path / "a.pt2"))
+    serve = export_cli.load_serving_artifact(tmp_path / "a.pt2")
+    want = drive_lib.make_drive_fn(models, args)(state, frames)
+    adain_op.adain.launches = 0
+    got = serve(frames)
+    torch.cuda.synchronize()
+    assert adain_op.adain.launches == \
+        len(models["generator"].adain_features) == 9
+    for a, b in zip(got, want):
+        assert a.device == device and a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3)

@@ -407,6 +407,9 @@ def test_card_path_imports_no_jax():
         "import latentpose_tpu_torch.eval.backends",
         "import latentpose_tpu_torch.cli.crop_as_in_dataset",
         "import latentpose_tpu_torch.cli.preprocess_dataset",
+        "import latentpose_tpu_torch.cli.export",
+        "import latentpose_tpu_torch.cli.convert_reference_checkpoint",
+        "import latentpose_tpu_torch.reference_checkpoint",
         "import latentpose_tpu_torch.models.generators."
         "vector_pose_unsupervised_segmentation_noBottleneck",
         "print('imported', len(sys.modules))",

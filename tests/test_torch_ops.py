@@ -138,6 +138,56 @@ def test_adain_wrapper_rejects_what_the_kernel_does_not_take():
     assert tadain.adain.launches == 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [False, True])
+def test_adain_operator_cpu_is_the_plain_version(relu, dtype):
+    """``latentpose::adain_fused``'s CPU implementation is
+    ``adain_reference``, bit for bit, and the wrapper calls the operator."""
+    x, w, b = (torch.from_numpy(a).to(dtype)
+               for a in _adain_inputs((2, 8, 4, 32), seed=21))
+    want = tadain.adain_reference(x, w, b, relu, 1e-4)
+    got = torch.ops.latentpose.adain_fused(x, w, b, relu, 1e-4)
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(tadain.adain(x, w, b, relu), want, rtol=0,
+                               atol=0)
+
+
+def test_adain_operator_rejects_what_the_kernel_does_not_take():
+    """Called directly, not through the wrapper, the operator checks its
+    inputs as the wrapper did: a (1, C) weight, a weight in another dtype
+    and a non-contiguous x raise before any implementation reads them."""
+    x, w, b = (torch.from_numpy(a) for a in _adain_inputs((2, 4, 4, 64)))
+    op = torch.ops.latentpose.adain_fused
+    with pytest.raises(ValueError, match=r"\(B, C\)"):
+        op(x, w[:1], b, True, 1e-4)
+    with pytest.raises(ValueError, match=r"\(B, C\)"):
+        op(x, w, b[:, None], True, 1e-4)
+    with pytest.raises(TypeError, match="dtype"):
+        op(x.bfloat16(), w, b.bfloat16(), True, 1e-4)
+    with pytest.raises(ValueError, match="contiguous"):
+        op(x.transpose(1, 2), w, b, True, 1e-4)
+    assert tadain.adain.launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adain_operator_passes_opcheck(dtype):
+    """The operator's schema, its fake implementation (the output's shape,
+    dtype and strides) and its dispatch, as ``torch.library.opcheck``
+    checks them; no input needs a gradient, since the operator has no
+    autograd kernel (``_AdaIN`` differentiates it)."""
+    x, w, b = (torch.from_numpy(a).to(dtype)
+               for a in _adain_inputs((2, 4, 4, 16), seed=22))
+    for relu in (False, True):
+        torch.library.opcheck(torch.ops.latentpose.adain_fused.default,
+                              (x, w, b, relu, 1e-4))
+    with torch._subclasses.fake_tensor.FakeTensorMode() as mode:
+        fx = mode.from_tensor(x)
+        out = tadain.adain(fx, mode.from_tensor(w), mode.from_tensor(b))
+        assert out.shape == x.shape and out.dtype == dtype
+    assert tadain.adain.launches == 0
+
+
 @pytest.mark.parametrize("itemsize", [4, 2])
 @pytest.mark.parametrize("hw,c", FLAGSHIP_HWC)
 @pytest.mark.parametrize("batch", [1, 8, 32])
@@ -359,6 +409,28 @@ def test_adain_gradient_matches_jax_grad(shape, relu):
     for got, ref in zip(leaves, want):
         np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref),
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_adain_gradients_are_the_plain_backward(relu):
+    """Under autograd the wrapper's forward is the operator and its
+    gradients are ``adain_backward``'s, bit for bit; within 1e-4 of
+    autograd through the plain version."""
+    shape = SHAPES[0]
+    x, w, b = _adain_inputs(shape, seed=13)
+    cot = torch.from_numpy(
+        np.random.RandomState(14).standard_normal(shape).astype(np.float32))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, w, b)]
+    y = tadain.adain(*leaves, relu=relu)
+    assert y.grad_fn is not None and "_AdaIN" in type(y.grad_fn).__name__
+    got = torch.autograd.grad(y, leaves, cot)
+    want = tadain.adain_backward(*(t.detach() for t in leaves), cot, relu,
+                                 1e-4)
+    plain = torch.autograd.grad(
+        tadain.adain_reference(*leaves, relu=relu), leaves, cot)
+    for g, w_, p in zip(got, want, plain):
+        torch.testing.assert_close(g, w_, rtol=0, atol=0)
+        torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-4)
 
 
 # --- spectral norm in train form --------------------------------------------
