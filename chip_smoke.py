@@ -102,6 +102,18 @@ paths:
    median ms beside the f32 step, peak memory, busy and idle shares, the
    ten longest kernels; save, resume in the same modes, one more step,
    which counts the link inputs that need a copy to channels_last;
+8c. data parallelism (:func:`phase_distributed`): ``cli.train.main`` as
+   the one rank of a torchrun world of 1 over NCCL (4 steps at batch 8,
+   K=8, f32, both kernels every step, one checkpoint); the staged step in
+   that group against the plain one, in turns; a step's gradient bytes and
+   the reduce's ms in f32 and bf16; then two gloo ranks on the one card
+   (``--dist-child``, 4 rows each) against one process on the whole batch
+   under cuDNN's deterministic algorithms: losses, statistics' update and
+   the generator's and discriminator's gradients within 1e-3, each tower's
+   gradient within GRAD_TOL (the card-vs-CPU meta gate of step 9); the
+   explicit regime's identity-tower statistics above 1e-3 and the default
+   step with its moments' gradient unreduced (a planted fault) above a
+   tower's gate (the witnesses);
 9b. bf16 against f32 on the card: one meta step from one state and batch
    (batch 2, towers in eval form, augmentation off) in f32 (T32), in bf16
    (T16) and in bf16 with both kernels' places taken by their plain
@@ -144,7 +156,7 @@ paths:
     the fine-tuned checkpoint, boxes from ``--bboxes_dir`` and from S3FD:
     the generator's frames equal to the C++ crop of the same boxes, 17 AdaIN
     launches a forward; frames/s beside drive from the pre-cropped output;
-17. the paper's evaluation protocol: 3 identities of 32 identity and 32
+17. the paper's evaluation protocol: 2 identities of 16 identity and 16
     driver frames at 256² (with masks), seeded ArcFace-r100 and FAN (4
     hourglasses) at their published widths in the JAX layout; the crop
     resizes bit-equal card vs CPU, ArcFace within 1e-3 of its max and LPIPS
@@ -240,6 +252,8 @@ from latentpose_tpu_torch.ops.cuda_build import (  # noqa: E402
     BUILD_DIR, build_log, load_library)
 from latentpose_tpu_torch.runners import drive as drive_lib  # noqa: E402
 from latentpose_tpu_torch.runners import finetune as ft  # noqa: E402
+from latentpose_tpu_torch.parallel import launch  # noqa: E402
+from latentpose_tpu_torch.parallel import mesh as parallel  # noqa: E402
 from latentpose_tpu_torch.runners import holycow, loop  # noqa: E402
 from latentpose_tpu_torch.runners.state import (  # noqa: E402
     TrainState, ema_of)
@@ -300,6 +314,8 @@ META = dict(FLAGSHIP, finetune=False, num_labels=16, dis_num_blocks=7,
 FT_BATCH = 8
 FT_EPOCHS = 5          # 2 batches an epoch (16 identities // batch 8)
 META_STEPS = 5
+DIST_EPOCHS = 2        # part (i): 2 epochs of 2 steps (16 identities // 8)
+DIST_TIMED = 4         # part (i): staged steps timed each way, in turns
 STEP_TOL = 1e-3        # card vs CPU, one train step, relative
 # card vs CPU, one train step: the generator's and each tower's gradient,
 # L2 relative (the meta step's towers read 6.9e-3-3.1e-2); a fault of
@@ -353,7 +369,7 @@ PREP_TOL = 1e-3        # card vs CPU, each net's output, relative to its max
 PREP_ANCHOR_SIGMA = 3.0
 # the eval phase's tree: identities, each with this many identity and
 # driver frames at size²; the fine-tune children's steps
-EVAL = dict(identities=3, frames=32, size=256)
+EVAL = dict(identities=2, frames=16, size=256)
 EVAL_FT_ITERATIONS = 8
 EVAL_NET_TOL = 1e-3    # card vs CPU: ArcFace (of max |e|), LPIPS (relative)
 EVAL_ID_TOL = 1e-4     # card vs CPU: the identity error, absolute
@@ -1143,15 +1159,22 @@ def _print_gaps(what, loss, rel):
           + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()), flush=True)
 
 
-def _require_step(what, loss, rel, grad_tol):
-    """Losses, BatchNorm statistics and the discriminator's gradient within
-    STEP_TOL, the generator side's gradients within ``grad_tol``."""
+def _step_limits(rel, grad_tol, limits=None):
+    """{group: limit}: BatchNorm statistics and the discriminator's gradient
+    STEP_TOL, the generator side's gradients ``grad_tol``, but where
+    ``limits`` names the group."""
     tol = {k: grad_tol if k.endswith("gradient")
            and not k.startswith("discriminator") else STEP_TOL for k in rel}
+    tol.update(limits or {})
+    return tol
+
+
+def _require_step(what, loss, rel, grad_tol, limits=None):
+    """Losses within STEP_TOL, each group within :func:`_step_limits`."""
     name, gap = _worst_loss(loss)
     require(gap <= STEP_TOL, f"card and CPU {what}s differ: losses {gap} "
             f"({name})")
-    for key, limit in tol.items():
+    for key, limit in _step_limits(rel, grad_tol, limits).items():
         require(rel[key] <= limit, f"card and CPU {what}s differ: {key} "
                 f"{rel[key]} > {limit}")
 
@@ -3212,7 +3235,8 @@ def phase_eval_nets(wdir, frames, device):
           EVAL_NET_TOL)
     backend = backends.ArcFaceBackend(wdir / "arcface_r100.npz",
                                       device=device)
-    batch = backends.face_crops(list(np.concatenate([frames] * 2)[:64]),
+    batch = backends.face_crops(list(np.concatenate(
+        [frames] * -(-64 // len(frames)))[:64]),
                                 bbox, (112, 112), resize_cubic,
                                 device)
     emb = backend.embed(batch)
@@ -3610,6 +3634,305 @@ def phase_eval(meta_ckpt, root, device, child_device="cuda"):
     return child_launches
 
 
+@contextlib.contextmanager
+def _rank_env(port, rank=0, world=1):
+    """torchrun's environment for a rank of a local group, for the block."""
+    values = {"RANK": str(rank), "LOCAL_RANK": str(rank),
+              "WORLD_SIZE": str(world), "MASTER_ADDR": "localhost",
+              "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def _dist_argv(meta_ckpt, workdir, device):
+    return ["--checkpoint_path", str(meta_ckpt), "--dataloader", "synthetic",
+            "--device", str(device), "--allow_random_vgg", "--batch_size",
+            "8", "--num_epochs", str(DIST_EPOCHS), "--save_frequency", "0",
+            "--log_frequency_images", "1000000000",
+            "--log_frequency_fixed_images", "1000000000",
+            "--experiments_dir", str(workdir)]
+
+
+def _unreduced_backward(ctx, g_mean, g_var):
+    """``parallel._GlobalMeanVar``'s backward without its all-reduce (part
+    (ii)'s planted fault): each rank keeps only its own loss's gradient of
+    the global statistics."""
+    mean, var = ctx.saved_tensors
+    g_var = torch.where(var > 0, g_var, torch.zeros_like(g_var))
+    g_mean, g_var = g_mean / ctx.count, g_var / ctx.count
+    return torch.stack([g_mean - 2.0 * mean * g_var, g_var]), None
+
+
+@contextlib.contextmanager
+def _unreduced_moment_gradients(active=True):
+    saved = parallel._GlobalMeanVar.backward
+    if active:
+        parallel._GlobalMeanVar.backward = staticmethod(_unreduced_backward)
+    try:
+        yield
+    finally:
+        parallel._GlobalMeanVar.backward = saved
+
+
+# part (ii)'s steps: (mode, flags, the planted fault)
+DIST_MODES = (("default", [], False),
+              ("explicit", ["--explicit_grad_reduce"], False),
+              ("unreduced", [], True))
+
+
+def dist_child(meta_ckpt, out, rank, port, device="cuda:0"):
+    """One of :func:`phase_distributed`'s two ranks in part (ii): a gloo
+    group of two processes on the one card.  NCCL refuses two ranks on one
+    device and the CLI refuses more ranks than cards; only this harness
+    places two ranks on one card, through ``torch.distributed`` directly.
+    From the seeded meta checkpoint, one step on the rank's 4 rows of the
+    global batch 0 in each of DIST_MODES: the default regime, the explicit
+    regime (``--explicit_grad_reduce``), and the default regime with the
+    global moments' backward left unreduced (the planted fault), all under
+    cuDNN's deterministic algorithms (ROADMAP C.8); rank 0 saves each
+    state's groups (:func:`_leaves`) and the losses, every rank its kernel
+    launches.  ``device``: the card (``cpu`` only to rehearse the
+    phase)."""
+    out, rank, device = Path(out), int(rank), torch.device(device)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    launches = {}
+    with _rank_env(port, rank, 2):
+        torch.distributed.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+            rank=rank)
+        try:
+            for mode, flags, fault in DIST_MODES:
+                args = train_cli.resolve_args(
+                    _dist_argv(meta_ckpt, out / mode, device) + flags)
+                loader = train_cli.build_dataloader(args)
+                state = train_cli.load_checkpoint(args, device)
+                parallel.replicate(state)
+                step_fn = train_cli.make_step(
+                    args, train_cli.build_criteria(args, device))
+                batch = holycow.to_device(loader.get_batch(0), device,
+                                          holycow.META_STEP_KEYS)
+                require(batch["label"].shape[0] == 4,
+                        f"rank {rank} holds {batch['label'].shape[0]} rows")
+                before = _leaves(state)
+                _zero_launches()
+                with _unreduced_moment_gradients(fault):
+                    scalars = step_fn(state, batch)
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                launches[mode] = _launches()
+                if rank == 0:
+                    torch.save({"losses": {k: float(v)
+                                           for k, v in scalars.items()},
+                                "before": before, "after": _leaves(state)},
+                               out / f"{mode}.pt")
+                del state, step_fn, batch
+        finally:
+            torch.distributed.destroy_process_group()
+    (out / f"launches{rank}.json").write_text(json.dumps(launches))
+
+
+def _reduce_ms(grads, dtype):
+    """Mean ms of one :func:`parallel.reduce_grads` of ``grads`` with
+    ``dtype`` on the wire (None: f32), by CUDA events."""
+    return cuda_ms(lambda: parallel.reduce_grads(grads, dtype), 10)
+
+
+def phase_distributed(meta_ckpt, workdir, device):
+    """Data-parallel meta-training on the card (ROADMAP A.17.1).
+
+    (i) ``cli.train.main`` as the one rank of a torchrun world of 1 (NCCL):
+    DIST_EPOCHS epochs of 2 steps at batch 8, K=8, f32, 256², both kernels
+    launched every step, one checkpoint; then, in this process, the staged
+    step in that group (its gradient buckets all-reduced by NCCL) against
+    the plain step (no group), in turns, and one step's gradient bytes with
+    the reduce's ms in f32 and in bf16.  One card: no scaling is measured.
+
+    (ii) two ranks over gloo on the card (:func:`dist_child`), each with 4
+    rows of batch 0, against one process on the whole batch, all under
+    cuDNN's deterministic algorithms, with the card-vs-CPU meta gate
+    (:func:`_require_step`): the losses, the statistics' update and the
+    generator's and discriminator's gradients within STEP_TOL, each
+    tower's gradient within GRAD_TOL, of each group's L2 (:func:`_gaps`).
+    Two witnesses: the explicit regime's identity-tower statistics read
+    above STEP_TOL, and the default regime with its moments' gradient left
+    unreduced (the planted fault) fails the gate on a tower's gradient.
+    Returns (launches of (i)'s CLI run, the children's launches)."""
+    t_phase = time.perf_counter()
+    workdir = Path(workdir)
+    workdir.mkdir(parents=True, exist_ok=True)
+    argv = _dist_argv(meta_ckpt, workdir / "nccl", device)
+    _zero_launches()
+    t0 = time.perf_counter()
+    with _rank_env(launch.free_port()):
+        state, path = train_cli.main(argv)
+    torch.cuda.synchronize()
+    cli_launches = _launches()
+    steps = 2 * DIST_EPOCHS
+    require(state.step == steps and path is not None and path.exists(),
+            f"world-1 run: step {state.step}, checkpoint {path}")
+    per_step = {"bn_relu_conv1x1_stats": 16,
+                "adain_fused": len(state.models["generator"].adain_features)}
+    # each step's forward, and the visual grid's at step 0
+    require(cli_launches == {k: v * (steps + 1) for k, v in per_step.items()},
+            f"world-1 run launched {cli_launches}, {per_step} a forward")
+    require(not parallel.initialized(), "the CLI left its group up")
+    batch_ms = [1e3 * v for v in _scalars(path.parent.parent)[
+        "Metrics/train/Batch_time"]]
+    print(f"distributed (i): cli.train.main, NCCL world 1, {steps} steps in "
+          f"{time.perf_counter() - t0:.1f} s; Batch_time_ms "
+          f"{', '.join(f'{t:.1f}' for t in batch_ms)}; launches "
+          f"{cli_launches}; saved {path.name}", flush=True)
+    del state
+    torch.cuda.empty_cache()
+
+    args = train_cli.resolve_args(argv)
+    loader = train_cli.build_dataloader(args)
+    state = train_cli.load_checkpoint(args, device)
+    criteria = train_cli.build_criteria(args, device)
+    plain = train_cli.make_step(args, criteria)
+    batches = [holycow.to_device(loader.get_batch(i), device,
+                                 holycow.META_STEP_KEYS) for i in range(2)]
+    with _rank_env(launch.free_port()):
+        parallel.init_process_group(device)
+        try:
+            grouped = train_cli.make_step(args, criteria)
+            times = {"plain": [], "group": []}
+            for turn in ("plain", "group", "group", "plain") * (
+                    DIST_TIMED // 2):
+                fn = plain if turn == "plain" else grouped
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(state, batches[len(times[turn]) % 2])
+                torch.cuda.synchronize()
+                times[turn].append((time.perf_counter() - t0) * 1e3)
+            grads_g, grads_d = list(state.opt_g.mu), list(state.opt_d.mu)
+            nbytes = 4 * sum(g.numel() for g in grads_g + grads_d)
+            reduce = {name: sum(_reduce_ms(g, dtype)
+                                for g in (grads_g, grads_d))
+                      for name, dtype in (("f32", None),
+                                          ("bf16", torch.bfloat16))}
+        finally:
+            parallel.destroy_process_group()
+    plain_ms, group_ms = (float(np.median(times[k][1:]))
+                          for k in ("plain", "group"))
+    print(f"distributed (i): staged meta step, batch 8 K=8 f32, median of "
+          f"{DIST_TIMED - 1} after one: plain {plain_ms:.2f} ms, in the NCCL "
+          f"world-1 group {group_ms:.2f} ms ({group_ms / plain_ms:.3f}x); "
+          f"each {times}", flush=True)
+    print(f"distributed (i): gradient bytes a step f32 {nbytes} (bf16 "
+          f"{nbytes // 2}), 2 buckets; reduce_ms f32 {reduce['f32']:.3f} "
+          f"bf16 {reduce['bf16']:.3f} (NCCL, world 1: the cast and the "
+          f"launch, no wire)", flush=True)
+    del state, plain, grouped, criteria, batches
+    torch.cuda.empty_cache()
+
+    # (ii) two gloo ranks on the one card against one process
+    t0 = time.perf_counter()
+    port = launch.free_port()
+    out = workdir / "gloo"
+    out.mkdir()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-child",
+         str(meta_ckpt), str(out), str(rank), str(port), str(device)],
+        cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(2)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for rank, (proc, log) in enumerate(zip(procs, logs)):
+        if proc.returncode:
+            print(f"rank {rank}:\n{log[-3000:]}", flush=True)
+        require(proc.returncode == 0, f"gloo rank {rank} exited "
+                f"{proc.returncode}")
+    children = {"bn_relu_conv1x1_stats": 0, "adain_fused": 0}
+    for rank in range(2):
+        for mode, count in json.loads(
+                (out / f"launches{rank}.json").read_text()).items():
+            require(count == per_step,
+                    f"gloo rank {rank} {mode} step launched {count}")
+            children = {k: children[k] + count[k] for k in children}
+    print(f"distributed (ii): two gloo ranks, a default, an explicit and a "
+          f"faulted step each, {time.perf_counter() - t0:.1f} s; launches "
+          f"{children}", flush=True)
+
+    cudnn = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        args = train_cli.resolve_args(_dist_argv(meta_ckpt, out / "one",
+                                                 device))
+        host = train_cli.build_dataloader(args).get_batch(0)
+        state = train_cli.load_checkpoint(args, device)
+        ref = _run_step(args, state, host, holycow.META_STEP_KEYS, device)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn
+    del state
+    torch.cuda.empty_cache()
+    identity, limits = {}, {"generator.gradient": STEP_TOL}
+    for mode, _, _ in DIST_MODES:
+        saved = torch.load(out / f"{mode}.pt")
+        run = (saved["losses"], saved["before"], saved["after"], 0.0)
+        loss, rel = _gaps(ref, run)
+        _print_gaps(f"distributed (ii) {mode} step, two gloo ranks vs one "
+                    f"process", loss, rel)
+        identity[mode] = _identity_stats_gap(ref, run)
+        if mode == "default":
+            _require_step("two-rank and one-process meta step", loss, rel,
+                          GRAD_TOL, limits)
+        elif mode == "unreduced":
+            caught = [k for k, limit in _step_limits(rel, GRAD_TOL,
+                                                     limits).items()
+                      if k.startswith("embedder.") and k.endswith("gradient")
+                      and rel[k] > limit]
+            print(f"distributed (ii): the planted fault (the moments' "
+                  f"gradient unreduced) above the gate on {caught}",
+                  flush=True)
+            require(caught, f"the unreduced moments' gradient passes the "
+                    f"two-rank gate: {rel}")
+    print(f"distributed (ii): the identity tower's statistics' update, L2 "
+          f"relative to one process's: default {identity['default']:.3g}, "
+          f"explicit {identity['explicit']:.3g} (the witness, above "
+          f"{STEP_TOL})", flush=True)
+    require(identity["default"] <= STEP_TOL < identity["explicit"],
+            f"the identity tower's statistics read {identity}: the default "
+            f"regime's must lie within {STEP_TOL}, the explicit one's above")
+    print(f"distributed phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return cli_launches, children
+
+
+def _identity_stats_gap(ref, other):
+    """L2 of the identity tower's running statistics' update in ``other``
+    less ``ref``'s, relative to ``ref``'s update (runs of
+    :func:`_run_step`)."""
+    (_, before, after, _), (_, _, o_after, _) = ref, other
+    group = ("embedder", "stats")
+    keys = [k for k in after[group] if k.startswith("identity_encoder.")]
+    num = sum(float((o_after[group][k] - after[group][k]).square().sum())
+              for k in keys)
+    den = sum(float((after[group][k] - before[group][k]).square().sum())
+              for k in keys)
+    return (num / den) ** 0.5
+
+
 def _named_leaves(state):
     """{name: CPU copy} of a meta-train state: every parameter, BatchNorm
     statistic and gradient (Adam's first moment, beta1 = 0), gradients
@@ -3828,6 +4151,9 @@ def main():
               f"run): {staged16_ms / staged_ms:.3f} of the f32 step",
               flush=True)
         torch.cuda.empty_cache()
+        dist_launches, dist_children = phase_distributed(
+            meta_ckpt, Path(workdir) / "distributed", device)
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         tree, rows = write_tree(Path(workdir) / "tree")
         print(f"real data: tree of {len(rows)} videos x {TREE['frames']} "
@@ -3870,7 +4196,7 @@ def main():
     bf16_launches = {k: meta16_launches[k] + real16_launches[k]
                      for k in ft_launches}
     launches = {k: meta_launches[k] + ft_launches[k] + real_launches[k]
-                + bf16_launches[k] for k in ft_launches}
+                + bf16_launches[k] + dist_launches[k] for k in ft_launches}
     launches["adain_fused"] += int8_adains + crop_adains + reference_launches
 
     print(f"smoke total: {time.perf_counter() - started:.1f} s", flush=True)
@@ -3885,6 +4211,7 @@ def main():
                         "norm with a per-sample affine and ReLU",
         "bf16_train_launches": bf16_launches["adain_fused"],
         "bf16_train": adain_train16,
+        "distributed_child_launches": dist_children["adain_fused"],
         "eval_child_launches": protocol_launches["adain_fused"],
         "export_child_launches": export_launches,
         "reference_drive_launches": reference_launches}, {
@@ -3902,6 +4229,7 @@ def main():
         "train_backward_device_ms": conv_train["backward_device_ms"],
         "bf16_train_launches": bf16_launches["bn_relu_conv1x1_stats"],
         "bf16_train": conv_train16,
+        "distributed_child_launches": dist_children["bn_relu_conv1x1_stats"],
         "eval_child_launches": protocol_launches["bn_relu_conv1x1_stats"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3913,5 +4241,7 @@ if __name__ == "__main__":
         meta_repro(*[sys.argv[2:]] if sys.argv[2:] else [])
     elif sys.argv[1:2] == ["--meta-repro-child"]:
         meta_repro_child(*sys.argv[2:5])
+    elif sys.argv[1:2] == ["--dist-child"]:
+        dist_child(*sys.argv[2:7])
     else:
         main()

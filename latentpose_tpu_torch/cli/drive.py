@@ -17,6 +17,14 @@ first driver sequence's leading ``--calibration_frames`` frames, then used
 for every sequence (``ops/quant.py``).  Both are approximate (the JAX
 package gates them at 40 dB PSNR against the exact path).
 
+``--num_devices N`` drives on N devices, one process (rank) each: the CLI
+starts the N local ranks itself, or under torchrun each process joins the
+group it is given.  Batch k of a sequence goes whole to rank k mod N, so
+each batch (the int8 path's dynamic scale included) is what one process
+drives; rank 0 receives the others' batches in order and writes the video,
+which equals a one-process run's frame for frame.  ``int8_static``
+calibrates on rank 0 and hands every rank its scales.
+
 ``--crop`` drives raw footage (a directory of frames, or a video with cv2):
 each frame is cropped as the dataset crops it (:func:`inline_crop_frames`),
 its box from the ``--bboxes_dir`` dict or from S³FD (``s3fd.npz`` under
@@ -28,6 +36,7 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import sys
 import types
 from pathlib import Path
 
@@ -39,6 +48,8 @@ from latentpose_tpu_torch import convert, registry
 from latentpose_tpu_torch.data.common import crop as crop_lib
 from latentpose_tpu_torch.data.common.voxceleb import IMAGE_EXTENSIONS
 from latentpose_tpu_torch.data import native_loader
+from latentpose_tpu_torch.parallel import launch
+from latentpose_tpu_torch.parallel import mesh as parallel
 from latentpose_tpu_torch.runners import drive as drive_lib
 from latentpose_tpu_torch.utils.video import get_image_writer, to_uint8
 
@@ -254,7 +265,9 @@ def inference_args(cli, what):
     """The parsed flags ``cli`` (with ``checkpoint_path``) over the
     checkpoint's saved args, with the inference overrides of drive and
     export (the reference's ``drive.py:48-59``): fine-tune and inference
-    on, bf16 compute unless ``--compute_dtype`` was given, one device."""
+    on, bf16 compute unless ``--compute_dtype`` was given; ``--num_devices``
+    checked against the visible devices (drive), or 1 (export: the
+    exported program is single-device)."""
     if not os.path.exists(os.path.join(cli.checkpoint_path, "meta.json")):
         raise FileNotFoundError(
             f"Checkpoint `{cli.checkpoint_path}` not found — {what} needs a "
@@ -269,21 +282,40 @@ def inference_args(cli, what):
         args.compute_dtype = "bfloat16"    # serving default
     # a checkpoint converted from the reference's may lack these
     for key, default in (("bboxes_dir", "/non/existent/file"),
-                         ("data_root", None)):
+                         ("data_root", None), ("num_devices", 0)):
         if not hasattr(args, key):
             setattr(args, key, default)
-    if (getattr(args, "num_devices", 0) or 1) > 1:
-        raise NotImplementedError(
-            f"--num_devices {args.num_devices}: multi-device drive is not "
-            "ported to PyTorch yet (ROADMAP.md queue A, distributed); pass "
-            "--num_devices 1")
+    if what == "export":
+        args.num_devices = 1
+    world = parallel.requested_world(args.num_devices)
+    if world > 1 and not parallel.launched():
+        parallel.check_devices(torch.device(args.device).type, world)
     return args
 
 
 def main(argv=None):
+    """Drive as the flags say; returns the videos written (under N ranks:
+    rank 0's, on every rank)."""
     logging.basicConfig(level=logging.INFO)
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = resolve_args(argv)
-    models, state = load_finetuned(args, torch.device(args.device))
+    world = parallel.requested_world(args.num_devices)
+    if world > 1 and not parallel.launched():
+        return launch.run("latentpose_tpu_torch.cli.drive", argv, world)
+    device = torch.device(args.device)
+    joined = parallel.launched() and not parallel.initialized()
+    if joined:
+        device = parallel.init_process_group(device)
+    try:
+        return _drive(args, device)
+    finally:
+        if joined:
+            parallel.destroy_process_group()
+
+
+def _drive(args, device):
+    main_rank = parallel.is_main()
+    models, state = load_finetuned(args, device)
     # int8_static: the drive fn is built after calibrating on the first
     # sequence's leading frames
     drive_fn = None if args.quantize == "int8_static" else \
@@ -316,7 +348,10 @@ def main(argv=None):
                 calib_frames = calib_frames.astype(np.float32) / 255.0
             calib = drive_lib.calibrate_quant_scales(
                 models, args, state, calib_frames,
-                batch_size=args.drive_batch_size)
+                batch_size=args.drive_batch_size) if main_rank else \
+                drive_lib.empty_quant_calib(models)
+            for scale in calib.values():        # rank 0's, on every rank
+                parallel.broadcast_tensor(scale)
             logger.info("int8_static: calibrated activation scales on %d "
                         "frames (%d quantized convs)", len(calib_frames),
                         len(calib))
@@ -327,6 +362,9 @@ def main(argv=None):
 
         name = str(images_path).replace("://", "_").replace("/", "_")
         dest = Path(args.destination) / f"{name}.mp4"
+        results.append(dest)
+        if not main_rank:
+            continue
         writer = get_image_writer(dest)
         for driver, result in zip(frames, outputs):
             if driver.dtype == np.uint8:
@@ -334,7 +372,7 @@ def main(argv=None):
             writer.add(to_uint8(np.concatenate([driver, result], axis=1)))
         writer.close()
         logger.info("Wrote %s (%d frames)", dest, len(frames))
-        results.append(dest)
+    parallel.barrier()          # every video is written
     return results
 
 

@@ -37,6 +37,20 @@ optimizer state included, which both packages read.  SIGINT or SIGTERM
 saves at the next step boundary and ends the run (exit 0); a second one
 ends it without saving.
 
+``--num_devices N`` trains on N devices, one process (rank) each (0, the
+default, takes every visible card, as the JAX CLI takes every device, and
+one process on the CPU): without torchrun the CLI starts the N local
+ranks itself (``parallel/launch.py``); under torchrun each process joins
+the group it is given, on one host or many.  ``--batch_size`` is the
+global batch: each rank loads ``batch_size / N`` rows.  Three regimes, as
+in the JAX step (``runners/holycow.py``): by default BatchNorm and dice
+take the global batch's statistics and the gradient mean is reduced in
+f32; ``--explicit_grad_reduce`` keeps each rank's own statistics and
+averages the running statistics after the step; ``--grad_dtype bfloat16``
+(which implies it) reduces the gradients in bf16.  Rank 0 alone writes
+the logs, visuals, probes, validation and checkpoints; every rank resumes
+from the same checkpoint, and a signal stops every rank at the same step.
+
 Arguments resolve as the JAX package's ``config/resolution.py`` resolves
 them, lowest to highest: the JAX core defaults (:data:`DEFAULTS`), the
 checkpoint's saved args, the config that ``--config_name`` names (read only
@@ -58,6 +72,7 @@ import argparse
 import json
 import logging
 import signal
+import sys
 import threading
 import types
 from pathlib import Path
@@ -70,6 +85,8 @@ from latentpose_tpu_torch import convert, registry
 from latentpose_tpu_torch.data.dataloader import \
     get_dataloader as build_dataloader
 from latentpose_tpu_torch.ops.spectral_norm import SNEmbed
+from latentpose_tpu_torch.parallel import launch
+from latentpose_tpu_torch.parallel import mesh as parallel
 from latentpose_tpu_torch.runners import finetune as ft
 from latentpose_tpu_torch.runners import holycow, loop
 from latentpose_tpu_torch.runners.state import TrainState, ema_of
@@ -109,7 +126,8 @@ DEFAULTS = dict(
     batch_size_inference=5, num_visuals_per_img=2, set_eval_mode_in_test=True,
     args_to_ignore="checkpoint,splits_dir,experiments_dir,extension,"
                    "experiment_name,rank,local_rank,world_size",
-    profile_dir="", profile_steps=5, config_name="")
+    profile_dir="", profile_steps=5, config_name="",
+    param_sharding="replicated")
 
 # configs/default.yaml, the flagship meta-training config.
 META_CONFIG = dict(
@@ -160,7 +178,7 @@ def build_parser():
                  "transfer_dtype", "grad_dtype", "optimizer", "data_root",
                  "img_dir", "segm_dir", "kp_dir", "bboxes_dir",
                  "train_split_path", "val_split_path", "saver",
-                 "profile_dir"):
+                 "profile_dir", "param_sharding"):
         parser.add_argument(f"--{name}", default=None)
     parser.add_argument("--args_to_ignore", "--args-to-ignore", default=None)
     for name in ("batch_size", "num_epochs", "random_seed", "save_frequency",
@@ -248,10 +266,22 @@ def resolve_args(argv=None):
         if getattr(args, flag) not in values:
             raise ValueError(f"--{flag} {getattr(args, flag)!r}: one of "
                              f"{sorted(values)}")
-    if args.grad_dtype != "float32" or args.explicit_grad_reduce \
-            or (args.num_devices or 1) > 1:
-        _refuse("multi-device training (--num_devices > 1, --grad_dtype, "
-                "--explicit_grad_reduce)", "A.17")
+    if args.grad_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"--grad_dtype {args.grad_dtype!r}: one of "
+                         "['bfloat16', 'float32']")
+    if args.param_sharding != "replicated":
+        _refuse(f"--param_sharding {args.param_sharding} (FSDP2 "
+                "fully_shard under the port's own optimizers)", "A.17.2")
+    world = parallel.requested_world(args.num_devices,
+                                     torch.device(args.device).type)
+    if world > 1 and not parallel.launched():
+        parallel.check_devices(torch.device(args.device).type, world)
+    if parallel.launched():
+        args.num_devices = world        # saved with the checkpoint
+    if parallel.explicit_regime(args) and world < 2 \
+            and not parallel.launched():
+        raise ValueError("--grad_dtype bfloat16 / --explicit_grad_reduce "
+                         "need a device mesh (--num_devices > 1)")
     for kind, names in (("dataloaders", [args.dataloader]),
                         ("metrics", _names(args.metrics)),
                         ("criterions", _names(args.criterions))):
@@ -266,9 +296,14 @@ def resolve_args(argv=None):
     if args.optimizer not in ft.OPTIMIZERS:
         raise ValueError(f"--optimizer {args.optimizer!r}: the JAX package "
                          f"has {sorted(ft.OPTIMIZERS)}")
-    if args.batch_size % max(args.grad_accum_steps, 1):
-        raise ValueError(f"--grad_accum_steps {args.grad_accum_steps} must "
-                         f"divide --batch_size {args.batch_size}")
+    if args.batch_size % world:
+        raise ValueError(f"--batch_size {args.batch_size} does not split "
+                         f"over {world} ranks")
+    if args.batch_size // world % max(args.grad_accum_steps, 1):
+        raise ValueError(
+            f"--grad_accum_steps {args.grad_accum_steps} must divide "
+            f"--batch_size {args.batch_size}"
+            + (f" / {world} ranks" if world > 1 else ""))
     return args
 
 
@@ -348,11 +383,22 @@ def build_criteria(args, device):
 
 
 def start_finetuning(args, state, dataloader, device):
-    """ê over one pass of ``dataloader``, then the fine-tune state."""
+    """ê over one pass of ``dataloader``, then the fine-tune state.  Under
+    N ranks rank 0 computes ê over a loader of the whole avatar (one
+    process's), and broadcasts it; ``dataloader`` is then not read."""
     logger.info("Fine-tuning: computing averaged identity embedding from the "
                 "avatar's frames")
-    e_hat = ft.compute_averaged_identity_embedding(
-        state, dataloader, device, holycow.compute_dtype(args))
+    if parallel.initialized():
+        e_hat = torch.zeros(1, args.embed_channels, device=device)
+        if parallel.is_main():
+            with parallel.local_view():
+                whole = build_dataloader(args, "train", "train")
+            e_hat = ft.compute_averaged_identity_embedding(
+                state, whole, device, holycow.compute_dtype(args))
+        parallel.broadcast_tensor(e_hat)
+    else:
+        e_hat = ft.compute_averaged_identity_embedding(
+            state, dataloader, device, holycow.compute_dtype(args))
     generator = torch.Generator().manual_seed(args.random_seed)
     state = ft.enable_finetuning(state, args, e_hat, generator=generator)
     args.num_labels = 1
@@ -365,12 +411,17 @@ def make_step(args, criteria):
 
 
 def save(args, state):
-    meta = {k: (str(v) if isinstance(v, Path) else v)
-            for k, v in vars(args).items()}
-    return ckpt_lib.save_checkpoint(args.experiment_dir,
-                                    convert.export_train_state(state), meta,
-                                    iteration=state.step,
-                                    finetune=state.finetune)
+    """Save ``state``; under N ranks rank 0 writes, every rank meets it at
+    a barrier after the write and returns its path."""
+    path = None
+    if parallel.is_main():
+        meta = {k: (str(v) if isinstance(v, Path) else v)
+                for k, v in vars(args).items()}
+        path = ckpt_lib.save_checkpoint(
+            args.experiment_dir, convert.export_train_state(state), meta,
+            iteration=state.step, finetune=state.finetune)
+    parallel.barrier()
+    return parallel.broadcast_object(path)
 
 
 class StopFlag:
@@ -383,10 +434,20 @@ class StopFlag:
 
     def __init__(self):
         self.event = threading.Event()
+        self.agreed = False
         self._previous = {}
 
     def is_set(self):
-        return self.event.is_set()
+        """Under N ranks: the flag they agreed on at the last
+        :meth:`agree`."""
+        return self.agreed if parallel.initialized() \
+            else self.event.is_set()
+
+    def agree(self, device) -> bool:
+        """At a step boundary: whether any rank was signalled (one
+        all-reduce under N ranks), so that every rank stops at one step."""
+        self.agreed = parallel.any_rank(self.event.is_set(), device)
+        return self.agreed
 
     def _handle(self, signum, _frame):
         if self.event.is_set():
@@ -406,37 +467,65 @@ class StopFlag:
             signal.signal(sig, handler)
 
 
+def parent_result(result):
+    """What a ``--num_devices N`` launch returns from rank 0: (None, path
+    of the last checkpoint saved)."""
+    return None, result[1]
+
+
 def main(argv=None):
     """Train as the flags say; returns (state, path of the last checkpoint
-    saved)."""
+    saved); a ``--num_devices N`` launch returns (None, path)."""
     logging.basicConfig(level=logging.INFO)
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = resolve_args(argv)
+    world = parallel.requested_world(args.num_devices,
+                                     torch.device(args.device).type)
+    if world > 1 and not parallel.launched():
+        return launch.run("latentpose_tpu_torch.cli.train", argv, world)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available")
+    joined = parallel.launched() and not parallel.initialized()
+    if joined:
+        device = parallel.init_process_group(device)
+    try:
+        return _train(args, argv, device)
+    finally:
+        if joined:
+            parallel.destroy_process_group()
+
+
+def _train(args, argv, device):
+    main_rank = parallel.is_main()
     np.random.seed(args.random_seed)
     # a checkpoint pins num_labels, which truncates the identity list
     state = load_checkpoint(args, device) if args.checkpoint_path else None
     train_loader = build_dataloader(args, "train", "train")
-    val_loader = None if args.skip_eval \
-        else build_dataloader(args, "val", "val")
+    val_loader = None
+    if main_rank and not args.skip_eval:
+        with parallel.local_view():     # rank 0 validates the whole part
+            val_loader = build_dataloader(args, "val", "val")
     if state is None:
         state = init_state(args, train_loader, device)
     criteria = build_criteria(args, device)
     if args.finetune and not state.finetune:
         state = start_finetuning(args, state, train_loader, device)
+    parallel.replicate(state)
     args.iteration = state.step
     metrics = [registry.load_wrapper("metrics", name).get_net(args)
                for name in _names(args.metrics)]
 
     writer = None
-    if args.logging:
+    if args.logging and main_rank:
         args.experiment_dir, writer = setup_logging(
             args, _resolve(argv)[1], args.args_to_ignore.split(","))
-    else:
+    elif not args.logging:
         args.experiment_dir = str(args.experiments_dir)
+    args.experiment_dir = parallel.broadcast_object(
+        getattr(args, "experiment_dir", None))
     saver = Saver(Path(args.experiment_dir) / "validation_results",
-                  args.saver) if args.saver else None
+                  args.saver) if args.saver and main_rank else None
     step_fn = make_step(args, criteria)
     eval_forward = loop.make_eval_forward(args)
     keys = holycow.STEP_KEYS if state.finetune else holycow.META_STEP_KEYS
@@ -455,8 +544,8 @@ def main(argv=None):
                     loop.run_validation(val_loader, eval_forward, state,
                                         args, epoch, writer=writer,
                                         metrics=metrics, saver=saver)
-                    if stop.is_set():
-                        break
+                if stop.agree(device):
+                    break
                 will_save = epoch == args.num_epochs - 1
                 if args.save_frequency != 0:
                     will_save |= epoch % args.save_frequency == 0

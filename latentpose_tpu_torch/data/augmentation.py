@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from latentpose_tpu_torch.ops.resample import affine_resample
+from latentpose_tpu_torch.parallel.mesh import take_rows
 
 # Per-op application probability: the reference's SomeOf(0..5) over 11 ops
 # has a per-op marginal of 2.5 / 11; each op gets an independent coin.
@@ -62,17 +63,19 @@ class Draw:
                            device=self.device)
 
 
-def step_key(seed: int, step: int) -> int:
+def step_key(seed: int, step: int, rank: int = 0) -> int:
     """The seed of train step ``step``'s draws in a run seeded ``seed``: a
     function of the two alone, so a resumed run draws as an unbroken one
-    does."""
-    return (int(seed) * 1000003 + int(step)) % (2 ** 62)
+    does; ``rank`` > 0: a rank's own draw (the explicit data-parallel
+    regime; rank 0 draws what one process draws)."""
+    return (int(seed) * 1000003 + int(step)
+            + int(rank) * 0x9E3779B97F4A7C15) % (2 ** 62)
 
 
-def step_draw(seed: int, step: int, device) -> Draw:
+def step_draw(seed: int, step: int, device, rank: int = 0) -> Draw:
     """The draw of train step ``step`` of a run seeded ``seed``
     (:func:`step_key`)."""
-    key = step_key(seed, step)
+    key = step_key(seed, step, rank)
     gen = torch.Generator().manual_seed(key)
     field_gen = torch.Generator(torch.device(device)).manual_seed(key)
     return Draw(gen, field_gen, device)
@@ -283,7 +286,7 @@ def _jpeg_quantize_plane(plane, table):
     """plane (B, H, W) in [0, 255], table (B, 1, 1, 8, 8): 8x8 DCT-II,
     quantise, dequantise, inverse DCT."""
     b, h, w = plane.shape
-    m = _dct8(plane.device)
+    m = _dct8(plane.device).to(plane.dtype)
     blocks = plane.reshape(b, h // 8, 8, w // 8, 8).permute(0, 1, 3, 2, 4)
     coef = torch.einsum("ij,bhwjk,lk->bhwil", m, blocks - 128.0, m)
     coef = torch.round(coef / table) * table
@@ -462,18 +465,25 @@ def augment_triplet(driver, target, segm, draws):
 
 
 def augment_data_dict(batch, draw, use_pixelwise=False, use_scale=False,
-                      use_shift=False):
+                      use_shift=False, rows=None, global_size=None):
     """:func:`augment_triplet` on a train batch (driver, target and
     segmentation with a leading frame axis of 1), drawing from ``draw``;
-    the batch as it is when every switch is off."""
+    the batch as it is when every switch is off.  ``rows`` (a LongTensor):
+    the batch is these rows of a global batch of ``global_size`` rows, and
+    takes these rows of the global batch's draws (a rank's part of the
+    default data-parallel regime's draw)."""
     if not (use_pixelwise or use_scale or use_shift):
         return batch
     driver = batch["pose_input_rgbs"][:, 0]
     target, segm = batch["target_rgbs"], batch["real_segm"]
     target = target[:, 0] if target.dim() > 4 else target
     segm = segm[:, 0] if segm.dim() > 4 else segm
-    draws = draw_triplet(draw, tuple(driver.shape), use_pixelwise, use_scale,
-                         use_shift)
+    shape = tuple(driver.shape)
+    if rows is not None:
+        shape = (global_size,) + shape[1:]
+    draws = draw_triplet(draw, shape, use_pixelwise, use_scale, use_shift)
+    if rows is not None:
+        draws = take_rows(draws, rows)
     driver, target, segm = augment_triplet(driver, target, segm, draws)
     return {**batch, "pose_input_rgbs": driver[:, None],
             "target_rgbs": target[:, None], "real_segm": segm[:, None]}

@@ -9,8 +9,8 @@ frame sampling and the cross-driving sample lookup.
 - fine-tune mode: the list enumerates every image of the single identity;
   num_labels := 1;
 - meta mode: resume truncates the list to the checkpoint's num_labels; the
-  list is padded to a multiple of the world size (``torch.distributed``'s
-  when it is initialised, else 1);
+  list is padded to a multiple of the world size (``parallel/mesh.py``'s:
+  ``torch.distributed``'s when it is initialised, else 1);
 - ``list_ids``: k frames of a video, deterministic (seed 666 over the
   sorted listing) or drawn from a ``random.Random`` the caller passes;
 - ``get_other_sample_by_label`` for the cross-driving visuals.
@@ -26,21 +26,19 @@ import logging
 import random
 from pathlib import Path
 
+from latentpose_tpu_torch.parallel import mesh as parallel
+
 logger = logging.getLogger("latentpose_tpu_torch.data.voxceleb")
 
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp")
 
 
 def world_size() -> int:
-    import torch.distributed as dist
-    return dist.get_world_size() \
-        if dist.is_available() and dist.is_initialized() else 1
+    return parallel.world()
 
 
 def rank() -> int:
-    import torch.distributed as dist
-    return dist.get_rank() \
-        if dist.is_available() and dist.is_initialized() else 0
+    return parallel.rank()
 
 
 class Dirlist:

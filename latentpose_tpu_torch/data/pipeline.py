@@ -4,7 +4,10 @@ sharding (port of ``latentpose_tpu/data/pipeline.py``).
 - the epoch's order is ``np.random.RandomState(seed + epoch)``'s shuffle,
   then the rank's slice ``[rank::world]`` (``torch.distributed``'s when it
   is initialised, else 0 of 1);
-- the batch shrinks to the dataset's size for tiny fine-tune sets;
+- ``batch_size`` is the global batch (``--batch_size``): each of the world's
+  ranks loads ``batch_size / world`` rows of its slice a batch, and a world
+  that does not divide it is refused;
+- the batch shrinks to the slice's size for tiny fine-tune sets;
 - ``prefetch_size // batch_size`` batches in flight, their samples loaded by
   a pool of ``num_workers`` threads (the C++ decoder releases the GIL).
 
@@ -105,19 +108,24 @@ class BatchLoader:
     def __init__(self, dataset, batch_size, shuffle=True, seed=0,
                  num_workers=4, prefetch_size=16, drop_last=True):
         self.dataset = dataset
-        if batch_size > len(dataset):
-            logger.warning("Decreasing batch size %d -> dataset size %d",
-                           batch_size, len(dataset))
-            batch_size = len(dataset)
-        self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
-        self.num_workers = max(1, num_workers)
-        self.prefetch_batches = max(1, prefetch_size // batch_size)
-        self.drop_last = drop_last
         self.epoch = 0
         self.rank = rank()
         self.world = world_size()
+        if batch_size % self.world:
+            raise ValueError(f"a batch of {batch_size} does not split over "
+                             f"{self.world} ranks")
+        batch_size //= self.world
+        shard = len(self._epoch_indices())
+        if batch_size > shard:
+            logger.warning("Decreasing batch size %d -> dataset size %d",
+                           batch_size, shard)
+            batch_size = shard
+        self.batch_size = batch_size
+        self.num_workers = max(1, num_workers)
+        self.prefetch_batches = max(1, prefetch_size // batch_size)
+        self.drop_last = drop_last
 
     @property
     def num_labels(self):

@@ -1,7 +1,7 @@
-"""Procedural "talking head" frames, numpy only (port of the renderer and the
-loader of ``latentpose_tpu/data/synthetic.py``, bit for bit; the
-JAX module cannot be imported where the card is, since it imports the
-augmentation code and with it jax).
+"""Procedural "talking head" frames, rendered with numpy (port of the
+renderer and the loader of ``latentpose_tpu/data/synthetic.py``, bit for
+bit; the JAX module cannot be imported where the card is, since it imports
+the augmentation code and with it jax).
 
 Each (identity, frame) renders an elliptical head whose colour and size
 encode identity and whose offset, eyes and mouth encode a pose that varies
@@ -14,12 +14,18 @@ from __future__ import annotations
 
 import numpy as np
 
+from latentpose_tpu_torch.parallel import mesh as parallel
+
 
 class Wrapper:
     @staticmethod
     def get_dataloader(args, part, phase="train"):
         """The loader of a run's ``part``: the val part draws from the next
         seed, as in the JAX package."""
+        rows = None
+        if parallel.world() > 1:
+            rows = parallel.local_rows(args.batch_size,
+                                       parallel.batch_layout(args)).numpy()
         return SyntheticDataLoader(
             args.image_size, args.batch_size,
             num_labels=args.synthetic_num_labels,
@@ -27,7 +33,7 @@ class Wrapper:
             frames_per_video=args.synthetic_frames_per_video,
             finetune=bool(args.finetune),
             seed=args.random_seed + (0 if part == "train" else 1),
-            wire_dtype=args.transfer_dtype)
+            wire_dtype=args.transfer_dtype, rows=rows)
 
 
 def _identity_style(label: int):
@@ -114,11 +120,14 @@ class SyntheticDataLoader:
     cached: the pose has period 32, so a run touches at most 32 frames of
     each identity.  ``wire_dtype`` 'uint8' emits the wire's bytes from a
     cache of :func:`render_face_u8` renders, with no pass over a batch.
+    ``rows``: under N ranks, the rank's rows of each (global) batch
+    (``parallel/mesh.py`` ``local_rows``), so that the ranks' batches
+    together are one process's.
     """
 
     def __init__(self, image_size, batch_size, num_labels=16,
                  num_enc_frames=8, frames_per_video=32, finetune=True,
-                 seed=0, wire_dtype="float32"):
+                 seed=0, wire_dtype="float32", rows=None):
         self.image_size = image_size
         self.batch_size = batch_size
         self.num_enc_frames = num_enc_frames
@@ -130,6 +139,7 @@ class SyntheticDataLoader:
         # the discriminator's W has one row when fine-tuning
         self.num_labels = 1 if finetune else num_labels
         self.epoch = 0
+        self.rows = rows
         self._cache = {}
 
     def __len__(self):
@@ -171,6 +181,9 @@ class SyntheticDataLoader:
             "real_segm": np.stack(segms)[:, None],
             "label": labels.astype(np.int32),
         }
+        if self.rows is not None:
+            data_dict = {k: v[self.rows] for k, v in data_dict.items()}
+            target_dict = {k: v[self.rows] for k, v in target_dict.items()}
         return data_dict, target_dict
 
     def __iter__(self):

@@ -5,6 +5,10 @@
   G: -fake_score_G.mean()
 
 The relativistic variants (rgan, ragan) wait for the ablation families.
+
+A mean over the batch's samples, each of equal weight: under N ranks on
+equal shards the mean of the ranks' values is the global batch's, so this
+criterion needs no collective (``losses/dice.py`` is the one that does).
 """
 
 from __future__ import annotations

@@ -1,7 +1,11 @@
 """Embedding matching (port of ``latentpose_tpu/losses/dis_embed.py``): L1
 between the embedder's identity embedding of frame 0 and the discriminator's
 detached projection row W[label], times ``dis_embed_weight``; it ties the two
-embedding spaces, so that W is a fit start for a fine-tuned avatar's row."""
+embedding spaces, so that W is a fit start for a fine-tuned avatar's row.
+
+A mean over the batch's samples, each of equal weight: under N ranks on
+equal shards the mean of the ranks' values is the global batch's, so this
+criterion needs no collective (``losses/dice.py`` is the one that does)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,10 @@
 """Discriminator feature matching (port of
 ``latentpose_tpu/losses/featmat.py``): mean over blocks of
-mean |fake_feat - real_feat.detach()|, times ``fm_weight``."""
+mean |fake_feat - real_feat.detach()|, times ``fm_weight``.
+
+A mean over the batch's samples, each of equal weight: under N ranks on
+equal shards the mean of the ranks' values is the global batch's, so this
+criterion needs no collective (``losses/dice.py`` is the one that does)."""
 
 from __future__ import annotations
 

@@ -2,7 +2,11 @@
 ``latentpose_tpu/losses/idt_embed.py``): the fixed centre crop of side
 1/1.8, cut with a differentiable crop-and-resize (``ops/resample.py``), then
 the VGGFace-16 perceptual loss.  The flagship's data has no keypoints, so
-the keypoint-derived box of the JAX criterion is not ported."""
+the keypoint-derived box of the JAX criterion is not ported.
+
+A mean over the batch's samples, each of equal weight: under N ranks on
+equal shards the mean of the ranks' values is the global batch's, so this
+criterion needs no collective (``losses/dice.py`` is the one that does)."""
 
 from __future__ import annotations
 

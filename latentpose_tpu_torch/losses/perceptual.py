@@ -1,4 +1,8 @@
-"""VGG19 perceptual loss (port of ``latentpose_tpu/losses/perceptual.py``)."""
+"""VGG19 perceptual loss (port of ``latentpose_tpu/losses/perceptual.py``).
+
+A mean over the batch's samples, each of equal weight: under N ranks on
+equal shards the mean of the ranks' values is the global batch's, so this
+criterion needs no collective (``losses/dice.py`` is the one that does)."""
 
 from __future__ import annotations
 

@@ -24,6 +24,15 @@ folds bn2's running statistics into the kernel's scale and offset; train
 takes its batch statistics from the kernel's (Σy, Σy²) rather than a second
 pass over y.
 
+Under N ranks, inside ``parallel.global_batch`` (the default data-parallel
+regime), every train-form statistic is the global batch's: BatchNorm's
+(Σx, Σx², n) and the link's (Σy, Σy², rows) are summed over the ranks in
+f32, with their gradient, before the mean and variance; the running
+statistics move toward those, so every rank keeps the same ones.  The
+dropout mask is the rank's rows of the global batch's mask.  Outside it
+(one process, the explicit regime, every eval form) each rank's own rows
+give the statistics and no collective is reached.
+
 Parameters stay f32; under bf16 a forward casts conv and linear weights to
 the input's dtype.  BatchNorm on bf16 input computes what flax 0.12's
 ``nn.BatchNorm(dtype=bfloat16)`` computes in train form (``_compute_stats``,
@@ -44,6 +53,7 @@ import torch.nn.functional as F
 
 from latentpose_tpu_torch.ops import initializers as tinit
 from latentpose_tpu_torch.ops.conv_bn import bn_relu_conv1x1_stats, fold_bn
+from latentpose_tpu_torch.parallel import mesh as parallel
 
 
 def _relu6(x):
@@ -102,7 +112,10 @@ class BatchNorm(nn.BatchNorm2d):
 
 def batch_moments(x):
     """Per-channel mean and biased variance of NCHW ``x`` over (N, H, W),
-    one pass in f32, clamped at 0, as flax computes them."""
+    one pass in f32, clamped at 0, as flax computes them; over the global
+    batch inside ``parallel.global_batch``."""
+    if parallel.sync() is not None:
+        return parallel.global_moments(x, (0, 2, 3))
     x32 = x.float()
     mean = x32.mean(dim=(0, 2, 3))
     var = torch.clamp(x32.square().mean(dim=(0, 2, 3)) - mean.square(),
@@ -113,8 +126,17 @@ def batch_moments(x):
 def _dropout(x, rate: float, generator=None):
     """Inverted dropout: keep with probability 1 - rate, scale by
     1 / (1 - rate); the mask is drawn on the CPU from ``generator`` (a CPU
-    generator, or None for torch's default one)."""
-    keep = (torch.rand(x.shape, generator=generator) >= rate).to(x.device)
+    generator, or None for torch's default one), inside
+    ``parallel.global_batch`` as the global batch's, of which the rank
+    keeps its rows."""
+    world = parallel.sync()
+    if world is None:
+        keep = torch.rand(x.shape, generator=generator) >= rate
+    else:
+        keep = torch.rand((x.shape[0] * world,) + x.shape[1:],
+                          generator=generator) >= rate
+        keep = keep[parallel.local_rows(keep.shape[0])]
+    keep = keep.to(x.device)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -239,8 +261,12 @@ class Bottleneck(nn.Module):
                                          offset, w)
         if train:
             rows = y.numel() // y.shape[-1]
-            mean = stats[0] / rows
-            var = torch.clamp(stats[1] / rows - mean.square(), min=0.0)
+            if parallel.sync() is not None:
+                # the global batch's (Σy, Σy², rows)
+                mean, var = parallel.global_mean_var(stats, rows)
+            else:
+                mean = stats[0] / rows
+                var = torch.clamp(stats[1] / rows - mean.square(), min=0.0)
             bn3.track(mean, var)
             h = bn3.normalize(y, mean, var, dim=3).permute(0, 3, 1, 2)
         else:

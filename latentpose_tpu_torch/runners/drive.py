@@ -4,15 +4,23 @@ A fine-tuned avatar is puppeteered by a driver sequence: per frame batch,
 pose encoder -> generator, with identity from the fine-tuned embedding.
 Frames travel as uint8 where the source decodes to bytes and are rescaled on
 the device.  With ``--quantize int8_static`` the generator's activation
-scales come from a calibration pass (:func:`calibrate_quant_scales`).  Not
-ported yet: the multi-device mesh.
+scales come from a calibration pass (:func:`calibrate_quant_scales`).
+
+Under N ranks (``parallel/mesh.py``) :func:`drive_sequence` gives batch k
+of a sequence whole to rank k mod N and gathers the results on rank 0 in
+order after the sequence, so that every batch is the one a single process
+drives (the JAX package shards each batch's frames over its mesh
+instead).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
+
+from latentpose_tpu_torch.parallel import mesh as parallel
 
 from latentpose_tpu_torch.ops.spectral_norm import calibrating, quantized_convs
 
@@ -28,6 +36,13 @@ def load_quant_calib(generator, quant_calib):
     with torch.no_grad():
         for name, conv in convs.items():
             conv.act_absmax.copy_(torch.as_tensor(quant_calib[name]))
+
+
+def empty_quant_calib(models):
+    """Zeroed maxima in the layout of :func:`calibrate_quant_scales`'s
+    result, for a rank that receives rank 0's."""
+    return {name: torch.zeros_like(conv.act_absmax)
+            for name, conv in quantized_convs(models["generator"]).items()}
 
 
 def compute_dtype(args):
@@ -137,11 +152,17 @@ def drive_sequence(drive_fn, state, frames, batch_size=32):
     host copies results.  On the card both copies go through pinned host
     memory without blocking: a copy from pageable memory would wait for
     every batch already queued on the stream and leave one in flight.
+
+    Under N ranks each rank drives its batches k = rank (mod N) so, and
+    rank 0 gathers the sequence (:func:`_gather`); the others return None.
     """
+    rank, world = parallel.rank(), parallel.world()
     device = state["finetune_embedding"].device
     cuda = device.type == "cuda"
     in_flight, outputs = [], []
-    for chunk, keep in _padded_batches(frames, batch_size):
+    for k, (chunk, keep) in enumerate(_padded_batches(frames, batch_size)):
+        if k % world != rank:
+            continue
         host = torch.from_numpy(chunk)
         if cuda:
             host = host.pin_memory()
@@ -157,6 +178,8 @@ def drive_sequence(drive_fn, state, frames, batch_size=32):
         if len(in_flight) > 2:
             outputs.append(_collect(*in_flight.pop(0)))
     outputs += [_collect(*batch) for batch in in_flight]
+    if world > 1:
+        return _gather(outputs, len(frames), batch_size, device)
     return np.concatenate(outputs, axis=0)
 
 
@@ -165,3 +188,31 @@ def _collect(rgbs, done, keep):
     if done is not None:
         done.synchronize()
     return rgbs[:keep].numpy().copy()   # the pinned buffer goes back to the pool
+
+
+def _gather(outputs, n_frames, batch_size, device):
+    """Rank 0's sequence from every rank's batches (``outputs``: this
+    rank's, in order): each other rank sends its frames in one tensor on
+    ``device`` (the group's), and rank 0 puts batch k of rank k mod N back
+    in its place.  None on the other ranks."""
+    rank, world = parallel.rank(), parallel.world()
+    keeps = [min(batch_size, n_frames - start)
+             for start in range(0, n_frames, batch_size)]
+    if rank:
+        if outputs:
+            dist.send(torch.from_numpy(np.concatenate(outputs)).to(device),
+                      0)
+        return None
+    shape = outputs[0].shape[1:]        # batch 0 is rank 0's
+    theirs = {0: iter(outputs)}
+    for src in range(1, world):
+        sizes = keeps[src::world]
+        if not sizes:
+            continue
+        frames = torch.empty((sum(sizes), *shape), dtype=torch.float32,
+                             device=device)
+        dist.recv(frames, src)
+        theirs[src] = iter(np.split(frames.cpu().numpy(),
+                                    np.cumsum(sizes)[:-1]))
+    return np.concatenate([next(theirs[k % world])
+                           for k in range(len(keeps))], axis=0)

@@ -42,7 +42,28 @@ the JAX package module by module:
 - the VGG towers in bf16 on normalised inputs cast to bf16, each feature
   difference taken in bf16 and averaged in f32; every other loss in f32.
 
-Not ported yet (refused by the CLI): multi-device reduction.
+Under a process group (``--num_devices N``, one rank a device:
+``parallel/mesh.py``) the step takes one of the JAX step's three regimes:
+
+- default: the step computes what one process computes on the global
+  batch.  Inside :func:`parallel.global_batch` every train-form BatchNorm,
+  the conv_bn link's (Σy, Σy²) and dice take their sums over all ranks
+  (with their gradient), each rank takes its rows of the global batch's
+  augmentation draws and dropout masks, and the gradients' mean over ranks
+  goes on the wire in f32.  With ``--grad_accum_steps`` k the rank's rows
+  are laid out so that its microbatch i is its part of the global
+  microbatch i (:func:`parallel.local_rows`);
+- ``--explicit_grad_reduce``: each rank normalises with its own rows'
+  statistics and draws its own augmentation and dropout (keyed on seed,
+  step and rank, where JAX folds its key with the shard index); after the
+  step the running statistics are averaged over ranks; gradients in f32;
+- ``--grad_dtype bfloat16``: the explicit regime with the gradient bucket
+  in bf16 on the wire.  Microbatch gradients add up in f32 on each rank and
+  one reduction follows the last.
+
+In every regime the scalars returned are their mean over ranks (dice is
+already global in the default one).  The explicit regimes need a process
+group and raise without one, as the JAX step raises without a mesh.
 """
 
 from __future__ import annotations
@@ -52,6 +73,7 @@ from typing import Any, Dict
 import torch
 
 from latentpose_tpu_torch.data import augmentation
+from latentpose_tpu_torch.parallel import mesh as parallel
 from latentpose_tpu_torch.runners.optim import ema_update
 from latentpose_tpu_torch.runners.state import (TrainState, d_trainable,
                                                 ema_pairs, g_trainable)
@@ -162,20 +184,24 @@ def _add(total, parts):
         else [a + b for a, b in zip(total, parts)]
 
 
-def step_dropout_generator(seed: int, step: int):
+def step_dropout_generator(seed: int, step: int, rank: int = 0):
     """The CPU generator of the pose encoder's dropout masks in train step
     ``step``: keyed on (seed, step) as the augmentation's draw is, on a key
-    of its own, so a resumed run draws the masks an unbroken one draws."""
+    of its own, so a resumed run draws the masks an unbroken one draws;
+    ``rank``: the explicit regime's own draw of each rank."""
     # (a CPU generator keeps a seed's low 32 bits)
     return torch.Generator().manual_seed(
-        augmentation.step_key(seed, step) ^ 0x9E3779B9)
+        augmentation.step_key(seed, step, rank) ^ 0x9E3779B9)
 
 
-def make_train_step(criteria, args):
+def make_train_step(criteria, args, on_wire=None):
     """``step(state, batch) -> scalars``: one train step on ``batch``
-    (device tensors, :func:`to_device`), updating ``state`` in place; the
-    regime (meta-train or fine-tune) is the state's.  Augmentation and
-    dropout draw from ``args.random_seed`` and the state's step."""
+    (device tensors, :func:`to_device`; under N ranks this rank's rows),
+    updating ``state`` in place; the regime (meta-train or fine-tune) is
+    the state's, the data-parallel regime the args' (module docstring).
+    Augmentation and dropout draw from ``args.random_seed`` and the state's
+    step.  ``on_wire(bucket)``: sees each gradient bucket as it goes on the
+    wire (:func:`parallel.reduce_grads`)."""
     train = not args.set_eval_mode_in_train
     dtype = compute_dtype(args)
     use_ema = args.weights_running_average
@@ -183,25 +209,50 @@ def make_train_step(criteria, args):
     augments = dict(use_pixelwise=bool(args.use_pixelwise_augs),
                     use_scale=bool(args.use_affine_scale),
                     use_shift=bool(args.use_affine_shift))
+    distributed = parallel.initialized()
+    explicit = parallel.explicit_regime(args)
+    if explicit and not distributed:
+        raise ValueError("--grad_dtype bfloat16 / --explicit_grad_reduce "
+                         "need a device mesh (--num_devices > 1)")
+    # the gradients' own dtype (f32) on the wire, or bf16
+    wire = torch.bfloat16 \
+        if getattr(args, "grad_dtype", "float32") == "bfloat16" else None
+    shared = distributed and not explicit     # the default regime
+    layout = parallel.batch_layout(args)
 
     def step(state: TrainState, batch):
         batch = dequantize(batch)
+        # the explicit regime's ranks draw their own; the default one's
+        # take their rows of the global batch's draw
+        draw_rank = parallel.rank() if explicit else 0
         if any(augments.values()):
             draw = augmentation.step_draw(args.random_seed, state.step,
-                                          batch["pose_input_rgbs"].device)
-            batch = augmentation.augment_data_dict(batch, draw, **augments)
-        masks = step_dropout_generator(args.random_seed, state.step)
+                                          batch["pose_input_rgbs"].device,
+                                          draw_rank)
+            shard = {}
+            if shared:
+                size = batch["label"].shape[0] * parallel.world()
+                shard = dict(rows=parallel.local_rows(size, layout),
+                             global_size=size)
+            batch = augmentation.augment_data_dict(batch, draw, **augments,
+                                                   **shard)
+        masks = step_dropout_generator(args.random_seed, state.step,
+                                       draw_rank)
         g_params, d_params = g_trainable(state), d_trainable(state)
         grads_g = grads_d = totals = None
         for micro in _microbatches(batch, accum):
-            data_dict = forward(state, micro, train, masks, dtype)
-            losses_G, losses_D = apply_criteria(criteria, data_dict)
-            loss_G = sum(losses_G.values())
-            loss_D = sum(losses_D.values())
-            # the two graphs share no node that needs a gradient (pass 1
-            # reads the rows detached, passes 2-3 the fake detached)
-            grads_g = _add(grads_g, torch.autograd.grad(loss_G, g_params))
-            grads_d = _add(grads_d, torch.autograd.grad(loss_D, d_params))
+            with parallel.global_batch(shared):
+                data_dict = forward(state, micro, train, masks, dtype)
+                losses_G, losses_D = apply_criteria(criteria, data_dict)
+                loss_G = sum(losses_G.values())
+                loss_D = sum(losses_D.values())
+                # the two graphs share no node that needs a gradient (pass
+                # 1 reads the rows detached, passes 2-3 the fake detached);
+                # the backward of a global sum sums over ranks
+                grads_g = _add(grads_g,
+                               torch.autograd.grad(loss_G, g_params))
+                grads_d = _add(grads_d,
+                               torch.autograd.grad(loss_D, d_params))
             scalars = {f"Loss_{k}": v.detach()
                        for k, v in {**losses_G, **losses_D}.items()}
             scalars["loss_G"] = loss_G.detach()
@@ -213,6 +264,12 @@ def make_train_step(criteria, args):
             grads_g = [g / accum for g in grads_g]
             grads_d = [g / accum for g in grads_d]
             totals = {k: v / accum for k, v in totals.items()}
+        if distributed:
+            grads_g = parallel.reduce_grads(grads_g, wire, on_wire)
+            grads_d = parallel.reduce_grads(grads_d, wire, on_wire)
+            totals = parallel.mean_scalars(totals)
+            if explicit:
+                parallel.average_running_stats(state.models)
         state.opt_g.step(grads_g)
         state.opt_d.step(grads_d)
         if use_ema:

@@ -7,9 +7,18 @@ scalars every ``log_frequency_loss`` steps, a visual grid with the EMA
 weights every ``log_frequency_images`` (with the cross-driving columns in
 meta-training), the fixed-id probes every ``log_frequency_fixed_images``,
 the saver, and a ``torch.profiler`` trace of steps [2, 2 + profile_steps) of
-epoch 0 with ``--profile_dir``.  After an epoch, :func:`run_validation`.
+epoch 0 with ``--profile_dir`` (rank 0's).  After an epoch,
+:func:`run_validation`.
 A stop flag (set by the train CLI's signal handler) ends the epoch at the
 next step boundary, where the state is whole.
+
+Under N ranks (``--num_devices``) every rank runs the step, and rank 0
+alone logs, renders the visuals and the fixed-id probes, validates and
+saves: the train CLI hands the other ranks no writer and no saver.  None of
+those reaches a collective (the eval forward's BatchNorms take local or
+running statistics), so rank 0 may run them while the others wait in the
+next step.  The stop flag is agreed on by every rank at each step boundary
+(one all-reduce), so all stop after the same step.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from torch.func import functional_call
 
 from latentpose_tpu_torch.data import augmentation
 from latentpose_tpu_torch.data.pipeline import Handoff, default_collate
+from latentpose_tpu_torch.parallel import mesh as parallel
 from latentpose_tpu_torch.runners.holycow import compute_dtype
 from latentpose_tpu_torch.utils.meter import Meter
 from latentpose_tpu_torch.utils.visualize import make_visual
@@ -267,7 +277,8 @@ class _Profile:
     [2, 2 + profile_steps) of epoch 0, written as a Chrome trace."""
 
     def __init__(self, args, epoch, device):
-        self.dir = args.profile_dir if epoch == 0 else ""
+        self.dir = args.profile_dir if epoch == 0 and parallel.is_main() \
+            else ""
         self.steps = int(args.profile_steps)
         self.cuda = device.type == "cuda"
         self.prof = None
@@ -304,8 +315,8 @@ def run_epoch(dataloader, step_fn, state, args, epoch, device, keys,
     """Train one epoch in place on ``state``; returns its :class:`Meter`.
 
     ``keys``: the batch keys the step reads (moved to ``device``); ``stop``:
-    a ``threading.Event`` checked after each step, which ends the epoch
-    there."""
+    the train CLI's ``StopFlag``, agreed on by every rank after each step
+    (``agree``), which ends the epoch there when set."""
     meter = Meter()
     profile = _Profile(args, epoch, device)
     end = time.time()
@@ -316,7 +327,8 @@ def run_epoch(dataloader, step_fn, state, args, epoch, device, keys,
             profile.before_step(it)
             meter.add("Data_time", time.time() - end)
             scalars = step_fn(state, batch)
-            if args.iteration % args.log_frequency_loss == 0:
+            if args.iteration % args.log_frequency_loss == 0 \
+                    and parallel.is_main():
                 logger.info("iteration %d: %s", args.iteration, " ".join(
                     f"{k}={float(v):.5g}" for k, v in scalars.items()))
             if args.detailed_metrics:
@@ -356,11 +368,13 @@ def run_epoch(dataloader, step_fn, state, args, epoch, device, keys,
                            scalars={k: float(v) for k, v in scalars.items()})
             meter.add("Batch_time", time.time() - end)
             end = time.time()
-            if stop is not None and stop.is_set():
+            if stop is not None and stop.agree(device):
                 break
     finally:
         profile.stop()
-    logger.info("Epoch %d finished (loss_G=%.4f loss_D=%.4f, %.3fs/it)",
-                epoch, meter.get_average("loss_G"),
-                meter.get_average("loss_D"), meter.get_average("Batch_time"))
+    if parallel.is_main():
+        logger.info("Epoch %d finished (loss_G=%.4f loss_D=%.4f, %.3fs/it)",
+                    epoch, meter.get_average("loss_G"),
+                    meter.get_average("loss_D"),
+                    meter.get_average("Batch_time"))
     return meter

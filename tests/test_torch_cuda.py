@@ -436,3 +436,34 @@ def test_exported_drive_step_launches_the_kernel(device, tmp_path, compute):
     for a, b in zip(got, want):
         assert a.device == device and a.shape == b.shape
         torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("flags", [[], ["--grad_dtype", "bfloat16"]],
+                         ids=["f32", "bf16_wire"])
+def test_train_cli_takes_a_step_in_a_world_of_one_nccl_rank(
+        device, tmp_path, flags):
+    """``cli.train`` as a torchrun rank of a world of 1 on the card: NCCL's
+    group, the gradient reduce (f32, or bf16 on the wire), rank 0's save."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+               MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    argv = ["--config_name", "default", "--dataloader", "synthetic",
+            "--device", "cuda", "--allow_random_vgg", "--image_size", "32",
+            "--num_channels", "8", "--max_num_channels", "32",
+            "--embed_channels", "32", "--pose_embedding_size", "8",
+            "--dis_num_blocks", "3", "--gen_num_residual_blocks", "1",
+            "--batch_size", "2", "--synthetic_num_labels", "2",
+            "--num_enc_frames", "2", "--num_epochs", "1",
+            "--experiments_dir", str(tmp_path), *flags]
+    proc = subprocess.run(
+        [sys.executable, "-m", "latentpose_tpu_torch.cli.train", *argv],
+        env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "iteration 0:" in proc.stderr
+    assert len(list(tmp_path.glob("*/checkpoints/model_00000001.ckpt"))) == 1

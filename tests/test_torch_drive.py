@@ -164,8 +164,13 @@ def test_cli_drives_synthetic_to_video(jax_finetuned, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--num_devices", "2"]])
-def test_cli_refuses_what_is_not_ported(jax_finetuned, flags):
-    with pytest.raises(NotImplementedError, match="not ported"):
+def test_cli_refuses_what_is_not_ported(jax_finetuned, flags, monkeypatch):
+    """Multi-device drive is ported (tests/test_torch_parallel.py); two
+    ranks on a host with fewer cards are refused, as the JAX package's
+    ``create_mesh`` refuses them."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="Requested 2 devices, only 1"):
         tcli.resolve_args([str(jax_finetuned[3]), *flags])
 
 

@@ -448,18 +448,26 @@ def test_finetune_defaults_equal_the_config_file():
     assert {k: number(v) for k, v in cfg.items()} == tcli.FINETUNE_CONFIG
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--finetune", "--grad_dtype", "bfloat16"], "A.17"),
-    (["--finetune", "--explicit_grad_reduce"], "A.17"),
-    (["--finetune", "--num_devices", "2"], "A.17"),
-    (["--finetune", "--dataloader", "voxceleb2_segm"], "A.19"),
-    (["--finetune", "--dataloader", "voxceleb2_X2Face"], "A.19"),
-    (["--finetune", "--criterions", "adversarial, l1_rgb"],
-     "A.19"),
+@pytest.mark.parametrize("flags,item,error", [
+    # multi-device training is ported (tests/test_torch_parallel.py): what
+    # stays refused is FSDP (A.17.2), and the explicit regimes without a
+    # group or with fewer cards than ranks, as the JAX CLI refuses them
+    pytest.param(["--finetune", "--param_sharding", "fsdp"], "A.17.2",
+                 NotImplementedError, id="flags0-A.17"),
+    pytest.param(["--finetune", "--grad_dtype", "bfloat16"],
+                 "need a device mesh", ValueError, id="flags1-A.17"),
+    pytest.param(["--finetune", "--num_devices", "2"],
+                 "Requested 2 devices, only", ValueError, id="flags2-A.17"),
+    pytest.param(["--finetune", "--dataloader", "voxceleb2_segm"], "A.19",
+                 NotImplementedError, id="flags3-A.19"),
+    pytest.param(["--finetune", "--dataloader", "voxceleb2_X2Face"], "A.19",
+                 NotImplementedError, id="flags4-A.19"),
+    pytest.param(["--finetune", "--criterions", "adversarial, l1_rgb"],
+                 "A.19", NotImplementedError, id="flags5-A.19"),
 ])
-def test_cli_refuses_what_is_not_ported(meta, flags, item):
+def test_cli_refuses_what_is_not_ported(meta, flags, item, error):
     argv = ["--checkpoint_path", str(meta[1]), "--dataloader", "synthetic"]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         tcli.resolve_args(argv + flags)
 
 
