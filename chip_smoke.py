@@ -113,7 +113,12 @@ paths:
    gradient within GRAD_TOL (the card-vs-CPU meta gate of step 9); the
    explicit regime's identity-tower statistics above 1e-3 and the default
    step with its moments' gradient unreduced (a planted fault) above a
-   tower's gate (the witnesses);
+   tower's gate (the witnesses); an FSDP step (``--param_sharding fsdp``)
+   against the default regime's two ranks under that gate, with its
+   planted fault (each rank's slice updated from its own unreduced
+   gradient) above it, each rank's state bytes between steps and peak
+   memory, FSDP beside replicated, and the FSDP ranks' checkpoint against
+   the replicated ranks';
 9b. bf16 against f32 on the card: one meta step from one state and batch
    (batch 2, towers in eval form, augmentation off) in f32 (T32), in bf16
    (T16) and in bf16 with both kernels' places taken by their plain
@@ -316,6 +321,9 @@ FT_EPOCHS = 5          # 2 batches an epoch (16 identities // batch 8)
 META_STEPS = 5
 DIST_EPOCHS = 2        # part (i): 2 epochs of 2 steps (16 identities // 8)
 DIST_TIMED = 4         # part (i): staged steps timed each way, in turns
+# part (ii): a rank's FSDP state between steps over its replicated state
+# (1/2 of the parameters, EMA and moments, plus the replicated buffers)
+FSDP_RESIDENT = 0.6
 STEP_TOL = 1e-3        # card vs CPU, one train step, relative
 # card vs CPU, one train step: the generator's and each tower's gradient,
 # L2 relative (the meta step's towers read 6.9e-3-3.1e-2); a fault of
@@ -3672,20 +3680,43 @@ def _unreduced_backward(ctx, g_mean, g_var):
 
 
 @contextlib.contextmanager
-def _unreduced_moment_gradients(active=True):
+def _unreduced_moment_gradients():
     saved = parallel._GlobalMeanVar.backward
-    if active:
-        parallel._GlobalMeanVar.backward = staticmethod(_unreduced_backward)
+    parallel._GlobalMeanVar.backward = staticmethod(_unreduced_backward)
     try:
         yield
     finally:
         parallel._GlobalMeanVar.backward = saved
 
 
-# part (ii)'s steps: (mode, flags, the planted fault)
-DIST_MODES = (("default", [], False),
-              ("explicit", ["--explicit_grad_reduce"], False),
-              ("unreduced", [], True))
+def _own_slice(grads, dtype=None, on_wire=None):
+    """``parallel.reduce_scatter_grads`` without its reduce-scatter (part
+    (ii)'s FSDP fault): this rank's slice of its own gradients."""
+    bucket = parallel.Bucket(grads)
+    return [bucket.shard(bucket.flatten(grads))]
+
+
+@contextlib.contextmanager
+def _unreduced_shard_gradients():
+    saved = parallel.reduce_scatter_grads
+    parallel.reduce_scatter_grads = _own_slice
+    try:
+        yield
+    finally:
+        parallel.reduce_scatter_grads = saved
+
+
+DIST_FAULTS = {"moments": _unreduced_moment_gradients,
+               "shard": _unreduced_shard_gradients}
+FSDP = ["--param_sharding", "fsdp"]
+# part (ii)'s steps: (mode, flags, the planted fault); the default and
+# FSDP ranks also save their state
+DIST_MODES = (("default", [], None),
+              ("explicit", ["--explicit_grad_reduce"], None),
+              ("unreduced", [], "moments"),
+              ("fsdp", FSDP, None),
+              ("fsdp_unreduced", FSDP, "shard"))
+DIST_SAVED = ("default", "fsdp")
 
 
 def dist_child(meta_ckpt, out, rank, port, device="cuda:0"):
@@ -3695,52 +3726,79 @@ def dist_child(meta_ckpt, out, rank, port, device="cuda:0"):
     places two ranks on one card, through ``torch.distributed`` directly.
     From the seeded meta checkpoint, one step on the rank's 4 rows of the
     global batch 0 in each of DIST_MODES: the default regime, the explicit
-    regime (``--explicit_grad_reduce``), and the default regime with the
-    global moments' backward left unreduced (the planted fault), all under
-    cuDNN's deterministic algorithms (ROADMAP C.8); rank 0 saves each
-    state's groups (:func:`_leaves`) and the losses, every rank its kernel
-    launches.  ``device``: the card (``cpu`` only to rehearse the
-    phase)."""
+    regime (``--explicit_grad_reduce``), the default regime with the
+    global moments' backward left unreduced (a planted fault), FSDP
+    (``--param_sharding fsdp``) and FSDP with each rank's slice updated
+    from its own unreduced gradient (a planted fault), all under cuDNN's
+    deterministic algorithms (ROADMAP C.8); rank 0 saves each state's
+    groups (:func:`_leaves`, gathered whole on every rank) and the losses,
+    the default and FSDP ranks their checkpoints, every rank its kernel
+    launches, the bytes its state holds after the step and its peak
+    memory.  ``device``: the card (``cpu`` only to rehearse the phase)."""
     out, rank, device = Path(out), int(rank), torch.device(device)
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    launches = {}
+    launches, memory = {}, {}
+    cuda = device.type == "cuda"
     with _rank_env(port, rank, 2):
         torch.distributed.init_process_group(
             "gloo", init_method=f"tcp://localhost:{port}", world_size=2,
             rank=rank)
         try:
+            # one loaded state (copied), batch and set of criteria serve
+            # every mode
+            args = train_cli.resolve_args(_dist_argv(meta_ckpt, out, device))
+            loaded = train_cli.load_checkpoint(args, device)
+            criteria = train_cli.build_criteria(args, device)
+            batch = holycow.to_device(
+                train_cli.build_dataloader(args).get_batch(0), device,
+                holycow.META_STEP_KEYS)
+            require(batch["label"].shape[0] == 4,
+                    f"rank {rank} holds {batch['label'].shape[0]} rows")
             for mode, flags, fault in DIST_MODES:
                 args = train_cli.resolve_args(
                     _dist_argv(meta_ckpt, out / mode, device) + flags)
-                loader = train_cli.build_dataloader(args)
-                state = train_cli.load_checkpoint(args, device)
-                parallel.replicate(state)
-                step_fn = train_cli.make_step(
-                    args, train_cli.build_criteria(args, device))
-                batch = holycow.to_device(loader.get_batch(0), device,
-                                          holycow.META_STEP_KEYS)
-                require(batch["label"].shape[0] == 4,
-                        f"rank {rank} holds {batch['label'].shape[0]} rows")
-                before = _leaves(state)
+                state = train_cli.place_state(args, copy.deepcopy(loaded))
+                step_fn = train_cli.make_step(args, criteria)
+                with parallel.gathered(state, whole=True):
+                    before = _leaves(state)
                 _zero_launches()
-                with _unreduced_moment_gradients(fault):
+                if cuda:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with DIST_FAULTS.get(fault, contextlib.nullcontext)():
                     scalars = step_fn(state, batch)
-                if device.type == "cuda":
+                if cuda:
                     torch.cuda.synchronize()
                 launches[mode] = _launches()
+                memory[mode] = {
+                    "step_ms": (time.perf_counter() - t0) * 1e3,
+                    "resident": parallel.resident_bytes(state),
+                    "allocated": torch.cuda.memory_allocated() if cuda
+                    else None,
+                    "peak": torch.cuda.max_memory_allocated() if cuda
+                    else None}
+                with parallel.gathered(state, whole=True):
+                    after = _leaves(state)
                 if rank == 0:
                     torch.save({"losses": {k: float(v)
                                            for k, v in scalars.items()},
-                                "before": before, "after": _leaves(state)},
+                                "before": before, "after": after},
                                out / f"{mode}.pt")
-                del state, step_fn, batch
+                if mode in DIST_SAVED:
+                    args.experiment_dir = str(out / mode)
+                    train_cli.save(args, state)
+                del state, step_fn, before, after
+                if cuda:
+                    torch.cuda.empty_cache()
         finally:
             torch.distributed.destroy_process_group()
     (out / f"launches{rank}.json").write_text(json.dumps(launches))
+    (out / f"memory{rank}.json").write_text(json.dumps(memory))
 
 
 def _reduce_ms(grads, dtype):
@@ -3823,6 +3881,20 @@ def phase_distributed(meta_ckpt, workdir, device):
                                 for g in (grads_g, grads_d))
                       for name, dtype in (("f32", None),
                                           ("bf16", torch.bfloat16))}
+            # FSDP's collectives (world 1: each slice is its whole bucket):
+            # a step's gathers of the parameters and reduce-scatters of the
+            # gradients
+            buckets = [parallel.Bucket(list(t)) for t in
+                       train_cli.shard_groups(state).values()]
+            slices = [b.flatten([p.detach() for p in t]) for b, t in zip(
+                buckets, train_cli.shard_groups(state).values())]
+            gather_ms = sum(cuda_ms(lambda b=b, s=s: b.gather(s), 10)
+                            for b, s in zip(buckets, slices))
+            scatter = {name: sum(cuda_ms(
+                lambda g=g, d=dtype: parallel.reduce_scatter_grads(g, d), 10)
+                for g in (grads_g, grads_d))
+                for name, dtype in (("f32", None), ("bf16", torch.bfloat16))}
+            del slices
         finally:
             parallel.destroy_process_group()
     plain_ms, group_ms = (float(np.median(times[k][1:]))
@@ -3835,10 +3907,24 @@ def phase_distributed(meta_ckpt, workdir, device):
           f"{nbytes // 2}), 2 buckets; reduce_ms f32 {reduce['f32']:.3f} "
           f"bf16 {reduce['bf16']:.3f} (NCCL, world 1: the cast and the "
           f"launch, no wire)", flush=True)
+    print(f"distributed (i): FSDP's collectives a step (NCCL, world 1: the "
+          f"buckets' copies and the launches, no wire): gather_ms "
+          f"{gather_ms:.3f} ({len(buckets)} buckets, "
+          f"{sum(4 * b.numel for b in buckets)} bytes), reduce_scatter_ms "
+          f"f32 {scatter['f32']:.3f} bf16 {scatter['bf16']:.3f}", flush=True)
     del state, plain, grouped, criteria, batches
     torch.cuda.empty_cache()
+    children = _distributed_gloo(meta_ckpt, workdir, device, per_step)
+    print(f"distributed phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return cli_launches, children
 
-    # (ii) two gloo ranks on the one card against one process
+
+def _distributed_gloo(meta_ckpt, workdir, device, per_step):
+    """:func:`phase_distributed`'s part (ii): the two gloo ranks
+    (:func:`dist_child`) against one process and against each other, their
+    memory and their checkpoints; returns the children's launches.
+    ``per_step``: each kernel's launches a step."""
     t0 = time.perf_counter()
     port = launch.free_port()
     out = workdir / "gloo"
@@ -3870,9 +3956,26 @@ def phase_distributed(meta_ckpt, workdir, device):
             require(count == per_step,
                     f"gloo rank {rank} {mode} step launched {count}")
             children = {k: children[k] + count[k] for k in children}
-    print(f"distributed (ii): two gloo ranks, a default, an explicit and a "
-          f"faulted step each, {time.perf_counter() - t0:.1f} s; launches "
-          f"{children}", flush=True)
+    print(f"distributed (ii): two gloo ranks, a default, an explicit, an "
+          f"FSDP and two faulted steps each, {time.perf_counter() - t0:.1f} "
+          f"s; launches {children}", flush=True)
+    memory = [json.loads((out / f"memory{rank}.json").read_text())
+              for rank in range(2)]
+    for rank, mem in enumerate(memory):
+        print(f"distributed (ii) rank {rank} after its step: resident state "
+              f"bytes " + ", ".join(f"{m} {mem[m]['resident']}"
+                                    for m in ("default", "fsdp"))
+              + "; allocated " + ", ".join(f"{m} {mem[m]['allocated']}"
+                                           for m in ("default", "fsdp"))
+              + "; peak " + ", ".join(f"{m} {mem[m]['peak']}"
+                                      for m in ("default", "fsdp"))
+              + "; step_ms (gloo through the host) " + ", ".join(
+                  f"{m} {mem[m]['step_ms']:.1f}" for m in ("default", "fsdp")),
+              flush=True)
+        require(mem["fsdp"]["resident"] <= FSDP_RESIDENT
+                * mem["default"]["resident"],
+                f"rank {rank}'s FSDP state holds {mem['fsdp']['resident']} "
+                f"bytes, the replicated {mem['default']['resident']}")
 
     cudnn = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -3886,17 +3989,18 @@ def phase_distributed(meta_ckpt, workdir, device):
         torch.backends.cudnn.deterministic = cudnn
     del state
     torch.cuda.empty_cache()
-    identity, limits = {}, {"generator.gradient": STEP_TOL}
+    identity, limits, runs = {}, {"generator.gradient": STEP_TOL}, {}
     for mode, _, _ in DIST_MODES:
         saved = torch.load(out / f"{mode}.pt")
-        run = (saved["losses"], saved["before"], saved["after"], 0.0)
+        runs[mode] = run = (saved["losses"], saved["before"],
+                            saved["after"], 0.0)
         loss, rel = _gaps(ref, run)
         _print_gaps(f"distributed (ii) {mode} step, two gloo ranks vs one "
                     f"process", loss, rel)
         identity[mode] = _identity_stats_gap(ref, run)
-        if mode == "default":
-            _require_step("two-rank and one-process meta step", loss, rel,
-                          GRAD_TOL, limits)
+        if mode in ("default", "fsdp"):
+            _require_step(f"two-rank ({mode}) and one-process meta step",
+                          loss, rel, GRAD_TOL, limits)
         elif mode == "unreduced":
             caught = [k for k, limit in _step_limits(rel, GRAD_TOL,
                                                      limits).items()
@@ -3907,6 +4011,24 @@ def phase_distributed(meta_ckpt, workdir, device):
                   flush=True)
             require(caught, f"the unreduced moments' gradient passes the "
                     f"two-rank gate: {rel}")
+    # FSDP against the replicated two ranks: the gate above, each group
+    # read; the slice updated from its own gradient must fail it
+    for mode in ("fsdp", "fsdp_unreduced"):
+        loss, rel = _gaps(runs["default"], runs[mode])
+        _print_gaps(f"distributed (ii) {mode} step vs the default regime's "
+                    f"two ranks", loss, rel)
+        if mode == "fsdp":
+            _require_step("FSDP and replicated two-rank meta step", loss,
+                          rel, GRAD_TOL, limits)
+        else:
+            caught = [k for k, limit in _step_limits(rel, GRAD_TOL,
+                                                     limits).items()
+                      if rel[k] > limit]
+            print(f"distributed (ii): the planted fault (each slice from its "
+                  f"own gradient) above the gate on {caught}", flush=True)
+            require(caught, f"FSDP's unreduced slices pass the gate: {rel}")
+    _require_same_checkpoints(*(next((out / m).glob("*/*.ckpt"))
+                                for m in DIST_SAVED))
     print(f"distributed (ii): the identity tower's statistics' update, L2 "
           f"relative to one process's: default {identity['default']:.3g}, "
           f"explicit {identity['explicit']:.3g} (the witness, above "
@@ -3914,9 +4036,45 @@ def phase_distributed(meta_ckpt, workdir, device):
     require(identity["default"] <= STEP_TOL < identity["explicit"],
             f"the identity tower's statistics read {identity}: the default "
             f"regime's must lie within {STEP_TOL}, the explicit one's above")
-    print(f"distributed phase: {time.perf_counter() - t_phase:.1f} s",
+    return children
+
+
+def _require_same_checkpoints(want, got):
+    """The FSDP ranks' checkpoint against the replicated ranks': the same
+    keys, shapes and dtypes; each group (a collection's module, an
+    optimizer moment's module) within part (ii)'s gate of its L2: the
+    parameters, EMA and statistics STEP_TOL, the moments GRAD_TOL; how
+    many arrays are bit-equal."""
+    want, got = (ckpt_lib.load_arrays(p) for p in (want, got))
+    require(set(want) == set(got), "the FSDP checkpoint's keys differ: "
+            f"{sorted(set(want) ^ set(got))[:6]}")
+    def group(key):
+        return "::".join(key.split("::")[:4 if key.startswith("opt_state")
+                                        else 2])
+
+    same = {}
+    for key, value in want.items():
+        require(got[key].shape == value.shape
+                and got[key].dtype == value.dtype, f"{key} differs in kind")
+        same[key] = np.array_equal(got[key], value)
+    equal = sum(same.values())
+    differ = {group(k) for k, v in same.items() if not v}
+    sums = {}
+    for key, value in want.items():     # only the groups that differ
+        if group(key) in differ:
+            num, den = sums.get(group(key), (0.0, 0.0))
+            value = value.astype(np.float64)
+            sums[group(key)] = (num + float(np.square(got[key] - value).sum()),
+                                den + float(np.square(value).sum()))
+    gaps = {g: (n / d) ** 0.5 for g, (n, d) in sums.items() if d}
+    print(f"distributed (ii): the FSDP ranks' checkpoint against the "
+          f"replicated ranks': {equal} of {len(want)} arrays bit-equal; "
+          f"the groups that differ, L2 relative: " + (", ".join(
+              f"{g} {v:.3g}" for g, v in sorted(gaps.items())) or "none"),
           flush=True)
-    return cli_launches, children
+    for group, gap in gaps.items():
+        tol = GRAD_TOL if group.startswith("opt_state") else STEP_TOL
+        require(gap <= tol, f"FSDP checkpoint {group} {gap} > {tol}")
 
 
 def _identity_stats_gap(ref, other):

@@ -50,6 +50,14 @@ averages the running statistics after the step; ``--grad_dtype bfloat16``
 (which implies it) reduces the gradients in bf16.  Rank 0 alone writes
 the logs, visuals, probes, validation and checkpoints; every rank resumes
 from the same checkpoint, and a signal stops every rank at the same step.
+``--param_sharding fsdp`` shards the parameters, the EMA and both
+optimizers' moments over the ranks, each keeping 1/N (the JAX CLI's
+ZeRO-3 placement; ``parallel/mesh.py`` ``shard_state``): each step gathers
+the parameters and reduce-scatters the gradients, and every rank joins
+the gathers of rank 0's visuals, probes, validation and saves.  The
+checkpoint is the replicated run's, whole; a resume at any world, with or
+without the flag, reads it whole and keeps its slice.  With one rank the
+flag does nothing, as with the JAX CLI.
 
 Arguments resolve as the JAX package's ``config/resolution.py`` resolves
 them, lowest to highest: the JAX core defaults (:data:`DEFAULTS`), the
@@ -89,7 +97,8 @@ from latentpose_tpu_torch.parallel import launch
 from latentpose_tpu_torch.parallel import mesh as parallel
 from latentpose_tpu_torch.runners import finetune as ft
 from latentpose_tpu_torch.runners import holycow, loop
-from latentpose_tpu_torch.runners.state import TrainState, ema_of
+from latentpose_tpu_torch.runners.state import (TrainState, ema_of,
+                                                shard_groups)
 from latentpose_tpu_torch.utils.logging_writer import setup_logging
 from latentpose_tpu_torch.utils.saver import Saver
 
@@ -160,6 +169,9 @@ FINETUNE_CONFIG = dict(
 # --config_name: the configs the port carries
 CONFIGS = {"default": META_CONFIG, "finetuning-base": FINETUNE_CONFIG}
 
+# --param_sharding (latentpose_tpu/config/core_args.py)
+PARAM_SHARDING = ("replicated", "fsdp")
+
 # the criteria that run a VGG tower and take the device to build it on
 _VGG_CRITERIA = ("idt_embed", "perceptual")
 
@@ -178,8 +190,10 @@ def build_parser():
                  "transfer_dtype", "grad_dtype", "optimizer", "data_root",
                  "img_dir", "segm_dir", "kp_dir", "bboxes_dir",
                  "train_split_path", "val_split_path", "saver",
-                 "profile_dir", "param_sharding"):
+                 "profile_dir"):
         parser.add_argument(f"--{name}", default=None)
+    parser.add_argument("--param_sharding", choices=PARAM_SHARDING,
+                        default=None)
     parser.add_argument("--args_to_ignore", "--args-to-ignore", default=None)
     for name in ("batch_size", "num_epochs", "random_seed", "save_frequency",
                  "num_devices", "grad_accum_steps", "synthetic_num_labels",
@@ -269,9 +283,9 @@ def resolve_args(argv=None):
     if args.grad_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"--grad_dtype {args.grad_dtype!r}: one of "
                          "['bfloat16', 'float32']")
-    if args.param_sharding != "replicated":
-        _refuse(f"--param_sharding {args.param_sharding} (FSDP2 "
-                "fully_shard under the port's own optimizers)", "A.17.2")
+    if args.param_sharding not in PARAM_SHARDING:     # a saved value
+        raise ValueError(f"--param_sharding {args.param_sharding!r}: one "
+                         f"of {list(PARAM_SHARDING)}")
     world = parallel.requested_world(args.num_devices,
                                      torch.device(args.device).type)
     if world > 1 and not parallel.launched():
@@ -410,16 +424,28 @@ def make_step(args, criteria):
     return holycow.make_train_step(criteria, args)
 
 
+def place_state(args, state):
+    """Rank 0's state on every rank (``parallel.replicate``), then, under
+    ``--param_sharding fsdp``, sharded over the ranks; returns it."""
+    parallel.replicate(state)
+    if args.param_sharding == "fsdp":
+        parallel.shard_state(state, shard_groups(state))
+    return state
+
+
 def save(args, state):
     """Save ``state``; under N ranks rank 0 writes, every rank meets it at
-    a barrier after the write and returns its path."""
+    a barrier after the write and returns its path.  A sharded state is
+    gathered whole on every rank for the write: the checkpoint is the
+    replicated run's."""
     path = None
-    if parallel.is_main():
-        meta = {k: (str(v) if isinstance(v, Path) else v)
-                for k, v in vars(args).items()}
-        path = ckpt_lib.save_checkpoint(
-            args.experiment_dir, convert.export_train_state(state), meta,
-            iteration=state.step, finetune=state.finetune)
+    with parallel.gathered(state, whole=True):
+        if parallel.is_main():
+            meta = {k: (str(v) if isinstance(v, Path) else v)
+                    for k, v in vars(args).items()}
+            path = ckpt_lib.save_checkpoint(
+                args.experiment_dir, convert.export_train_state(state),
+                meta, iteration=state.step, finetune=state.finetune)
     parallel.barrier()
     return parallel.broadcast_object(path)
 
@@ -510,8 +536,9 @@ def _train(args, argv, device):
         state = init_state(args, train_loader, device)
     criteria = build_criteria(args, device)
     if args.finetune and not state.finetune:
+        # ê on the whole state, before it is sharded
         state = start_finetuning(args, state, train_loader, device)
-    parallel.replicate(state)
+    place_state(args, state)
     args.iteration = state.step
     metrics = [registry.load_wrapper("metrics", name).get_net(args)
                for name in _names(args.metrics)]
@@ -540,10 +567,12 @@ def _train(args, argv, device):
                                saver=saver, stop=stop)
                 if stop.is_set():
                     break
-                if val_loader is not None:
-                    loop.run_validation(val_loader, eval_forward, state,
-                                        args, epoch, writer=writer,
-                                        metrics=metrics, saver=saver)
+                if not args.skip_eval:      # every rank joins the gather
+                    with parallel.gathered(state, whole=True):
+                        if val_loader is not None:
+                            loop.run_validation(
+                                val_loader, eval_forward, state, args, epoch,
+                                writer=writer, metrics=metrics, saver=saver)
                 if stop.agree(device):
                     break
                 will_save = epoch == args.num_epochs - 1

@@ -20,7 +20,16 @@ compiler inserts are written out:
 - :func:`global_batch`: while it is active, train-form BatchNorm
   (``nn/backbones.py``), the conv_bn link's statistics and dice take their
   sums over the global batch (:func:`all_reduce_sum`, with its gradient),
-  and the dropout masks are the global batch's rows (:func:`sync`).
+  and the dropout masks are the global batch's rows (:func:`sync`);
+- ``--param_sharding fsdp`` (the JAX package's ``_fsdp_spec`` /
+  ``state_shardings`` / ``shard_state``): :func:`shard_state` lays each
+  group of the state (the G-side trainables, the discriminator's, the
+  frozen embedder of a fine-tune) out as one flat :class:`Bucket` and keeps
+  this rank's 1/N slice of the parameters, the EMA and both optimizers'
+  moments (:class:`ShardedState`); buffers stay replicated.
+  :func:`gathered` all-gathers the buckets and points the modules'
+  tensors at views of them, and frees them on exit;
+  :func:`reduce_scatter_grads` is :func:`reduce_grads`' sharded form.
 
 A rank reads :func:`rank` and :func:`world`, which are 0 and 1 without a
 process group and inside :func:`local_view`, where rank 0 alone builds
@@ -31,6 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 import os
 from datetime import timedelta
 
@@ -306,6 +316,282 @@ def reduce_grads(grads, dtype=None, on_wire=None):
     return out
 
 
+# --- FSDP: the state sharded over the ranks ----------------------------------
+
+# bytes: each tensor's offset in a bucket and each rank's slice.  The
+# kernels' wrappers need 16; 256 puts each gathered weight on the
+# boundary PyTorch's allocators give a tensor, so that cuDNN and cuBLAS
+# see the alignment a replicated run's weights have
+ALIGN = 256
+
+
+class Bucket:
+    """One group's tensors laid out flat: each tensor at an offset that is
+    a multiple of :data:`ALIGN` bytes, the whole padded with zeros to a
+    multiple of world x ALIGN bytes, so that rank r's slice [r·S, (r+1)·S)
+    and every view into a gathered bucket start on an ALIGN-byte boundary.
+    A function of the tensors' shapes and dtype and of the world alone: a
+    group's gradients lay out as its tensors do."""
+
+    def __init__(self, tensors, world_=None, rank_=None):
+        self.dtype = tensors[0].dtype
+        self.shapes = [t.shape for t in tensors]
+        step = ALIGN // tensors[0].element_size()
+        self.offsets, n = [], 0
+        for t in tensors:
+            if t.dtype != self.dtype:
+                raise TypeError(f"one bucket holds one dtype: {t.dtype} "
+                                f"beside {self.dtype}")
+            self.offsets.append(n)
+            n += -(-t.numel() // step) * step
+        self.world = world() if world_ is None else world_
+        rank_ = rank() if rank_ is None else rank_
+        unit = step * self.world
+        self.numel = -(-n // unit) * unit
+        self.shard_numel = self.numel // self.world
+        self.start = rank_ * self.shard_numel
+
+    def flatten(self, tensors):
+        """The padded bucket of ``tensors`` (this layout's shapes): one
+        concatenation, the padding zeros."""
+        ends = self.offsets[1:] + [self.numel]
+        zeros = tensors[0].new_zeros(max(end - start - t.numel() for
+                                         t, start, end in
+                                         zip(tensors, self.offsets, ends)))
+        pieces = []
+        for t, start, end in zip(tensors, self.offsets, ends):
+            pieces += [t.reshape(-1), zeros[:end - start - t.numel()]]
+        return torch.cat(pieces)
+
+    def views(self, flat):
+        """Each tensor of the layout as a view into the padded ``flat``."""
+        return [flat[start:start + math.prod(shape)].view(shape)
+                for start, shape in zip(self.offsets, self.shapes)]
+
+    def shard(self, flat):
+        """This rank's slice of the padded ``flat``, a tensor of its own."""
+        return flat[self.start:self.start + self.shard_numel].clone()
+
+    def gather(self, shard):
+        """The padded bucket from every rank's slice (one all-gather)."""
+        full = torch.empty(self.numel, dtype=shard.dtype,
+                           device=shard.device)
+        dist.all_gather_into_tensor(full, shard)
+        return full
+
+
+def reduce_scatter_grads(grads, dtype=None, on_wire=None):
+    """:func:`reduce_grads`' sharded form: the mean over ranks of this
+    rank's slice of one group's gradients, laid out as the group
+    (:class:`Bucket`), one reduce-scatter of the padded bucket cast to
+    ``dtype`` (if given) for the wire only.  Returns ``[slice]`` in the
+    gradients' dtype, what the group's optimizer over its shard takes.
+    ``on_wire(bucket)`` (if given) sees the bucket as it goes on the
+    wire."""
+    bucket = Bucket(grads)
+    flat = bucket.flatten(grads)
+    wire = flat if dtype is None else flat.to(dtype)
+    if on_wire is not None:
+        on_wire(wire)
+    out = torch.empty(bucket.shard_numel, dtype=wire.dtype,
+                      device=wire.device)
+    dist.reduce_scatter_tensor(out, wire)
+    return [out.to(flat.dtype) / dist.get_world_size()]
+
+
+def _release(tensors):
+    for t in tensors:
+        t.data = torch.empty(0, dtype=t.dtype, device=t.device)
+
+
+class _Group:
+    """One bucket of the sharded state: the live tensors (the modules'
+    parameters, or the identity embedding), their EMA tensors (or None),
+    the layout and this rank's slices."""
+
+    def __init__(self, live, ema):
+        self.live, self.ema = live, ema
+        self.bucket = Bucket(live)
+        self.shard = self.bucket.shard(self.bucket.flatten(live))
+        self.ema_shard = None if ema is None \
+            else self.bucket.shard(self.bucket.flatten(ema))
+
+    def point(self, tensors, flat):
+        for t, view in zip(tensors, self.bucket.views(flat)):
+            t.data = view
+
+
+class ShardedState:
+    """``TrainState.layout`` under ``--param_sharding fsdp``: the groups
+    'g' (the G-side trainables, ``g_trainable``), 'd' (``d_trainable``)
+    and, in a fine-tune, 'frozen' (the embedder), each one :class:`Bucket`
+    of which this rank keeps its slice of the parameters, of their EMA
+    ('g', 'frozen') and of the group's optimizer moments ('g', 'd'): the
+    optimizers run over ``[slice]`` (``opt.params``, ``opt.mu``,
+    ``opt.nu``).  Between :func:`gathered` contexts the modules'
+    parameters, the EMA entries and the per-tensor moments hold no data;
+    the modules' buffers stay whole and replicated."""
+
+    def __init__(self, groups, optimizers):
+        self.groups = groups            # {name: _Group}
+        # {name: (optimizer, its per-tensor (params, mu, nu), its slices')}
+        self.optimizers = optimizers
+        self.active, self.whole = False, False
+
+    def ema_pairs(self):
+        """(EMA slices, live slices) of the groups with an EMA."""
+        groups = [g for g in self.groups.values() if g.ema is not None]
+        return [g.ema_shard for g in groups], [g.shard for g in groups]
+
+    def gather(self, whole: bool):
+        """Point the modules' parameters (and, if ``whole``, the EMA
+        entries and the optimizers' per-tensor moments) at views of the
+        gathered buckets: one all-gather a bucket."""
+        with torch.no_grad():
+            for group in self.groups.values():
+                group.point(group.live, group.bucket.gather(group.shard))
+                if whole and group.ema is not None:
+                    group.point(group.ema,
+                                group.bucket.gather(group.ema_shard))
+            if whole:
+                for name, (opt, tensors, _) in self.optimizers.items():
+                    group = self.groups[name]
+                    group.point(tensors[1], group.bucket.gather(opt.mu[0]))
+                    group.point(tensors[2], group.bucket.gather(opt.nu[0]))
+                    opt.params, opt.mu, opt.nu = tensors
+        self.active, self.whole = True, whole
+
+    def release(self):
+        """Free the gathered buckets: the state is this rank's slices
+        again."""
+        for group in self.groups.values():
+            _release(group.live)
+            if group.ema is not None:
+                _release(group.ema)
+        for opt, tensors, slices in self.optimizers.values():
+            _release(tensors[1] + tensors[2])
+            opt.params, opt.mu, opt.nu = slices
+        self.active, self.whole = False, False
+
+    def assert_tiled(self, what: str):
+        """Raise unless, in every bucket, the ranks' slices are disjoint,
+        cover it, and hold the parameters, EMA and moments at the slice's
+        size (one all-gather of every rank's (start, end, size))."""
+        mine = []
+        for name, group in self.groups.items():
+            b = group.bucket
+            sizes = {group.shard.numel()}
+            if group.ema_shard is not None:
+                sizes.add(group.ema_shard.numel())
+            if name in self.optimizers:
+                opt = self.optimizers[name][0]
+                sizes |= {t.numel() for t in opt.params + opt.mu + opt.nu}
+            if sizes != {b.shard_numel}:
+                raise RuntimeError(f"bucket {name} {what}: slices of sizes "
+                                   f"{sorted(sizes)}, not {b.shard_numel}")
+            mine.append([b.start, b.start + b.shard_numel, b.numel])
+        ours = torch.tensor(mine, dtype=torch.int64)
+        every = [torch.empty_like(ours) for _ in range(dist.get_world_size())]
+        dist.all_gather(every, ours)
+        for i, name in enumerate(self.groups):
+            spans = sorted(tuple(e[i].tolist()) for e in every)
+            ends = [0] + [end for _, end, _ in spans]
+            if [s for s, _, _ in spans] != ends[:-1] \
+                    or ends[-1] != spans[0][2] \
+                    or len({n for _, _, n in spans}) != 1:
+                raise RuntimeError(f"bucket {name} {what}: the ranks' "
+                                   f"slices {spans} do not tile it")
+
+
+def shard_state(state, groups):
+    """Shard a replicated train state in place over the ranks
+    (``--param_sharding fsdp``): ``groups`` ({name: live tensors}, in the
+    order of the optimizer over them, if any) each become a
+    :class:`Bucket` of which this rank keeps its slice of the parameters,
+    their EMA (``state.ema_params``, where each live tensor has one) and
+    the moments of ``state.opt_g`` ('g') and ``state.opt_d`` ('d'); every
+    full tensor is freed.  A world of 1 leaves the state as it is, as the
+    JAX CLI without a mesh does.  Returns the state."""
+    if world() == 1 or state.layout is not None:
+        return state
+    ema_of = {}
+    for part, entry in state.ema_params.items():
+        if part == "finetune_embedding":
+            ema_of[id(state.finetune_embedding)] = entry
+        else:
+            params = dict(state.models[part].named_parameters())
+            ema_of.update({id(params[k]): v for k, v in entry.items()})
+    with torch.no_grad():
+        built = {}
+        for name, live in groups.items():
+            has = [id(t) in ema_of for t in live]
+            if any(has) and not all(has):
+                raise ValueError(f"group {name}: an EMA for some of its "
+                                 "tensors and not for others")
+            built[name] = _Group(list(live), [ema_of[id(t)] for t in live]
+                                 if all(has) else None)
+        optimizers = {}
+        for name, opt in (("g", state.opt_g), ("d", state.opt_d)):
+            group = built[name]
+            if [id(p) for p in opt.params] != [id(t) for t in group.live]:
+                raise ValueError(f"optimizer {name} is not over group "
+                                 f"{name}'s tensors, in order")
+            mu, nu = (group.bucket.shard(group.bucket.flatten(m))
+                      for m in (opt.mu, opt.nu))
+            optimizers[name] = (opt, (list(group.live), opt.mu, opt.nu),
+                                ([group.shard], [mu], [nu]))
+    state.layout = ShardedState(built, optimizers)
+    state.layout.release()
+    return state
+
+
+@contextlib.contextmanager
+def gathered(state, whole: bool = False):
+    """Every rank enters: inside, the modules of a sharded state hold their
+    whole parameters (and, with ``whole``, the EMA and both optimizers'
+    per-tensor moments, so that the state reads as a replicated one); on
+    exit the gathered buckets are freed.  A replicated state is left as
+    it is."""
+    layout = state.layout
+    if layout is None:
+        yield state
+        return
+    if layout.active:       # the inner release would free the outer views
+        raise RuntimeError("a gather inside a gather of the same state")
+    layout.gather(whole)
+    try:
+        yield state
+    finally:
+        layout.release()
+
+
+def resident_bytes(state) -> int:
+    """Bytes of the distinct storages that ``state`` holds: the modules'
+    parameters and buffers, the EMA, the identity embedding, both
+    optimizers' tensors and, sharded, its slices."""
+    tensors = []
+    for module in state.models.values():
+        tensors += [p.data for p in module.parameters()]
+        tensors += list(module.buffers())
+    for entry in state.ema_params.values():
+        tensors += list(entry.values()) if isinstance(entry, dict) \
+            else [entry]
+    if state.finetune_embedding is not None:
+        tensors.append(state.finetune_embedding.data)
+    for opt in (state.opt_g, state.opt_d):
+        tensors += list(opt.params) + list(opt.mu) + list(opt.nu)
+    if state.layout is not None:
+        for group in state.layout.groups.values():
+            tensors += [t for t in (group.shard, group.ema_shard)
+                        if t is not None]
+    storages = {}
+    for t in tensors:
+        if t.numel():
+            storage = t.untyped_storage()
+            storages[storage.data_ptr()] = storage.nbytes()
+    return sum(storages.values())
+
+
 def mean_scalars(scalars):
     """{name: scalar tensor} averaged over ranks (one all-reduce)."""
     names = list(scalars)
@@ -336,14 +622,19 @@ def average_running_stats(models):
 # --- the state ---------------------------------------------------------------
 
 def state_tensors(state):
-    """Every tensor of a train state, in one order on every rank: the
-    modules' parameters and buffers, the EMA, the identity embedding and
-    both optimizers' moments."""
+    """Every tensor of a train state that each rank holds whole, in one
+    order on every rank: the modules' parameters and buffers, the EMA, the
+    identity embedding and both optimizers' moments; of a sharded state
+    (:func:`shard_state`), the modules' buffers alone."""
+    sharded = state.layout is not None
     out = []
     for part in sorted(state.models):
         module = state.models[part]
-        out += [p.data for _, p in sorted(module.named_parameters())]
+        if not sharded:
+            out += [p.data for _, p in sorted(module.named_parameters())]
         out += [b for _, b in sorted(module.named_buffers())]
+    if sharded:
+        return out
     for part in sorted(state.ema_params):
         entry = state.ema_params[part]
         out += [entry[k] for k in sorted(entry)] if isinstance(entry, dict) \
@@ -364,7 +655,10 @@ def _buckets(tensors):
 
 def replicate(state):
     """Rank 0's train state on every rank, in place (one broadcast a dtype),
-    with the step and optimizer counts; then :func:`assert_replicated`."""
+    with the step and optimizer counts; then :func:`assert_replicated`.
+    A state is replicated before it is sharded."""
+    if state.layout is not None:
+        raise ValueError("replicate a train state before shard_state")
     if not initialized():
         return state
     with torch.no_grad():
@@ -395,7 +689,9 @@ def checksum(state):
 
 
 def assert_replicated(state, what: str):
-    """Raise unless every rank holds the same state (:func:`checksum`)."""
+    """Raise unless every rank holds the same state (:func:`checksum`); of
+    a sharded state, the same buffers, and slices of each bucket that are
+    disjoint and cover it (:meth:`ShardedState.assert_tiled`)."""
     if not initialized():
         return
     ours = checksum(state)
@@ -406,6 +702,8 @@ def assert_replicated(state, what: str):
     if differ:
         raise RuntimeError(f"ranks hold different train states {what}: "
                            f"{differ} of {ours.numel()} checksums differ")
+    if state.layout is not None:
+        state.layout.assert_tiled(what)
 
 
 def broadcast_tensor(tensor, src: int = 0):

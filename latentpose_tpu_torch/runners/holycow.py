@@ -64,6 +64,15 @@ Under a process group (``--num_devices N``, one rank a device:
 In every regime the scalars returned are their mean over ranks (dice is
 already global in the default one).  The explicit regimes need a process
 group and raise without one, as the JAX step raises without a mesh.
+
+A state sharded by ``--param_sharding fsdp`` (``parallel.shard_state``)
+takes the same step in this order: all-gather the parameters
+(``parallel.gathered``), the forward and the same two gradients, release
+the gathered weights; then, in place of the all-reduce, one
+reduce-scatter a group (``parallel.reduce_scatter_grads``, bf16 on the
+wire under ``--grad_dtype bfloat16``), each optimizer's update on this
+rank's slice and the EMA on the slices.  Every update is elementwise, so
+the slices move as the replicated state's entries do.
 """
 
 from __future__ import annotations
@@ -201,7 +210,7 @@ def make_train_step(criteria, args, on_wire=None):
     the state's, the data-parallel regime the args' (module docstring).
     Augmentation and dropout draw from ``args.random_seed`` and the state's
     step.  ``on_wire(bucket)``: sees each gradient bucket as it goes on the
-    wire (:func:`parallel.reduce_grads`)."""
+    wire (:func:`parallel.reduce_grads`, or its sharded form)."""
     train = not args.set_eval_mode_in_train
     dtype = compute_dtype(args)
     use_ema = args.weights_running_average
@@ -238,35 +247,39 @@ def make_train_step(criteria, args, on_wire=None):
                                                    **shard)
         masks = step_dropout_generator(args.random_seed, state.step,
                                        draw_rank)
-        g_params, d_params = g_trainable(state), d_trainable(state)
         grads_g = grads_d = totals = None
-        for micro in _microbatches(batch, accum):
-            with parallel.global_batch(shared):
-                data_dict = forward(state, micro, train, masks, dtype)
-                losses_G, losses_D = apply_criteria(criteria, data_dict)
-                loss_G = sum(losses_G.values())
-                loss_D = sum(losses_D.values())
-                # the two graphs share no node that needs a gradient (pass
-                # 1 reads the rows detached, passes 2-3 the fake detached);
-                # the backward of a global sum sums over ranks
-                grads_g = _add(grads_g,
-                               torch.autograd.grad(loss_G, g_params))
-                grads_d = _add(grads_d,
-                               torch.autograd.grad(loss_D, d_params))
-            scalars = {f"Loss_{k}": v.detach()
-                       for k, v in {**losses_G, **losses_D}.items()}
-            scalars["loss_G"] = loss_G.detach()
-            scalars["loss_D"] = loss_D.detach()
-            totals = scalars if totals is None else {
-                k: totals[k] + v for k, v in scalars.items()}
-            del data_dict, losses_G, losses_D, loss_G, loss_D
+        with parallel.gathered(state):
+            g_params, d_params = g_trainable(state), d_trainable(state)
+            for micro in _microbatches(batch, accum):
+                with parallel.global_batch(shared):
+                    data_dict = forward(state, micro, train, masks, dtype)
+                    losses_G, losses_D = apply_criteria(criteria, data_dict)
+                    loss_G = sum(losses_G.values())
+                    loss_D = sum(losses_D.values())
+                    # the two graphs share no node that needs a gradient
+                    # (pass 1 reads the rows detached, passes 2-3 the fake
+                    # detached); the backward of a global sum sums over
+                    # ranks
+                    grads_g = _add(grads_g,
+                                   torch.autograd.grad(loss_G, g_params))
+                    grads_d = _add(grads_d,
+                                   torch.autograd.grad(loss_D, d_params))
+                scalars = {f"Loss_{k}": v.detach()
+                           for k, v in {**losses_G, **losses_D}.items()}
+                scalars["loss_G"] = loss_G.detach()
+                scalars["loss_D"] = loss_D.detach()
+                totals = scalars if totals is None else {
+                    k: totals[k] + v for k, v in scalars.items()}
+                del data_dict, losses_G, losses_D, loss_G, loss_D
         if accum > 1:
             grads_g = [g / accum for g in grads_g]
             grads_d = [g / accum for g in grads_d]
             totals = {k: v / accum for k, v in totals.items()}
         if distributed:
-            grads_g = parallel.reduce_grads(grads_g, wire, on_wire)
-            grads_d = parallel.reduce_grads(grads_d, wire, on_wire)
+            reduce = parallel.reduce_grads if state.layout is None \
+                else parallel.reduce_scatter_grads
+            grads_g = reduce(grads_g, wire, on_wire)
+            grads_d = reduce(grads_d, wire, on_wire)
             totals = parallel.mean_scalars(totals)
             if explicit:
                 parallel.average_running_stats(state.models)

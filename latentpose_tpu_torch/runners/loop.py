@@ -309,6 +309,22 @@ class _Profile:
         logger.info("Profiler trace written to %s", path)
 
 
+def _render_visual(dataloader, eval_forward, state, args, host, writer):
+    """The visual grid of a train batch, with the cross-driving columns
+    in meta-train."""
+    host = dequantize_batch_host(host)
+    visual = {**host, **_host(eval_forward(state, host))}
+    if not state.finetune:
+        rng = random.Random(args.random_seed * 1_000_003 + args.iteration)
+        for suffix, same in (("_other_video", True),
+                             ("_other_person", False)):
+            visual.update(try_other_driving_images(
+                dataloader, eval_forward, state, host, suffix,
+                same_identity=same, rng=rng))
+    grid, captions = make_visual(visual, n_samples=args.num_visuals_per_img)
+    writer.add_image("Images/train/visual", grid, captions, args.iteration)
+
+
 def run_epoch(dataloader, step_fn, state, args, epoch, device, keys,
               writer=None, eval_forward=None, metrics=(), saver=None,
               stop=None):
@@ -341,26 +357,22 @@ def run_epoch(dataloader, step_fn, state, args, epoch, device, keys,
                         writer.add_scalar(f"Metrics/train/{name}",
                                           meter.get_last(name),
                                           args.iteration)
-                if (args.iteration % args.log_frequency_images == 0
-                        and eval_forward is not None):
-                    host = dequantize_batch_host(host)
-                    visual = {**host, **_host(eval_forward(state, host))}
-                    if not state.finetune:
-                        rng = random.Random(args.random_seed * 1_000_003
-                                            + args.iteration)
-                        for suffix, same in (("_other_video", True),
-                                             ("_other_person", False)):
-                            visual.update(try_other_driving_images(
-                                dataloader, eval_forward, state, host,
-                                suffix, same_identity=same, rng=rng))
-                    grid, captions = make_visual(
-                        visual, n_samples=args.num_visuals_per_img)
-                    writer.add_image("Images/train/visual", grid, captions,
-                                     args.iteration)
-                if (args.iteration % args.log_frequency_fixed_images == 0
-                        and eval_forward is not None):
-                    run_fixed_id_eval(dataloader, eval_forward, state, args,
-                                      writer, metrics)
+            # rank 0 renders (its writer exists where args.logging); every
+            # rank joins the gather of a sharded state
+            renders = eval_forward is not None and (
+                writer is not None or getattr(args, "logging", False))
+            visual_now = renders \
+                and args.iteration % args.log_frequency_images == 0
+            probe_now = renders \
+                and args.iteration % args.log_frequency_fixed_images == 0
+            if visual_now or probe_now:
+                with parallel.gathered(state, whole=True):
+                    if writer is not None and visual_now:
+                        _render_visual(dataloader, eval_forward, state, args,
+                                       host, writer)
+                    if writer is not None and probe_now:
+                        run_fixed_id_eval(dataloader, eval_forward, state,
+                                          args, writer, metrics)
             args.iteration += 1
 
             if saver is not None:

@@ -11,6 +11,12 @@ puts eps in the same other place.  So this module writes optax's forms on
 tensors, with optax's f32 arithmetic for the schedule scalars.  β₂ᵗ is the correctly rounded f32 power; XLA's f32 pow on
 the CPU lands 1-2 ulps off it for some t, and ρ_t, a difference of two
 numbers near 2000, then moves by ~0.02 (0.3 % of the rectified step).
+
+Every update is elementwise (RAdam's rectification is one scalar a step),
+so under ``--param_sharding fsdp`` each optimizer runs unchanged over one
+tensor, the rank's slice of its group's bucket, with ``mu`` and ``nu``
+laid out as that slice (``parallel/mesh.py`` ``shard_state``), and
+``ema_update`` over the EMA's slices.
 """
 
 from __future__ import annotations

@@ -14,7 +14,13 @@ them:
   modules, not averaged;
 - ``opt_g`` / ``opt_d`` are the two optimizers (``runners/optim.py``), over
   :func:`g_trainable` and :func:`d_trainable`;
-- ``step`` is the global iteration.
+- ``step`` is the global iteration;
+- ``layout`` is None, or under ``--param_sharding fsdp`` the
+  ``parallel.mesh.ShardedState`` that holds this rank's slices of the
+  parameters, the EMA and the optimizers' moments
+  (``parallel.mesh.shard_state`` over :func:`shard_groups`): the optimizers
+  then run over the slices, :func:`ema_pairs` pairs the slices, and the
+  modules hold their parameters only inside ``parallel.mesh.gathered``.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ class TrainState:
     finetune_embedding: Optional[torch.Tensor] = None
     opt_g: Any = None
     opt_d: Any = None
+    layout: Any = None
 
     @property
     def finetune(self) -> bool:
@@ -60,8 +67,21 @@ def d_trainable(state: TrainState):
     return list(state.models["discriminator"].parameters())
 
 
+def shard_groups(state: TrainState):
+    """The groups a sharded state lays out, each one bucket: 'g' and 'd'
+    (the two optimizers' tensors, in their order) and, in a fine-tune,
+    'frozen' (the embedder, which no optimizer trains)."""
+    groups = {"g": g_trainable(state), "d": d_trainable(state)}
+    if state.finetune:
+        groups["frozen"] = list(state.models["embedder"].parameters())
+    return groups
+
+
 def ema_pairs(state: TrainState):
-    """(EMA tensors, live tensors) over every EMA entry, paired in order."""
+    """(EMA tensors, live tensors) over every EMA entry, paired in order;
+    of a sharded state, this rank's slices of them."""
+    if state.layout is not None:
+        return state.layout.ema_pairs()
     ema, live = [], []
     for part in ("embedder", "generator"):
         params = dict(state.models[part].named_parameters())

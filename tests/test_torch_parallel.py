@@ -819,12 +819,6 @@ def test_cli_takes_every_visible_card_by_default(meta, monkeypatch):
 
 # --- (h) refusals -------------------------------------------------------------------
 
-def test_cli_refuses_fsdp_naming_its_item(meta):
-    with pytest.raises(NotImplementedError, match=r"A\.17\.2"):
-        tcli.resolve_args(["--checkpoint_path", str(meta[1]),
-                           "--param_sharding", "fsdp", "--device", "cpu"])
-
-
 @pytest.mark.parametrize("flags,match", [
     (["--num_devices", "3", "--batch_size", "4"], "does not split over 3"),
     (["--num_devices", "2", "--batch_size", "4", "--grad_accum_steps", "4"],

@@ -449,11 +449,10 @@ def test_finetune_defaults_equal_the_config_file():
 
 
 @pytest.mark.parametrize("flags,item,error", [
-    # multi-device training is ported (tests/test_torch_parallel.py): what
-    # stays refused is FSDP (A.17.2), and the explicit regimes without a
-    # group or with fewer cards than ranks, as the JAX CLI refuses them
-    pytest.param(["--finetune", "--param_sharding", "fsdp"], "A.17.2",
-                 NotImplementedError, id="flags0-A.17"),
+    # multi-device training and FSDP are ported (tests/test_torch_parallel.py,
+    # tests/test_torch_fsdp.py): what stays refused is the explicit regimes
+    # without a group or with fewer cards than ranks, as the JAX CLI
+    # refuses them
     pytest.param(["--finetune", "--grad_dtype", "bfloat16"],
                  "need a device mesh", ValueError, id="flags1-A.17"),
     pytest.param(["--finetune", "--num_devices", "2"],

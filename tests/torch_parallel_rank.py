@@ -7,14 +7,22 @@ with ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` set.
 SPEC names the meta checkpoint, the VGG towers' arrays, the output
 directory and the jobs: each job resumes the checkpoint with its flags,
 takes this rank's rows of its global batch (``.npz``) and one train step,
-and rank 0 writes the state and the scalars (``<name>.npz``) and the gradient buckets seen on the wire
-(``<name>.wire.json``).  The job ``moments`` writes each rank's gradient of
-a loss of :func:`parallel.global_moments` (``moments<rank>.npy``).  The
-embedder's towers are cut to ``SPEC["layers"]`` bottlenecks a stage (and
-MobileNetV2 to one block a row), as the test module cuts them.  A job with
-``float64`` takes its step in f64 (:func:`float64_step`), one with
-``fault`` with the global moments' gradients left unreduced
-(:func:`unreduced_moment_gradients`).
+and rank 0 writes the state and the scalars (``<name>.npz``) and the
+gradient buckets seen on the wire (``<name>.wire.json``); every rank writes
+the bytes its state holds after the step (``<name>.resident<rank>.json``,
+:func:`parallel.resident_bytes`, beside those of its slices and buffers).
+The job ``moments`` writes each rank's gradient of a loss of
+:func:`parallel.global_moments` (``moments<rank>.npy``), the job ``layout``
+each rank's FSDP bucket checks (``layout<rank>.npz``).  The embedder's
+towers are cut to ``SPEC["layers"]`` bottlenecks a stage (and MobileNetV2
+to one block a row), as the test module cuts them.  A job with ``float64``
+takes its step in f64 (:func:`float64_step`), one with ``fault`` with the
+global moments' gradients left unreduced
+(:func:`unreduced_moment_gradients`), or with ``fault`` "shard" each rank
+updating its slice from its own unreduced gradient
+(:func:`unreduced_shard_gradients`); one with ``save`` then saves the state
+(every rank joins the gather) and resumes the checkpoint under its flags,
+and records the bytes after each.
 """
 
 import contextlib
@@ -112,6 +120,47 @@ def unreduced_moment_gradients():
         parallel._GlobalMeanVar.backward = saved
 
 
+def _own_slice(grads, dtype=None, on_wire=None):
+    """``parallel.reduce_scatter_grads`` without its reduce-scatter: this
+    rank's slice of its own gradients."""
+    bucket = parallel.Bucket(grads)
+    return [bucket.shard(bucket.flatten(grads))]
+
+
+@contextlib.contextmanager
+def unreduced_shard_gradients():
+    """The planted fault of a job with ``fault`` "shard": each rank updates
+    its slice from its own unreduced gradient."""
+    saved = parallel.reduce_scatter_grads
+    parallel.reduce_scatter_grads = _own_slice
+    try:
+        yield
+    finally:
+        parallel.reduce_scatter_grads = saved
+
+
+def _resident(state):
+    """{resident: bytes the state holds, slices: bytes of its FSDP slices
+    (parameters, EMA, moments), buffers: bytes of its modules' buffers}."""
+    buffers = sum(b.numel() * b.element_size()
+                  for m in state.models.values() for b in m.buffers())
+    slices = 0
+    if state.layout is not None:
+        for name, group in state.layout.groups.items():
+            count = 1 + (group.ema is not None) \
+                + 2 * (name in state.layout.optimizers)
+            slices += count * group.shard.numel() * group.shard.element_size()
+    return {"resident": parallel.resident_bytes(state), "slices": slices,
+            "buffers": buffers}
+
+
+def _export(state):
+    """The state as flat arrays (copies), gathered whole on every rank."""
+    with parallel.gathered(state, whole=True):
+        return {k: np.array(v) for k, v in
+                convert.export_train_state(state).items()}
+
+
 def step_job(spec, job, out):
     batch = dict(np.load(job["batch"]))
     argv = ["--checkpoint_path", spec["ckpt"], "--dataloader", "synthetic",
@@ -120,7 +169,6 @@ def step_job(spec, job, out):
             "--batch_size", str(len(batch["label"])), *job["flags"]]
     args = tcli.resolve_args(argv)
     state = tcli.load_checkpoint(args, CPU)
-    parallel.replicate(state)
     criteria = tcli.build_criteria(args, CPU)
     arrays = np.load(spec["towers"])
     for crit in criteria:
@@ -133,9 +181,11 @@ def step_job(spec, job, out):
     f64 = float64_step(args, state, criteria) if job["float64"] \
         else contextlib.nullcontext()
     dropout = contextlib.nullcontext() if job["dropout"] else no_dropout()
-    fault = unreduced_moment_gradients() if job.get("fault") \
-        else contextlib.nullcontext()
+    fault = {None: contextlib.nullcontext, True: unreduced_moment_gradients,
+             "shard": unreduced_shard_gradients}[job.get("fault")]()
     with f64, dropout, fault:
+        replicated = _resident(state)
+        tcli.place_state(args, state)
         step = holycow.make_train_step(
             criteria, args, on_wire=lambda bucket: wire.append(
                 [str(bucket.dtype), bucket.numel() * bucket.element_size()]))
@@ -146,9 +196,21 @@ def step_job(spec, job, out):
         scalars = step(state, holycow.to_device((local, {}), CPU,
                                                 holycow.META_STEP_KEYS))
     parallel.assert_replicated(state, "after the step")
+    resident = {"replicated": replicated, "step": _resident(state)}
+    flat = _export(state)
+    if job.get("save"):
+        args.experiment_dir = str(out / f"{job['name']}.exp")
+        path = tcli.save(args, state)
+        resident["save"] = _resident(state)
+        args = tcli.resolve_args(argv[:1] + [str(path)] + argv[2:])
+        resumed = tcli.place_state(args, tcli.load_checkpoint(args, CPU))
+        resident["resume"] = _resident(resumed)
+        again = _export(resumed)
+        assert set(again) == set(flat) and all(
+            np.array_equal(again[k], flat[k]) for k in flat)
+    (out / f"{job['name']}.resident{parallel.rank()}.json").write_text(
+        json.dumps(resident))
     if parallel.rank() == 0:
-        flat = {k: np.array(v) for k, v in
-                convert.export_train_state(state).items()}
         flat.update({f"scalar::{k}": np.array(float(v))
                      for k, v in scalars.items()})
         np.savez(out / f"{job['name']}.npz", **flat)
@@ -170,6 +232,38 @@ def moments_job(out):
     np.save(out / f"moments{parallel.rank()}.npy", local.grad.numpy())
 
 
+def layout_job(out):
+    """FSDP's buckets on this rank: a group of odd-sized tensors in f32 and
+    f64 laid out, sliced, gathered back; one group's gradients
+    reduce-scattered and all-reduced."""
+    gen = torch.Generator().manual_seed(5)
+    shapes = [(3, 5), (7,), (2, 2, 3), (1,), (4, 4)]
+    got = {}
+    for dtype in (torch.float32, torch.float64):
+        tensors = [torch.randn(s, generator=gen, dtype=dtype)
+                   for s in shapes]
+        bucket = parallel.Bucket(tensors)
+        flat = bucket.flatten(tensors)
+        shard = bucket.shard(flat)
+        full = bucket.gather(shard)
+        name = str(dtype).split(".")[1]
+        got[f"{name}::flat"] = flat.numpy()
+        got[f"{name}::gathered"] = full.numpy()
+        got[f"{name}::views"] = np.concatenate(
+            [v.reshape(-1).numpy() for v in bucket.views(full)])
+        got[f"{name}::offsets_bytes"] = np.array(
+            [o * flat.element_size() for o in bucket.offsets]
+            + [bucket.start * flat.element_size()])
+        got[f"{name}::shard"] = shard.numpy()
+        grads = [t * (parallel.rank() + 1) + 0.25 for t in tensors]
+        got[f"{name}::scattered"] = parallel.reduce_scatter_grads(
+            grads)[0].numpy()
+        reduced = parallel.reduce_grads([g.clone() for g in grads])
+        got[f"{name}::reduced_slice"] = bucket.shard(
+            bucket.flatten(reduced)).numpy()
+    np.savez(out / f"layout{parallel.rank()}.npz", **got)
+
+
 def main():
     spec = json.loads(Path(sys.argv[1]).read_text())
     torch.set_num_threads(1)
@@ -180,6 +274,8 @@ def main():
         for job in spec["jobs"]:
             if job["name"] == "moments":
                 moments_job(out)
+            elif job["name"] == "layout":
+                layout_job(out)
             else:
                 step_job(spec, job, out)
     finally:
