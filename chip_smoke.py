@@ -132,12 +132,12 @@ paths:
     with no cv2 (16 videos of 12 rendered 320² PNG frames, masks, bboxes
     for half the videos, train.csv and val.csv); meta-train the seeded
     meta checkpoint on it (``voxceleb2_segmentation_nolandmarks``, batch 8,
-    K=8, 2 epochs: 4 steps) with validation, PSNR and IoU, visual grids
+    K=8, 1 epoch: 2 steps) with validation, PSNR and IoU, visual grids
     with the cross-driving columns and a fixed probe: exactly 16 conv_bn and
     17 AdaIN launches a step (the eval forwards' counted apart), finite
-    losses, the checkpoint at step 4, the scalars, grids that decode to
+    losses, the checkpoint at step 2, the scalars, grids that decode to
     their tiles; fine-tune the result on one video's 12 frames (ê: 16
-    conv_bn launches; 3 steps of 17 AdaIN), the generator moved; drive it
+    conv_bn launches; 2 steps of 17 AdaIN), the generator moved; drive it
     from another video's directory (the C++ loader); the loop's Batch_time
     and Data_time, the step through the real loader beside the staged one
     of phase 8, and the loader's frames/s on this host; then the same
@@ -198,6 +198,16 @@ paths:
     ``cli.convert_reference_checkpoint`` converts both; the meta one loads
     whole into the train state on the card, the fine-tuned one drives 32
     frames through ``cli.drive.main`` (17 AdaIN launches).
+20. the FSTH family (the few-shot-talking-heads baseline) at its wrappers'
+    full widths, 256², batch 8, K=8, on the preprocessed tree of 15 (FAN's
+    keypoints, ``--dataloader voxceleb2``): the AdaIN kernel at each of the
+    FSTH generator's 11 shapes (17 AdaINs, 6 instance norms of its
+    stickman encoder), f32 and bf16, with a planted fault above the gate;
+    ``cli.train.main`` meta-trains from a seeded init, saves and
+    fine-tunes ``finetune_affine`` from the checkpoint, in f32 and in bf16
+    on the uint8 wire, 23 AdaIN launches a step; one meta step with the
+    kernels against the plain versions under the step gate, with a
+    planted fault; step times, peak memory, the stickman's host ms.
 
 Step 3 also times the AdaIN wrapper's host cost by call path: the
 wrapper, the operator alone, and the checks and the ctypes launch called
@@ -319,7 +329,7 @@ META = dict(FLAGSHIP, finetune=False, num_labels=16, dis_num_blocks=7,
 FT_BATCH = 8
 FT_EPOCHS = 5          # 2 batches an epoch (16 identities // batch 8)
 META_STEPS = 5
-DIST_EPOCHS = 2        # part (i): 2 epochs of 2 steps (16 identities // 8)
+DIST_EPOCHS = 1        # part (i): 1 epoch of 2 steps (16 identities // 8)
 DIST_TIMED = 4         # part (i): staged steps timed each way, in turns
 # part (ii): a rank's FSDP state between steps over its replicated state
 # (1/2 of the parameters, EMA and moments, plus the replicated buffers)
@@ -359,8 +369,8 @@ EHAT_TOL = 1e-4        # card vs CPU, ê of one batch, relative to max |ê|
 # of SOURCE² PNG frames (cropped to 256² by the loader)
 TREE = dict(identities=4, videos=4, frames=12)
 SOURCE = 320
-REAL_META_EPOCHS = 2   # 16 videos // batch 8 = 2 steps an epoch
-REAL_FT_EPOCHS = 3     # 12 frames at batch 8: 1 step an epoch (drop_last)
+REAL_META_EPOCHS = 1   # 16 videos // batch 8 = 2 steps an epoch
+REAL_FT_EPOCHS = 2     # 12 frames at batch 8: 1 step an epoch (drop_last)
 INT8_FRAMES = 48       # the int8 phase's driver directory: a batch and a tail
 INT8_CALIB_FRAMES = 16  # int8_static calibrates on these leading frames
 INT8_MIN_PSNR = 40.0   # the JAX package's int8 gate (tests/test_quantize.py)
@@ -387,6 +397,23 @@ EVAL_POSE_TOL = 1e-4   # card vs CPU: each pose error, relative
 # bound predicted before its first card run, PERF.md's findings); the planted
 # fault must read at least 3x above it
 JPEG_BOUND = (5e-4, 2e-3)   # identity error absolute, pose errors relative
+
+# The FSTH family at the wrappers' full widths, 256²: the
+# generator's 17 AdaIN + ReLU calls a forward as (H*W, C, count), and the 6
+# instance norms (+ ReLU) of its stickman encoder, which run through the
+# same kernel with their shared affine expanded over the batch
+FSTH_ADAIN_CALLS = [(256, 512, 9), (1024, 512, 2), (4096, 256, 2),
+                    (16384, 128, 2), (65536, 64, 2)]
+FSTH_IN_CALLS = [(16384, 64, 1), (16384, 128, 1), (4096, 128, 1),
+                 (4096, 256, 1), (1024, 256, 1), (1024, 512, 1)]
+FSTH_PER_FORWARD = sum(n for _, _, n in FSTH_ADAIN_CALLS + FSTH_IN_CALLS)
+FSTH_MODELS = ["--embedder", "FSTH", "--generator", "FSTH",
+               "--discriminator", "FSTH", "--criterions",
+               "adversarial, featmat, l1_rgb, idt_embed"]
+FSTH_BATCH = 8         # and K=8: n_frames_for_encoder
+FSTH_META_STEPS = 3    # epochs of one step: 8 samples of the split
+FSTH_FT_STEPS = 3      # epochs of one step: one video's 8 frames
+FSTH_FAULT_SCALE = 4   # the planted kernel fault: weight x (1 + 4 TOL)
 
 
 def require(cond, message):
@@ -1074,11 +1101,10 @@ def _copy_state(state, args, device, dtype=torch.float32):
     ema = {part: ({k: v.to(device, dtype, copy=True) for k, v in t.items()}
                   if isinstance(t, dict) else t.to(device, dtype, copy=True))
            for part, t in state.ema_params.items()}
-    embedding = None if not state.finetune else \
-        state.finetune_embedding.detach().to(device, copy=True) \
-        .requires_grad_()
+    leaves = {k: v.detach().to(device, copy=True).requires_grad_()
+              for k, v in state.finetune_leaves().items()}
     new = TrainState(models=models, ema_params=ema, step=state.step,
-                     finetune_embedding=embedding)
+                     **leaves)
     new.opt_g, new.opt_d = ft.optimizers(new, args)
     for src, dst in ((state.opt_g, new.opt_g), (state.opt_d, new.opt_d)):
         dst.count = src.count
@@ -1103,7 +1129,7 @@ def _leaves(state):
     # or the identity embedding (fine-tune)
     owners = ["generator"] * sum(
         1 for _ in state.models["generator"].parameters())
-    owners += ["finetune_embedding"] if state.finetune else [
+    owners += list(state.finetune_leaves()) if state.finetune else [
         "embedder." + name.split(".")[0]
         for name, _ in state.models["embedder"].named_parameters()]
     for i, mu in enumerate(state.opt_g.mu):
@@ -1112,9 +1138,8 @@ def _leaves(state):
     out[("discriminator", "gradient")] = {
         str(i): mu.detach().cpu().clone()
         for i, mu in enumerate(state.opt_d.mu)}
-    if state.finetune:
-        out[("finetune_embedding", "params")] = {
-            "": state.finetune_embedding.detach().cpu().clone()}
+    for name, leaf in state.finetune_leaves().items():
+        out[(name, "params")] = {"": leaf.detach().cpu().clone()}
     return out
 
 
@@ -1862,7 +1887,7 @@ def phase_real_data(meta_ckpt, tree, rows, workdir, device, staged_ms,
             "--allow_random_vgg", "--experiments_dir", str(workdir), *modes]
     total = {"bn_relu_conv1x1_stats": 0, "adain_fused": 0}
 
-    # meta-train: 2 epochs of 2 steps at batch 8, K=8
+    # meta-train: REAL_META_EPOCHS epochs of 2 steps at batch 8, K=8
     steps, meters = [], []
     torch.cuda.synchronize()
     _zero_launches()
@@ -3017,6 +3042,250 @@ def phase_drive_crop(ckpt, prep, workdir, device):
 # children by a sitecustomize on their PYTHONPATH, which also imports the
 # CLIs, loads both kernels and opens the card (the child's start-up) and
 # reports each kernel's launches and the peak device memory at exit
+def fsth_kernel_checks(device):
+    """The AdaIN kernel against its plain version at every (H*W, C) of an
+    FSTH generator forward, batch 8, f32 and bf16, each error relative to
+    the plain output's max within TOL, and a planted fault (the weight
+    FSTH_FAULT_SCALE x TOL off) above it; the 23 calls' f32 time beside
+    the plain version's and the bound.  Returns (max relative error, ms,
+    plain ms, bound ms, device ms) of the 23 f32 calls."""
+    worst, ms, plain_ms, bound, busy = 0.0, 0.0, 0.0, 0.0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for hw, c, count in FSTH_ADAIN_CALLS + FSTH_IN_CALLS:
+            x, w, b = adain_inputs(FSTH_BATCH, hw, c, dtype, device,
+                                   seed=3 * hw + c)
+            want = adain_op.adain_reference(x, w, b).float()
+            scale = want.abs().max().item()
+            err = (adain_op.adain(x, w, b).float() - want).abs().max().item()
+            faulty = adain_op.adain(x, w * (1 + FSTH_FAULT_SCALE * TOL[dtype]),
+                                    b)
+            fault = (faulty.float() - want).abs().max().item()
+            plan, _ = adain_op.card_plan(hw, c, dtype)
+            line = (f"fsth adain B={FSTH_BATCH} HW={hw} C={c} "
+                    f"{str(dtype)[6:]}: err/max={err / scale:.3g} planted "
+                    f"fault {fault / scale:.3g} (gate {TOL[dtype]}) "
+                    f"cluster={plan.cluster} "
+                    f"holds_sample={plan.holds_sample}")
+            require(err <= TOL[dtype] * scale, f"FSTH AdaIN HW={hw} C={c} "
+                    f"{dtype}: {err} > {TOL[dtype]} x {scale}")
+            require(fault > TOL[dtype] * scale, f"the planted AdaIN fault "
+                    f"passes the gate at HW={hw} C={c} {dtype}: {fault}")
+            worst = max(worst, err / scale)
+            if dtype == torch.float32:
+                k = cuda_ms(lambda: adain_op.adain(x, w, b), 10)
+                p = cuda_ms(lambda: adain_op.adain_reference(x, w, b), 10)
+                dev, _ = device_busy_ms(lambda: adain_op.adain(x, w, b), 10)
+                lo = adain_bound_ms(x)
+                line += (f" kernel_ms={k:.4f} plain_ms={p:.4f} "
+                         f"bound_ms={lo:.4f} (bytes) {_device(dev, lo)} "
+                         f"(x{count} a forward)")
+                ms += count * k
+                plain_ms += count * p
+                bound += count * lo
+                busy = None if dev is None or busy is None else \
+                    busy + count * dev
+            print(line, flush=True)
+            del x, w, b, want, faulty
+    print(f"fsth adain: the {FSTH_PER_FORWARD} calls of one f32 FSTH "
+          f"generator forward at batch {FSTH_BATCH}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms (bytes, 3.35 "
+          f"TB/s), share {bound / ms:.3f}; {_device(busy, bound)}",
+          flush=True)
+    return worst, ms, plain_ms, bound, busy
+
+
+def _fsth_tree(prep, workdir):
+    """The preprocessed tree's videos (FAN keypoints) as a split of
+    FSTH_BATCH samples (each video listed again to fill the batch)."""
+    root = Path(prep["data_root"])
+    videos = sorted(str(p.relative_to(root / "images-cropped"))
+                    for p in (root / "images-cropped").glob("*/*")
+                    if p.is_dir())
+    rows = (videos * FSTH_BATCH)[:FSTH_BATCH]
+    split = workdir / "fsth_split.csv"
+    split.write_text("path\n" + "\n".join(rows) + "\n")
+    return root, videos, split
+
+
+def _stickman_ms(root):
+    """Host ms a 256² stickman of FAN's keypoints (one core, median of 5
+    rounds of 50)."""
+    from latentpose_tpu_torch.data.common import voxceleb
+    kp = np.load(sorted((root / "keypoints-cropped").rglob("*.npy"))[0])
+    kp = kp[:, :2]
+    rounds = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(50):
+            voxceleb.draw_stickman((256, 256), kp)
+        rounds.append((time.perf_counter() - t0) / 50 * 1e3)
+    return float(np.median(rounds))
+
+
+def phase_fsth(prep, workdir, device):
+    """The FSTH family on the card at the wrappers' full widths (256², 64
+    to 512 channels, embedder 6 blocks, generator 4 down and 4 residual
+    blocks, discriminator 7 blocks), batch 8, K=8, on the preprocessed
+    tree's frames and FAN keypoints through ``--dataloader voxceleb2``:
+
+    - the AdaIN kernel at each FSTH shape, f32 and bf16, with its planted
+      fault (:func:`fsth_kernel_checks`);
+    - ``cli.train.main`` meta-trains FSTH_META_STEPS steps from a seeded
+      init in f32 and saves; fine-tunes FSTH_FT_STEPS steps from that
+      checkpoint (``finetune_affine`` trained, the projector untouched);
+      then the same in bf16 on the uint8 wire, each step launching
+      FSTH_PER_FORWARD AdaIN kernels and no conv_bn; FSTH_plus (the
+      keypoints' generator, 17 AdaINs a forward) 2 meta and 2 fine-tune
+      steps (ê) in f32;
+    - one FSTH meta step with the kernels against the same step under
+      ``_plain_kernels()`` (batch 2, card, f32) under the step gate, and
+      the step with the generator's frames FT_FAULT_SCALE off, which must
+      read above it;
+    - the step times (the median of the steps after the first, which
+      builds the cuDNN plans), peak memory and the stickman's host ms.
+
+    Returns the AdaIN launches of the CLI runs and the kernel numbers."""
+    t_phase = time.perf_counter()
+    workdir.mkdir(parents=True, exist_ok=True)
+    kernel = fsth_kernel_checks(device)
+    root, videos, split = _fsth_tree(prep, workdir)
+    data = ["--dataloader", "voxceleb2", "--data_root", str(root),
+            "--n_frames_for_encoder", "8", "--batch_size", str(FSTH_BATCH),
+            "--device", str(device), "--allow_random_vgg",
+            "--save_frequency", "0", "--experiments_dir", str(workdir)]
+    launches, times = 0, {}
+    ckpts = {}
+    for label, modes, meta_steps, ft_steps in (
+            ("f32", [], FSTH_META_STEPS, FSTH_FT_STEPS),
+            ("bf16 + uint8", list(BF16_MODES), FSTH_META_STEPS,
+             FSTH_FT_STEPS)):
+        tag = "" if not modes else "_bf16"
+        steps = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _counted_steps(steps):
+            _, meta = train_cli.main([
+                *FSTH_MODELS, *data, *modes, "--train_split_path",
+                str(split), "--num_epochs", str(meta_steps),
+                "--experiment_name", f"fsth_meta{tag}"])
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        _require_steps(f"FSTH meta-train ({label})", steps,
+                       {"bn_relu_conv1x1_stats": 0,
+                        "adain_fused": FSTH_PER_FORWARD}, meta_steps)
+        meta_ms = float(np.median([s["ms"] for s in steps[1:]]))
+        launches += sum(s["launches"]["adain_fused"] for s in steps)
+        ft_record = []
+        torch.cuda.reset_peak_memory_stats()
+        with _counted_steps(ft_record):
+            _, ft_path = train_cli.main([
+                "--finetune", "--checkpoint_path", str(meta), *data,
+                "--train_split_path", videos[0], "--optimizer", "RAdam",
+                "--lr_gen", "5e-4", "--lr_dis", "8e-4", "--num_epochs",
+                str(ft_steps), "--experiment_name", f"fsth_ft{tag}"])
+        ft_peak = torch.cuda.max_memory_allocated() / 2**20
+        _require_steps(f"FSTH fine-tune ({label})", ft_record,
+                       {"bn_relu_conv1x1_stats": 0,
+                        "adain_fused": FSTH_PER_FORWARD}, ft_steps)
+        launches += sum(s["launches"]["adain_fused"] for s in ft_record)
+        before, after = (ckpt_lib.load_arrays(p) for p in (meta, ft_path))
+        require("params::finetune_affine" in after
+                and "params::finetune_embedding" not in after
+                and np.isfinite(after["params::finetune_affine"]).all(),
+                f"FSTH fine-tune ({label}): its checkpoint's leaves")
+        for key in ("params::generator::project::kernel",
+                    "spectral::generator::project::u"):
+            require(np.array_equal(before[key], after[key]),
+                    f"FSTH fine-tune ({label}) moved {key}")
+        require(not np.array_equal(
+            before["params::generator::head_conv::kernel"],
+            after["params::generator::head_conv::kernel"]),
+            f"FSTH fine-tune ({label}) left the generator as it was")
+        ft_ms = float(np.median([s["ms"] for s in ft_record[1:]]))
+        times[label] = (meta_ms, ft_ms)
+        ckpts[label] = meta
+        print(f"fsth {label}: meta-train {meta_steps} steps through "
+              f"cli.train, batch {FSTH_BATCH} K=8 256², step_ms (median "
+              f"after the first)="
+              f"{meta_ms:.2f} (each "
+              f"{', '.join(f'{s['ms']:.1f}' for s in steps)}) peak_mem_MiB="
+              f"{peak:.0f}; losses {steps[-1]['losses']}; fine-tune "
+              f"{ft_steps} steps (finetune_affine), step_ms (median after "
+              f"the first)="
+              f"{ft_ms:.2f} (each "
+              f"{', '.join(f'{s['ms']:.1f}' for s in ft_record)}) "
+              f"peak_mem_MiB={ft_peak:.0f}; AdaIN launches a step "
+              f"{steps[0]['launches']['adain_fused']}", flush=True)
+        del before, after
+
+    # FSTH_plus: the flagship's decoder driven by the keypoints, 17 AdaINs
+    # a forward; its fine-tune trains ê
+    plus = [a if a != "FSTH" or FSTH_MODELS[i - 1] != "--generator"
+            else "FSTH_plus" for i, a in enumerate(FSTH_MODELS)]
+    plus_steps, plus_ft = [], []
+    with _counted_steps(plus_steps):
+        _, plus_meta = train_cli.main([
+            *plus, *data, "--train_split_path", str(split), "--num_epochs",
+            "2", "--experiment_name", "fsth_plus_meta"])
+    with _counted_steps(plus_ft):
+        _, plus_path = train_cli.main([
+            "--finetune", "--checkpoint_path", str(plus_meta), *data,
+            "--train_split_path", videos[0], "--optimizer", "RAdam",
+            "--num_epochs", "2", "--experiment_name", "fsth_plus_ft"])
+    for what, record in (("meta-train", plus_steps),
+                         ("fine-tune", plus_ft)):
+        _require_steps(f"FSTH_plus {what}", record,
+                       {"bn_relu_conv1x1_stats": 0,
+                        "adain_fused": ADAIN_PER_FORWARD}, 2)
+        launches += sum(s["launches"]["adain_fused"] for s in record)
+    arrays = ckpt_lib.load_arrays(plus_path)
+    require("params::finetune_embedding" in arrays
+            and "params::finetune_affine" not in arrays,
+            "FSTH_plus fine-tune: its checkpoint's leaves")
+    print(f"fsth_plus f32: meta-train 2 steps (each "
+          f"{', '.join(f'{s['ms']:.1f}' for s in plus_steps)} ms), "
+          f"fine-tune 2 steps (ê; each "
+          f"{', '.join(f'{s['ms']:.1f}' for s in plus_ft)} ms) through "
+          f"cli.train; AdaIN launches a step "
+          f"{plus_steps[0]['launches']['adain_fused']}", flush=True)
+    del arrays
+
+    # the step with the kernels against the plain versions, batch 2
+    args = train_cli.resolve_args([
+        "--checkpoint_path", str(ckpts["f32"]), *data, "--train_split_path",
+        str(split)])
+    state = train_cli.load_checkpoint(args, torch.device("cpu"))
+    batches = iter(train_cli.build_dataloader(args, "train", "train"))
+    data_dict, target = next(batches)
+    batches.close()
+    host = ({k: v[:2] for k, v in data_dict.items()},
+            {k: v[:2] for k, v in target.items()})
+    keys = holycow.META_STEP_KEYS
+    generator = type(state.models["generator"])
+    plain = _run_step(args, state, host, keys, device, _plain_kernels)
+    runs = {"kernels": _run_step(args, state, host, keys, device),
+            "planted fault": _run_step(
+                args, state, host, keys, device,
+                lambda: _planted_frame_fault(generator))}
+    gaps = {way: _gaps(plain, run) for way, run in runs.items()}
+    for way, gap in gaps.items():
+        _print_gaps(f"fsth meta step {way} vs plain kernels, batch 2 256² "
+                    f"f32 (TF32 off)", *gap)
+    _require_step("FSTH meta step (kernels vs plain)", *gaps["kernels"],
+                  GRAD_TOL)
+    name, gap = _worst_loss(gaps["planted fault"][0])
+    require(gap > STEP_TOL, f"the planted FSTH fault passes the step gate: "
+            f"{name} {gap}")
+    del state
+    torch.cuda.empty_cache()
+    stick_ms = _stickman_ms(root)
+    print(f"fsth: stickman of 68 FAN keypoints at 256² on the host "
+          f"(csrc/stickman.cpp through ctypes): {stick_ms:.3f} ms median",
+          flush=True)
+    print(f"fsth phase: {time.perf_counter() - t_phase:.1f} s; AdaIN "
+          f"launches {launches} ({FSTH_PER_FORWARD} a forward)", flush=True)
+    return launches, kernel, times, stick_ms
+
+
 CHILD_SITE = '''
 import atexit, sys, time
 for _name in {blocked!r}:
@@ -4243,6 +4512,21 @@ def meta_repro(modes=("default", "deterministic")):
                   flush=True)
 
 
+PHASE_SECONDS = {}
+
+
+def timed(name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its seconds kept in PHASE_SECONDS and
+    printed."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) \
+            + time.perf_counter() - t0
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main():
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4273,55 +4557,64 @@ def main():
         print(build_log(load_library(*mod.LIBRARY)), flush=True)
 
     (adain_err, adain_ms, adain_plain_ms, adain_bound,
-     adain_device_ms) = phase_kernels(device)
+     adain_device_ms) = timed("kernels", phase_kernels, device)
     (conv_err, conv_ms, conv_plain_ms, conv_bound, conv_bound_by,
-     conv_library_ms, conv_device_ms) = phase_conv_bn(device)
-    phase_int8_convs(device)
-    conv_train = phase_conv_bn_train(device)
-    conv_train16 = phase_conv_bn_train(device, torch.bfloat16)
-    adain_train16 = phase_adain_train(device)
+     conv_library_ms, conv_device_ms) = timed("conv_bn", phase_conv_bn,
+                                              device)
+    timed("int8_convs", phase_int8_convs, device)
+    conv_train = timed("conv_bn_train", phase_conv_bn_train, device)
+    conv_train16 = timed("conv_bn_train_bf16", phase_conv_bn_train, device,
+                         torch.bfloat16)
+    adain_train16 = timed("adain_train", phase_adain_train, device)
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as workdir:
-        ckpt = phase_checkpoint(workdir)
+        ckpt = timed("checkpoint", phase_checkpoint, workdir)
         size = FLAGSHIP["image_size"]
         frames = cli.load_driver_frames("synthetic://3", size)
         require(frames.shape == (32, size, size, 3), f"frames {frames.shape}")
-        args, models, state, _ = drive_once(ckpt, [], frames)
-        drive_once(ckpt, ["--compute_dtype", "float32"], frames)
-        phase_throughput(models, args, state, frames)
-        phase_card_vs_cpu(ckpt, models, state, frames[:4])
+        args, models, state, _ = timed("drive", drive_once, ckpt, [], frames)
+        timed("drive_f32", drive_once, ckpt, ["--compute_dtype", "float32"],
+              frames)
+        timed("throughput", phase_throughput, models, args, state, frames)
+        timed("card_vs_cpu", phase_card_vs_cpu, ckpt, models, state,
+              frames[:4])
         del models, state
 
-        meta_ckpt = phase_meta_checkpoint(Path(workdir) / "meta")
+        meta_ckpt = timed("meta_checkpoint", phase_meta_checkpoint,
+                          Path(workdir) / "meta")
         (meta_args, meta_state, meta_loader, trained_ckpt, meta_launches,
-         staged_ms) = phase_meta_train(meta_ckpt, Path(workdir) / "metatrain",
-                                       device)
-        phase_meta_step_card_vs_cpu(meta_args, meta_ckpt, meta_loader,
-                                    device)
-        phase_bf16_step_card(meta_args, meta_state, meta_loader, device)
+         staged_ms) = timed("meta_train", phase_meta_train, meta_ckpt,
+                            Path(workdir) / "metatrain", device)
+        timed("meta_step_card_vs_cpu", phase_meta_step_card_vs_cpu,
+              meta_args, meta_ckpt, meta_loader, device)
+        timed("bf16_step_card", phase_bf16_step_card, meta_args, meta_state,
+              meta_loader, device)
         del meta_state, meta_loader
         torch.cuda.empty_cache()
-        (_, _, _, _, meta16_launches, staged16_ms) = phase_meta_train(
-            meta_ckpt, Path(workdir) / "metatrain_bf16", device, BF16_MODES)
+        (_, _, _, _, meta16_launches, staged16_ms) = timed(
+            "meta_train_bf16", phase_meta_train, meta_ckpt,
+            Path(workdir) / "metatrain_bf16", device, BF16_MODES)
         print(f"meta step, staged batches, batch 8 K=8: bf16 + uint8 wire "
               f"{staged16_ms:.2f} ms against f32 {staged_ms:.2f} ms (same "
               f"run): {staged16_ms / staged_ms:.3f} of the f32 step",
               flush=True)
         torch.cuda.empty_cache()
-        dist_launches, dist_children = phase_distributed(
-            meta_ckpt, Path(workdir) / "distributed", device)
+        dist_launches, dist_children = timed(
+            "distributed", phase_distributed, meta_ckpt,
+            Path(workdir) / "distributed", device)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         tree, rows = write_tree(Path(workdir) / "tree")
         print(f"real data: tree of {len(rows)} videos x {TREE['frames']} "
               f"{SOURCE}² PNG frames and masks in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        real_launches, real_times = phase_real_data(
-            meta_ckpt, tree, rows, Path(workdir) / "real", device, staged_ms)
-        real16_launches, real16_times = phase_real_data(
-            meta_ckpt, tree, rows, Path(workdir) / "real", device,
-            staged16_ms, BF16_MODES)
+        real_launches, real_times = timed(
+            "real_data", phase_real_data, meta_ckpt, tree, rows,
+            Path(workdir) / "real", device, staged_ms)
+        real16_launches, real16_times = timed(
+            "real_data_bf16", phase_real_data, meta_ckpt, tree, rows,
+            Path(workdir) / "real", device, staged16_ms, BF16_MODES)
         for regime in ("meta", "finetune"):
             (a, b) = real_times[regime], real16_times[regime]
             print(f"real data, {regime} through the CLI: f32 step_ms "
@@ -4330,33 +4623,45 @@ def main():
                   f"{b[0]:.2f} Data_time_ms {b[1]:.2f} Batch_time_ms "
                   f"{b[2]:.2f} ({b[1] / b[2]:.1%})", flush=True)
         (ft_args, ft_state, ft_seeded, loader, ft_ckpt,
-         ft_launches) = phase_finetune(
-            trained_ckpt, Path(workdir) / "finetune", device)
-        drive_once(ft_ckpt, [], frames)
-        int8_adains = phase_int8_drive(ft_ckpt, Path(workdir) / "int8",
-                                       frames, device)
-        prep = phase_preprocess(Path(workdir) / "prep", device)
-        crop_adains = phase_drive_crop(ft_ckpt, prep,
-                                       Path(workdir) / "drive_crop", device)
-        phase_ehat_card_vs_cpu(ft_state, loader, device)
-        phase_step_card_vs_cpu(ft_args, {"seeded": ft_seeded,
-                                          "trained": ft_state}, loader,
-                               device)
+         ft_launches) = timed(
+            "finetune", phase_finetune, trained_ckpt,
+            Path(workdir) / "finetune", device)
+        timed("drive_finetuned", drive_once, ft_ckpt, [], frames)
+        int8_adains = timed("int8_drive", phase_int8_drive, ft_ckpt,
+                            Path(workdir) / "int8", frames, device)
+        prep = timed("preprocess", phase_preprocess, Path(workdir) / "prep",
+                     device)
+        crop_adains = timed("drive_crop", phase_drive_crop, ft_ckpt, prep,
+                            Path(workdir) / "drive_crop", device)
+        torch.cuda.empty_cache()
+        fsth_launches, fsth_kernel, fsth_times, stick_ms = timed(
+            "fsth", phase_fsth, prep, Path(workdir) / "fsth", device)
+        torch.cuda.empty_cache()
+        timed("ehat_card_vs_cpu", phase_ehat_card_vs_cpu, ft_state, loader,
+              device)
+        timed("step_card_vs_cpu", phase_step_card_vs_cpu, ft_args,
+              {"seeded": ft_seeded, "trained": ft_state}, loader, device)
         del ft_args, ft_state, ft_seeded, loader
         torch.cuda.empty_cache()
-        export_launches = phase_export(ft_ckpt, Path(workdir) / "export",
-                                       frames, device)
-        reference_launches = phase_reference_checkpoint(
+        export_launches = timed("export", phase_export, ft_ckpt,
+                                Path(workdir) / "export", frames, device)
+        reference_launches = timed(
+            "reference_checkpoint", phase_reference_checkpoint,
             Path(workdir) / "reference", device)
         torch.cuda.empty_cache()
-        protocol_launches = phase_eval(meta_ckpt, Path(workdir) / "eval",
-                                       device)
+        protocol_launches = timed("eval", phase_eval, meta_ckpt,
+                                  Path(workdir) / "eval", device)
     bf16_launches = {k: meta16_launches[k] + real16_launches[k]
                      for k in ft_launches}
     launches = {k: meta_launches[k] + ft_launches[k] + real_launches[k]
                 + bf16_launches[k] + dist_launches[k] for k in ft_launches}
-    launches["adain_fused"] += int8_adains + crop_adains + reference_launches
+    launches["adain_fused"] += int8_adains + crop_adains + reference_launches \
+        + fsth_launches
 
+    print("phases by seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(PHASE_SECONDS.items(),
+                                           key=lambda kv: -kv[1])),
+          flush=True)
     print(f"smoke total: {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         "name": "adain_fused", "route": "cuda",
@@ -4372,7 +4677,17 @@ def main():
         "distributed_child_launches": dist_children["adain_fused"],
         "eval_child_launches": protocol_launches["adain_fused"],
         "export_child_launches": export_launches,
-        "reference_drive_launches": reference_launches}, {
+        "reference_drive_launches": reference_launches,
+        "fsth_launches": fsth_launches,
+        "fsth": {"max_rel_err": fsth_kernel[0], "ms": fsth_kernel[1],
+                 "plain_ms": fsth_kernel[2], "bound_ms": fsth_kernel[3],
+                 "device_ms": fsth_kernel[4],
+                 "calls_a_forward": FSTH_PER_FORWARD,
+                 "meta_step_ms": fsth_times["f32"][0],
+                 "finetune_step_ms": fsth_times["f32"][1],
+                 "bf16_meta_step_ms": fsth_times["bf16 + uint8"][0],
+                 "bf16_finetune_step_ms": fsth_times["bf16 + uint8"][1],
+                 "stickman_host_ms": stick_ms}}, {
         "name": "bn_relu_conv1x1_stats", "route": "cuda",
         "source": "latentpose_tpu_torch/csrc/conv_bn_fused.cu",
         "replaces": "latentpose_tpu/ops/pallas/conv_bn_fused.py:58",

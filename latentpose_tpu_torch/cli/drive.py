@@ -207,7 +207,14 @@ def inline_crop_frames(path, args, detector=None):
 def load_finetuned(args, device):
     """Build the flagship's drive modules from ``args``, load the fine-tuned
     checkpoint ``args.checkpoint_path`` into them and move them to
-    ``device``.  Returns (models, state) for :func:`make_drive_fn`."""
+    ``device``.  Returns (models, state) for :func:`make_drive_fn`.  The
+    FSTH family is refused: its generators take the driver's stickman or
+    keypoints, which drive does not compute (nor does the JAX package's
+    drive)."""
+    if args.generator in ("FSTH", "FSTH_plus"):
+        raise NotImplementedError(
+            f"drive takes the flagship's latent pose; the {args.generator} "
+            "generator needs the driver's landmarks (ROADMAP.md A.19)")
     models = {
         "embedder": registry.load_wrapper("embedders", args.embedder)
         .get_net(args),

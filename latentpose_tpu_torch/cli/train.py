@@ -10,8 +10,17 @@
 
 Dataloaders: ``voxceleb2_segmentation_nolandmarks`` (the preprocessed
 VoxCeleb2 tree: frames, segmentation masks, bboxes, split CSVs; fine-tuning
-reads one directory of a person's images) and ``synthetic`` (procedural
-faces).
+reads one directory of a person's images), the landmark datasets
+``voxceleb2``, ``voxceleb2_segm`` and ``voxceleb2_FSTH_crop`` (frames,
+``keypoints-cropped`` and their stickmen) and ``synthetic`` (procedural
+faces; ``--synthetic_stickmen`` adds keypoints and stickmen).
+
+Model families: the flagship (the defaults of ``--config_name default``)
+and the few-shot-talking-heads baseline: ``--embedder FSTH --generator
+FSTH|FSTH_plus --discriminator FSTH`` on a landmark dataset, with the
+criterion ``l1_rgb`` beside the others (``idt_embed`` takes its face box
+from the keypoints).  An FSTH fine-tune trains the generator's packed AdaIN
+parameters (``finetune_affine``) where the flagship and FSTH_plus train ê.
 
 Meta-training (no ``--finetune``) starts from a seeded init of the flagship
 models, or resumes a meta-trained checkpoint of either package: the
@@ -97,8 +106,8 @@ from latentpose_tpu_torch.parallel import launch
 from latentpose_tpu_torch.parallel import mesh as parallel
 from latentpose_tpu_torch.runners import finetune as ft
 from latentpose_tpu_torch.runners import holycow, loop
-from latentpose_tpu_torch.runners.state import (TrainState, ema_of,
-                                                shard_groups)
+from latentpose_tpu_torch.runners.state import (FINETUNE_LEAVES, TrainState,
+                                                ema_of, shard_groups)
 from latentpose_tpu_torch.utils.logging_writer import setup_logging
 from latentpose_tpu_torch.utils.saver import Saver
 
@@ -136,7 +145,14 @@ DEFAULTS = dict(
     args_to_ignore="checkpoint,splits_dir,experiments_dir,extension,"
                    "experiment_name,rank,local_rank,world_size",
     profile_dir="", profile_steps=5, config_name="",
-    param_sharding="replicated")
+    param_sharding="replicated", synthetic_stickmen=False, l1_weight=30.0,
+    embed_padding="zero", embed_num_blocks=6, gen_num_downsample_blocks=4,
+    norm_layer="in")
+
+# Defaults that a plugin's get_args gives its own arg in the JAX package,
+# where they differ from DEFAULTS: they take DEFAULTS' level when the run
+# selects the plugin.
+PLUGIN_DEFAULTS = {("generator", "FSTH"): dict(gen_num_residual_blocks=4)}
 
 # configs/default.yaml, the flagship meta-training config.
 META_CONFIG = dict(
@@ -190,7 +206,8 @@ def build_parser():
                  "transfer_dtype", "grad_dtype", "optimizer", "data_root",
                  "img_dir", "segm_dir", "kp_dir", "bboxes_dir",
                  "train_split_path", "val_split_path", "saver",
-                 "profile_dir"):
+                 "profile_dir", "embed_padding", "gen_padding",
+                 "dis_padding", "average_function"):
         parser.add_argument(f"--{name}", default=None)
     parser.add_argument("--param_sharding", choices=PARAM_SHARDING,
                         default=None)
@@ -203,17 +220,20 @@ def build_parser():
                  "embed_channels", "pose_embedding_size", "dis_num_blocks",
                  "gen_num_residual_blocks", "num_workers", "prefetch_size",
                  "n_frames_for_encoder", "batch_size_inference",
-                 "num_visuals_per_img", "profile_steps"):
+                 "num_visuals_per_img", "profile_steps",
+                 "embed_num_blocks", "gen_num_downsample_blocks",
+                 "gen_constant_input_size"):
         parser.add_argument(f"--{name}", type=int, default=None)
     parser.add_argument("--fixed_val_ids", type=int, action="append",
                         default=None)
-    for name in ("lr_gen", "lr_dis", "beta1"):
+    for name in ("lr_gen", "lr_dis", "beta1", "l1_weight"):
         parser.add_argument(f"--{name}", type=float, default=None)
     for name in ("allow_random_vgg", "set_eval_mode_in_train", "skip_eval",
                  "explicit_grad_reduce", "weights_running_average",
                  "use_pixelwise_augs", "use_affine_scale",
                  "use_affine_shift", "draw_oval", "logging",
-                 "detailed_metrics", "set_eval_mode_in_test"):
+                 "detailed_metrics", "set_eval_mode_in_test",
+                 "synthetic_stickmen"):
         parser.add_argument(f"--{name}", action=flag, default=None)
     return parser
 
@@ -241,12 +261,20 @@ def _resolve(argv):
             _refuse(f"--config_name {cli.config_name} (the port carries "
                     f"{sorted(CONFIGS)})", "A.21")
         config = CONFIGS[cli.config_name]
-    base = dict(DEFAULTS)
-    if cli.checkpoint_path:
-        base.update(ckpt_lib.peek_args(cli.checkpoint_path))
-    base.update(config)
-    args = dict(base)
-    args.update({k: v for k, v in vars(cli).items() if v is not None})
+    saved = ckpt_lib.peek_args(cli.checkpoint_path) \
+        if cli.checkpoint_path else {}
+    flags = {k: v for k, v in vars(cli).items() if v is not None}
+
+    def levels(defaults):
+        base = {**defaults, **saved, **config}
+        return base, {**base, **flags}
+
+    base, args = levels(DEFAULTS)
+    plugin = {}
+    for flag in ("embedder", "generator", "discriminator", "dataloader"):
+        plugin.update(PLUGIN_DEFAULTS.get((flag, args[flag]), {}))
+    if plugin:
+        base, args = levels({**DEFAULTS, **plugin})
     if cli.fixed_val_ids:
         args["fixed_val_ids"] = list(base["fixed_val_ids"]) \
             + cli.fixed_val_ids
@@ -365,18 +393,21 @@ def load_checkpoint(args, device) -> TrainState:
                                     "embedding"))]
     args.num_labels = int(embed.shape[0])
     models = build_models(args)
-    finetune_embedding = None
+    leaves = {}
     if finetuned:
         models["discriminator"].embed = SNEmbed(1, embed.shape[1],
                                                 sn_eps=1e-12)
-        finetune_embedding = torch.zeros(1, embed.shape[1], device=device)
+        # the checkpoint's per-avatar leaves (finetune_embedding, or
+        # FSTH's finetune_affine), filled by load_train_state
+        leaves = {name: torch.zeros(flat[f"params{ckpt_lib.SEP}{name}"]
+                                    .shape, device=device)
+                  for name in FINETUNE_LEAVES
+                  if f"params{ckpt_lib.SEP}{name}" in flat}
     models = {k: m.to(device) for k, m in models.items()}
     state = TrainState(models=models, ema_params={},
-                       finetune_embedding=finetune_embedding)
-    if finetuned:
-        state.finetune_embedding.requires_grad_()
-        state.ema_params["finetune_embedding"] = torch.zeros_like(
-            finetune_embedding)
+                       **{k: v.requires_grad_() for k, v in leaves.items()})
+    state.ema_params.update({k: torch.zeros_like(v)
+                             for k, v in leaves.items()})
     state.opt_g, state.opt_d = ft.optimizers(state, args)
     convert.load_train_state(flat, state)
     logger.info("Loaded %s checkpoint %s (iteration %d, optimizer count "
@@ -414,7 +445,9 @@ def start_finetuning(args, state, dataloader, device):
         e_hat = ft.compute_averaged_identity_embedding(
             state, dataloader, device, holycow.compute_dtype(args))
     generator = torch.Generator().manual_seed(args.random_seed)
-    state = ft.enable_finetuning(state, args, e_hat, generator=generator)
+    state = ft.enable_finetuning(
+        state, args, e_hat, generator=generator,
+        gen_wrapper=registry.load_wrapper("generators", args.generator))
     args.num_labels = 1
     return state
 

@@ -158,7 +158,8 @@ def optimizer_layouts(state):
     ``g_trainable(state)`` and ``d_trainable(state)``, in their order."""
     models = state.models
     g = _param_layout(models["generator"], "generator")
-    g += ([("finetune_embedding",) + _SAME] if state.finetune
+    g += ([(name,) + _SAME for name in state.finetune_leaves()]
+          if state.finetune
           else _param_layout(models["embedder"], "embedder"))
     return {"opt_state_g": g,
             "opt_state_d": _param_layout(models["discriminator"],
@@ -211,10 +212,11 @@ def export_optimizer_states(state) -> dict:
 def load_train_state(flat, state):
     """Load a checkpoint's arrays into ``state`` in place: the three modules
     (params, BatchNorm statistics, spectral state), the EMA weights, the
-    identity embedding of a fine-tuned state, both optimizers and the step.
+    per-avatar leaves of a fine-tuned state, both optimizers and the step.
     ``state`` holds the checkpoint's structure (a fine-tuned state: the
-    one-row discriminator and ``finetune_embedding``) on its device, with
-    its optimizers built; any key not read is an error."""
+    one-row discriminator and its per-avatar leaves, ``finetune_embedding``
+    or ``finetune_affine``) on its device, with its optimizers built; any
+    key not read is an error."""
     used = {"step"}
     for part in PARTS:
         used |= load_into(state.models[part], flat, part)
@@ -223,11 +225,10 @@ def load_train_state(flat, state):
         device = next(state.models[part].parameters()).device
         state.ema_params[part] = {k: v.to(device) for k, v in ema.items()}
         used |= keys
-    if state.finetune:
-        for coll, target in (("params", state.finetune_embedding),
-                             ("ema_params",
-                              state.ema_params["finetune_embedding"])):
-            key = _key(coll, "", "finetune_embedding")
+    for name, leaf in state.finetune_leaves().items():
+        for coll, target in (("params", leaf),
+                             ("ema_params", state.ema_params[name])):
+            key = _key(coll, "", name)
             with torch.no_grad():
                 target.copy_(_to_torch(flat, key, None, target.shape))
             used.add(key)
@@ -249,11 +250,10 @@ def export_train_state(state) -> dict:
     for part in EMA_PARTS:
         flat.update(export_ema(state.models[part], part,
                                state.ema_params[part]))
-    if state.finetune:
-        flat[f"params{SEP}finetune_embedding"] = \
-            state.finetune_embedding.detach().cpu().numpy()
-        flat[f"ema_params{SEP}finetune_embedding"] = \
-            state.ema_params["finetune_embedding"].detach().cpu().numpy()
+    for name, leaf in state.finetune_leaves().items():
+        flat[f"params{SEP}{name}"] = leaf.detach().cpu().numpy()
+        flat[f"ema_params{SEP}{name}"] = \
+            state.ema_params[name].detach().cpu().numpy()
     if state.opt_g is not None:
         flat.update(export_optimizer_states(state))
     return flat

@@ -468,11 +468,14 @@ def augment_data_dict(batch, draw, use_pixelwise=False, use_scale=False,
                       use_shift=False, rows=None, global_size=None):
     """:func:`augment_triplet` on a train batch (driver, target and
     segmentation with a leading frame axis of 1), drawing from ``draw``;
-    the batch as it is when every switch is off.  ``rows`` (a LongTensor):
-    the batch is these rows of a global batch of ``global_size`` rows, and
-    takes these rows of the global batch's draws (a rank's part of the
-    default data-parallel regime's draw)."""
-    if not (use_pixelwise or use_scale or use_shift):
+    the batch as it is when every switch is off or, as in the JAX package,
+    when it has no segmentation (the landmark datasets).  ``rows`` (a
+    LongTensor): the batch is these rows of a global batch of
+    ``global_size`` rows, and takes these rows of the global batch's draws
+    (a rank's part of the default data-parallel regime's draw)."""
+    needed = {"pose_input_rgbs", "target_rgbs", "real_segm"}
+    if not (use_pixelwise or use_scale or use_shift) \
+            or not needed <= set(batch):
         return batch
     driver = batch["pose_input_rgbs"][:, 0]
     target, segm = batch["target_rgbs"], batch["real_segm"]

@@ -13,10 +13,13 @@ frame sampling and the cross-driving sample lookup.
   ``torch.distributed``'s when it is initialised, else 1);
 - ``list_ids``: k frames of a video, deterministic (seed 666 over the
   sorted listing) or drawn from a ``random.Random`` the caller passes;
-- ``get_other_sample_by_label`` for the cross-driving visuals.
-
-Stickmen and keypoints are not ported (ROADMAP.md A.19): the flagship
-loader never loads them.
+- ``get_other_sample_by_label`` for the cross-driving visuals;
+- the landmark datasets' frames (:meth:`SampleLoader.load_sample`): the
+  image decoded by ``data/native_loader.py`` and resized as cv2 resizes it
+  (``ops/resize.py``: cubic up, area down), the 68 keypoints of
+  ``<kp_dir>/<video>/<frame>.npy`` scaled by the same ratio, and the
+  stickman: the face parts as thick polylines in fixed colours
+  (:func:`draw_stickman`, cv2's raster drawn by ``csrc/stickman.cpp``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,11 @@ import logging
 import random
 from pathlib import Path
 
+import numpy as np
+import torch
+
+from latentpose_tpu_torch.data import native_loader
+from latentpose_tpu_torch.ops import resize
 from latentpose_tpu_torch.parallel import mesh as parallel
 
 logger = logging.getLogger("latentpose_tpu_torch.data.voxceleb")
@@ -121,13 +129,56 @@ def get_part_data(args, part) -> Dirlist:
     return Dirlist(identity_list + identity_list[:short])
 
 
-class SampleLoader:
-    """Frame listing and sampling in the preprocessed VoxCeleb2 tree."""
+# stickman face parts: (keypoint indices, closed, RGB colour), drawn in order
+STICKMAN_PARTS = [
+    (list(range(17, 22)), False, (255, 0, 0)),
+    (list(range(22, 27)), False, (0, 255, 0)),
+    (list(range(27, 31)), False, (0, 0, 255)),
+    (list(range(31, 36)), False, (0, 0, 255)),
+    (list(range(36, 42)), True, (255, 0, 255)),
+    (list(range(42, 48)), True, (0, 255, 255)),
+    (list(range(48, 60)), True, (255, 255, 0)),
+]
+STICKMAN_OVAL = (list(range(0, 17)), False, (255, 255, 255))
+STICKMAN_THICKNESS = 2
 
-    def __init__(self, data_root, img_dir=None, deterministic=False):
+
+def draw_stickman(image_shape, keypoints, parts=None):
+    """(H, W, 3) uint8: ``parts`` (default the oval and STICKMAN_PARTS) of
+    the (68, 2) pixel ``keypoints``, each rounded half to even as
+    ``np.round`` rounds, drawn as ``cv2.polylines(..., thickness=2)``
+    draws them."""
+    parts = [STICKMAN_OVAL] + STICKMAN_PARTS if parts is None else parts
+    stickman = np.zeros(tuple(image_shape) + (3,), np.uint8)
+    lines = [(np.round(keypoints[edges]).astype(np.int32), closed, color)
+             for edges, closed, color in parts]
+    return native_loader.draw_polylines(stickman, lines, STICKMAN_THICKNESS)
+
+
+def resize_like_cv2(image, imsize, cubic):
+    """``cv2.resize(image, (imsize, imsize))`` of an (H, W, 3) uint8 image
+    with INTER_CUBIC (``cubic``) or INTER_AREA, on the CPU."""
+    batch = torch.from_numpy(np.ascontiguousarray(image))[None]
+    fn = resize.resize_cubic if cubic else resize.resize_area
+    return fn(batch, (imsize, imsize))[0].numpy()
+
+
+class SampleLoader:
+    """Frame listing and sampling in the preprocessed VoxCeleb2 tree, and
+    the landmark datasets' frames (image, keypoints, stickman).
+
+    ``wire_dtype`` 'uint8': :meth:`load_sample` returns the image and the
+    stickman as uint8 (the wire's bytes: uint8(v * 255 + 0.5) of the float
+    values is the uint8 they were made from)."""
+
+    def __init__(self, data_root, img_dir=None, deterministic=False,
+                 kp_dir=None, draw_oval=True, wire_dtype="float32"):
         self.data_root = Path(data_root)
         self.img_dir = img_dir
         self.deterministic = deterministic
+        self.kp_dir = kp_dir
+        self.parts = ([STICKMAN_OVAL] if draw_oval else []) + STICKMAN_PARTS
+        self.u8 = {"float32": False, "uint8": True}[wire_dtype]
 
     def list_ids(self, path, k, rng=None):
         """k frame stems of a video directory, drawn from ``rng`` (a
@@ -152,6 +203,52 @@ class SampleLoader:
                 if alt.exists():
                     return alt
         return img_path
+
+    def load_rgb(self, path, i):
+        """Frame ``i`` as (H, W, 3) uint8 RGB; a (1, 1, 3) zero image, with
+        an error logged, where it does not decode."""
+        img_path = self.resolve_image(path, i)
+        try:
+            return native_loader.decode(img_path)
+        except (ValueError, OSError):
+            logger.error("Couldn't load image %s", img_path)
+            return np.zeros((1, 1, 3), np.uint8)
+
+    def load_keypoints(self, path, i):
+        """The (68, 2) keypoints of frame ``i``: the first two columns of
+        ``<kp_dir>/<path>/<i>.npy``, in its dtype."""
+        return np.load(self.data_root / self.kp_dir / path / (i + ".npy"))[
+            :, :2]
+
+    def draw_stickman(self, image_shape, keypoints):
+        return draw_stickman(image_shape, keypoints, self.parts)
+
+    def _out(self, image_u8):
+        return image_u8 if self.u8 \
+            else image_u8.astype(np.float32) / 255.0
+
+    def load_sample(self, path, i, imsize, load_image=False,
+                    load_stickman=False, load_keypoints=False):
+        """A pre-cropped frame: {'image': (imsize, imsize, 3) resized (cubic
+        when the width grows, else area), 'stickman': (imsize, imsize, 3),
+        'keypoints': (136,) f32 in [0, 1]}; images f32 in [0, 1] (or the
+        wire's uint8).  The keypoints scale by the image's width ratio."""
+        out = {}
+        if load_image:
+            image = self.load_rgb(path, i)
+            ratio = imsize / image.shape[1]
+            out["image"] = self._out(resize_like_cv2(image, imsize,
+                                                     ratio > 1.0))
+        if load_keypoints or load_stickman:
+            assert load_image
+            keypoints = self.load_keypoints(path, i) * ratio
+            if load_stickman:
+                out["stickman"] = self._out(
+                    self.draw_stickman((imsize, imsize), keypoints))
+            if load_keypoints:
+                out["keypoints"] = (keypoints.astype(np.float32).flatten()
+                                    / imsize)
+        return out
 
 
 class VoxCeleb2DatasetBase:

@@ -6,7 +6,9 @@ the dataset's blur-faded padded crop, resize, float conversion) in a C++
 thread pool; the ctypes call releases the GIL, so the batch loader's Python
 threads overlap with decoding.  PNG decodes through zlib in that file; JPEG
 through libjpeg where its headers are installed, else through the CUDA
-toolkit's nvJPEG (host API, decoded on the card).
+toolkit's nvJPEG (host API, decoded on the card).  ``csrc/stickman.cpp``,
+in the same library, draws thick polylines as ``cv2.polylines`` does
+(:func:`draw_polylines`: the landmark datasets' stickmen).
 
 The library is built with g++ into ``_build/`` at first use (the file name
 carries a hash of the source and flags).  There is no fallback: if it cannot
@@ -26,7 +28,8 @@ from pathlib import Path
 import numpy as np
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCE = PACKAGE_DIR / "csrc" / "lpr_loader.cpp"
+SOURCES = tuple(PACKAGE_DIR / "csrc" / name
+                for name in ("lpr_loader.cpp", "stickman.cpp"))
 BUILD_DIR = PACKAGE_DIR / "_build"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
 _build_lock = threading.Lock()
@@ -62,18 +65,19 @@ def library() -> ctypes.CDLL:
         cflags, ldflags = _jpeg_flags()
         flags = [*CXX_FLAGS, *cflags]
         digest = hashlib.sha256(" ".join(flags + ldflags).encode())
-        digest.update(SOURCE.read_bytes())
+        for source in SOURCES:
+            digest.update(source.read_bytes())
         path = BUILD_DIR / f"liblpr_loader-{digest.hexdigest()[:16]}.so"
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
             proc = subprocess.run(
-                ["g++", *flags, "-o", str(tmp), str(SOURCE), *ldflags,
+                ["g++", *flags, "-o", str(tmp), *map(str, SOURCES), *ldflags,
                  "-lz", "-lpthread"], capture_output=True, text=True)
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
                 raise RuntimeError("g++ failed building the image loader "
-                                   f"{SOURCE}:\n{proc.stdout}{proc.stderr}")
+                                   f"{SOURCES}:\n{proc.stdout}{proc.stderr}")
             os.replace(tmp, path)   # concurrent builders never see half a file
     lib = ctypes.CDLL(str(path))
     c_paths = ctypes.POINTER(ctypes.c_char_p)
@@ -109,6 +113,10 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = [u8, ctypes.c_int, ctypes.c_int, f64, ctypes.c_int,
                        ctypes.c_int, out]
+    i32 = ctypes.POINTER(ctypes.c_int32)
+    lib.lpr_polylines_u8.restype = ctypes.c_int
+    lib.lpr_polylines_u8.argtypes = [u8, ctypes.c_int, ctypes.c_int, i32,
+                                     i32, i32, u8, ctypes.c_int, ctypes.c_int]
     lib.lpr_crop_boxes_u8.restype = ctypes.c_int
     lib.lpr_crop_boxes_u8.argtypes = [
         ctypes.c_void_p, u8, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -133,6 +141,32 @@ def decode(path):
     lib.lpr_decode(name, _ptr(out, ctypes.c_ubyte), out.nbytes,
                    ctypes.byref(h), ctypes.byref(w))
     return out
+
+
+def draw_polylines(canvas, lines, thickness: int = 2):
+    """Draw polylines on ``canvas`` (H, W, 3) uint8, C-contiguous, in place,
+    pixel for pixel as ``cv2.polylines(canvas, [pts], closed, color,
+    thickness)`` draws each in turn (LINE_8, shift 0); ``lines``: (pts
+    (N, 2) int x, y, closed, (r, g, b)) in drawing order; thickness >= 2.
+    Returns ``canvas``."""
+    if canvas.dtype != np.uint8 or canvas.ndim != 3 or canvas.shape[2] != 3 \
+            or not canvas.flags.c_contiguous:
+        raise ValueError("draw_polylines takes a C-contiguous (H, W, 3) "
+                         "uint8 canvas")
+    pts = np.ascontiguousarray(
+        np.concatenate([np.asarray(p).reshape(-1, 2) for p, _, _ in lines]),
+        np.int32)
+    counts = np.array([len(np.asarray(p).reshape(-1, 2))
+                       for p, _, _ in lines], np.int32)
+    closed = np.array([bool(c) for _, c, _ in lines], np.int32)
+    colors = np.array([col for _, _, col in lines], np.uint8).reshape(-1)
+    i32 = ctypes.c_int32
+    if library().lpr_polylines_u8(
+            _ptr(canvas, ctypes.c_ubyte), canvas.shape[0], canvas.shape[1],
+            _ptr(pts, i32), _ptr(counts, i32), _ptr(closed, i32),
+            _ptr(colors, ctypes.c_ubyte), len(lines), int(thickness)):
+        raise ValueError(f"draw_polylines: thickness {thickness} < 2")
+    return canvas
 
 
 # the C entries of each output dtype: the float ones, and the uint8 wire's

@@ -7,13 +7,18 @@ Each (identity, frame) renders an elliptical head whose colour and size
 encode identity and whose offset, eyes and mouth encode a pose that varies
 smoothly with the frame index (period 32).  ``synthetic://K`` drives with
 identity K; :class:`SyntheticDataLoader` feeds a meta-train or a fine-tune
-run (the dataloader ``synthetic``).
+run (the dataloader ``synthetic``).  With ``--synthetic_stickmen`` it also
+emits the landmark families' keys: 68 keypoints derived from the same
+geometry (:func:`synthetic_keypoints`) and their stickmen
+(:func:`render_stickman`, drawn as the VoxCeleb2 landmark datasets draw
+theirs).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from latentpose_tpu_torch.data.common import voxceleb
 from latentpose_tpu_torch.parallel import mesh as parallel
 
 
@@ -33,7 +38,8 @@ class Wrapper:
             frames_per_video=args.synthetic_frames_per_video,
             finetune=bool(args.finetune),
             seed=args.random_seed + (0 if part == "train" else 1),
-            wire_dtype=args.transfer_dtype, rows=rows)
+            wire_dtype=args.transfer_dtype, rows=rows,
+            stickmen=bool(args.synthetic_stickmen))
 
 
 def _identity_style(label: int):
@@ -102,6 +108,75 @@ def render_face_u8(label: int, frame: int, image_size: int):
                  for x in (img, segm, img * segm))
 
 
+def synthetic_keypoints(label: int, frame: int, image_size: int):
+    """68 face landmarks (iBUG-68 layout) of the procedural face, from the
+    geometry of :func:`render_face` (head ellipse, eyes, mouth): (68, 2)
+    float32 pixel coordinates."""
+    _, _, size, eye_sep = _identity_style(label)
+    yaw, pitch, mouth = _pose_of_frame(frame)
+    cx = 0.5 * yaw * size
+    cy = 0.5 * pitch * size
+    pts = np.zeros((68, 2), np.float32)
+
+    # jaw / face oval (0-16): lower half of the head ellipse, left->right
+    a = np.linspace(0.95 * np.pi, 0.05 * np.pi, 17)
+    pts[0:17, 0] = cx + size * np.cos(a)
+    pts[0:17, 1] = cy + 1.25 * size * np.sin(a)
+
+    eye_centers = {}
+    for key, side in (("l", -1), ("r", 1)):
+        ex = cx + side * eye_sep * size * 0.5 + 0.3 * yaw * size
+        ey = cy - 0.35 * size + 0.2 * pitch * size
+        eye_centers[key] = (ex, ey)
+
+    # brows (17-21 left, 22-26 right): flat arcs above the eyes
+    for start, key in ((17, "l"), (22, "r")):
+        ex, ey = eye_centers[key]
+        pts[start:start + 5, 0] = np.linspace(ex - 0.18 * size,
+                                              ex + 0.18 * size, 5)
+        pts[start:start + 5, 1] = ey - 0.22 * size
+
+    # nose bridge (27-30) + base (31-35)
+    pts[27:31, 0] = cx
+    pts[27:31, 1] = np.linspace(cy - 0.2 * size, cy + 0.25 * size, 4)
+    pts[31:36, 0] = cx + np.linspace(-0.12, 0.12, 5) * size
+    pts[31:36, 1] = cy + 0.3 * size
+
+    # eyes (36-41 left, 42-47 right): hexagons at the rendered eye circles
+    for start, key in ((36, "l"), (42, "r")):
+        ex, ey = eye_centers[key]
+        ang = np.linspace(0, 2 * np.pi, 7)[:6]
+        pts[start:start + 6, 0] = ex + 0.12 * size * np.cos(ang)
+        pts[start:start + 6, 1] = ey + 0.12 * size * np.sin(ang)
+
+    # mouth: outer ellipse (48-59) + inner (60-67); height tracks openness
+    mw = 0.3 * size
+    mh = 0.05 * size + 0.12 * size * mouth
+    myc = cy + 0.55 * size
+    ang = np.linspace(0, 2 * np.pi, 13)[:12]
+    pts[48:60, 0] = cx + mw * np.cos(ang)
+    pts[48:60, 1] = myc + mh * np.sin(ang)
+    ang = np.linspace(0, 2 * np.pi, 9)[:8]
+    pts[60:68, 0] = cx + 0.7 * mw * np.cos(ang)
+    pts[60:68, 1] = myc + 0.7 * mh * np.sin(ang)
+
+    return (pts + 0.5) * image_size  # grid coords [-0.5, 0.5] -> pixels
+
+
+def render_stickman_u8(label: int, frame: int, image_size: int):
+    """The stickman of :func:`synthetic_keypoints`, oval included: (H, W,
+    3) uint8, the raster itself (the uint8 wire's bytes)."""
+    return voxceleb.draw_stickman((image_size, image_size),
+                                  synthetic_keypoints(label, frame,
+                                                      image_size))
+
+
+def render_stickman(label: int, frame: int, image_size: int):
+    """:func:`render_stickman_u8` as (H, W, 3) float32 in [0, 1]."""
+    return render_stickman_u8(label, frame, image_size).astype(
+        np.float32) / 255.0
+
+
 class SyntheticDataLoader:
     """Iterable of (data_dict, target_dict) numpy batches, drawn with the JAX
     loader's ``RandomState`` sequence:
@@ -123,11 +198,16 @@ class SyntheticDataLoader:
     ``rows``: under N ranks, the rank's rows of each (global) batch
     (``parallel/mesh.py`` ``local_rows``), so that the ranks' batches
     together are one process's.
+
+    ``stickmen``: the batch also carries enc_stickmen (B, K, H, W, 3) and
+    dec_stickmen (B, 1, H, W, 3) of the identity and driving frames, and
+    dec_keypoints (B, 1, 136) of the driving frame in [0, 1] (the landmark
+    families' inputs), uint8 on the wire.
     """
 
     def __init__(self, image_size, batch_size, num_labels=16,
                  num_enc_frames=8, frames_per_video=32, finetune=True,
-                 seed=0, wire_dtype="float32", rows=None):
+                 seed=0, wire_dtype="float32", rows=None, stickmen=False):
         self.image_size = image_size
         self.batch_size = batch_size
         self.num_enc_frames = num_enc_frames
@@ -140,7 +220,9 @@ class SyntheticDataLoader:
         self.num_labels = 1 if finetune else num_labels
         self.epoch = 0
         self.rows = rows
+        self.stickmen = stickmen
         self._cache = {}
+        self._sticks = {}
 
     def __len__(self):
         return self.steps_per_epoch
@@ -157,25 +239,52 @@ class SyntheticDataLoader:
                 self._cache[key] = img, segm, img * segm
         return self._cache[key]
 
+    def _stickman(self, label, frame):
+        key = (label, frame % 32)
+        if key not in self._sticks:
+            stick = render_stickman_u8(label, frame, self.image_size)
+            self._sticks[key] = stick if self.u8 \
+                else stick.astype(np.float32) / 255.0
+        return self._sticks[key]
+
+    def _landmarks(self, label, enc_frames, drv_frame):
+        return {
+            "enc_stickmen": np.stack([self._stickman(label, int(f))
+                                      for f in enc_frames]),
+            "dec_stickmen": self._stickman(label, int(drv_frame))[None],
+            "dec_keypoints": (synthetic_keypoints(
+                label, int(drv_frame), self.image_size).flatten()
+                / self.image_size)[None]}
+
     def sample(self, label: int, rng):
         """(enc (K, H, W, 3), driver (H, W, 3), segm (H, W, 1), target
-        (H, W, 3))."""
+        (H, W, 3), the stickmen and keypoints {name: array} or None)."""
         frames = rng.randint(0, self.frames_per_video,
                              size=self.num_enc_frames + 2)
         if self.finetune:
-            img, segm, target = self._render(label, int(frames[0]))
-            return np.stack([img] * self.num_enc_frames), img, segm, target
-        enc = np.stack([self._render(label, int(f))[0]
-                        for f in frames[:self.num_enc_frames]])
-        return (enc, *self._render(label, int(frames[-2])))
+            enc_frames = [int(frames[0])] * self.num_enc_frames
+            drv_frame = int(frames[0])
+            img, segm, target = self._render(label, drv_frame)
+            enc = np.stack([img] * self.num_enc_frames)
+        else:
+            enc_frames, drv_frame = frames[:self.num_enc_frames], frames[-2]
+            enc = np.stack([self._render(label, int(f))[0]
+                            for f in enc_frames])
+            img, segm, target = self._render(label, int(drv_frame))
+        marks = self._landmarks(label, enc_frames, drv_frame) \
+            if self.stickmen else None
+        return enc, img, segm, target, marks
 
     def get_batch(self, it: int):
         rng = np.random.RandomState(self.seed + it + 100003 * self.epoch)
         labels = rng.randint(0, self.num_labels, size=self.batch_size)
-        encs, imgs, segms, targets = zip(*(self.sample(int(label), rng)
-                                           for label in labels))
+        encs, imgs, segms, targets, marks = zip(
+            *(self.sample(int(label), rng) for label in labels))
         data_dict = {"enc_rgbs": np.stack(encs),
                      "pose_input_rgbs": np.stack(imgs)[:, None]}
+        if self.stickmen:
+            data_dict.update({k: np.stack([m[k] for m in marks])
+                              for k in marks[0]})
         target_dict = {
             "target_rgbs": np.stack(targets)[:, None],
             "real_segm": np.stack(segms)[:, None],

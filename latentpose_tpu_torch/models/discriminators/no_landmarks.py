@@ -89,6 +89,12 @@ class Discriminator(nn.Module):
         self.embed = SNEmbed(num_labels, embed_channels, sn_eps=embed_sn_eps,
                              generator=g)
 
+    @staticmethod
+    def make_input(batch, rgbs):
+        """The scored input (B, H, W, 3): ``rgbs`` (B, [T,] H, W, 3) at its
+        first frame."""
+        return rgbs if rgbs.dim() == 4 else rgbs[:, 0]
+
     def embed_labels(self, labels, update_stats: bool = False):
         """The projection rows W[label] (B, embed_channels)."""
         return self.embed(labels, update_stats)

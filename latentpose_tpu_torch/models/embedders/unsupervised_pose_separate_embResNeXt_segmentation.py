@@ -29,6 +29,8 @@ class Wrapper:
 
 
 class Embedder(nn.Module):
+    INPUT_KEYS = ("enc_rgbs", "pose_input_rgbs")
+
     def __init__(self, identity_embedding_size=512, pose_embedding_size=256,
                  average_function="sum", generator=None):
         super().__init__()

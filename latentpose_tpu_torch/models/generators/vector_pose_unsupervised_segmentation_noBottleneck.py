@@ -93,6 +93,8 @@ def quantized_conv_shapes(num_channels=64, max_num_channels=512,
 
 
 class Generator(nn.Module):
+    INPUT_KEYS = ("embeds", "pose_embedding")
+
     def __init__(self, padding="zero", out_channels=4, num_channels=64,
                  max_num_channels=512, identity_embedding_size=512,
                  pose_embedding_size=256, constant_input_size=4,

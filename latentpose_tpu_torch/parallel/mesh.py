@@ -243,6 +243,13 @@ def all_reduce_sum(x):
     return _AllReduceSum.apply(x)
 
 
+def all_reduce_max(x):
+    """The elementwise maximum of ``x`` over the ranks (no gradient)."""
+    x = x.detach().clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX)
+    return x
+
+
 class _GlobalMeanVar(torch.autograd.Function):
     """(mean, biased variance) of the global batch from this rank's
     (Σx, Σx²) (2, C) and the global row count.  Forward: one all-reduce of
@@ -515,9 +522,10 @@ def shard_state(state, groups):
     if world() == 1 or state.layout is not None:
         return state
     ema_of = {}
+    leaves = state.finetune_leaves()
     for part, entry in state.ema_params.items():
-        if part == "finetune_embedding":
-            ema_of[id(state.finetune_embedding)] = entry
+        if part in leaves:
+            ema_of[id(leaves[part])] = entry
         else:
             params = dict(state.models[part].named_parameters())
             ema_of.update({id(params[k]): v for k, v in entry.items()})
@@ -576,8 +584,7 @@ def resident_bytes(state) -> int:
     for entry in state.ema_params.values():
         tensors += list(entry.values()) if isinstance(entry, dict) \
             else [entry]
-    if state.finetune_embedding is not None:
-        tensors.append(state.finetune_embedding.data)
+    tensors += [t.data for t in state.finetune_leaves().values()]
     for opt in (state.opt_g, state.opt_d):
         tensors += list(opt.params) + list(opt.mu) + list(opt.nu)
     if state.layout is not None:
@@ -639,8 +646,7 @@ def state_tensors(state):
         entry = state.ema_params[part]
         out += [entry[k] for k in sorted(entry)] if isinstance(entry, dict) \
             else [entry]
-    if state.finetune_embedding is not None:
-        out.append(state.finetune_embedding.data)
+    out += [t.data for t in state.finetune_leaves().values()]
     for opt in (state.opt_g, state.opt_d):
         out += list(opt.mu) + list(opt.nu)
     return [t for t in out if t is not None]

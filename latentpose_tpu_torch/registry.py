@@ -3,7 +3,9 @@
 Each model family, criterion, metric and dataloader is a module named after
 its config string, exposing a ``Wrapper`` (``get_net(args, generator=None)``,
 or ``get_dataloader(args, part, phase)`` for a dataloader).  The port holds
-the flagship's modules; other names are reported as not ported yet.
+the flagship's modules and the FSTH family's (FSTH embedder, generator and
+discriminator, FSTH_plus, the landmark datasets, ``l1_rgb``); other names
+are reported as not ported yet.
 """
 
 from __future__ import annotations
@@ -12,18 +14,22 @@ import importlib
 
 _KINDS = {
     "embedders": ("latentpose_tpu_torch.models.embedders",
-                  ("unsupervised_pose_separate_embResNeXt_segmentation",)),
+                  ("unsupervised_pose_separate_embResNeXt_segmentation",
+                   "FSTH")),
     "generators": ("latentpose_tpu_torch.models.generators",
-                   ("vector_pose_unsupervised_segmentation_noBottleneck",)),
+                   ("vector_pose_unsupervised_segmentation_noBottleneck",
+                    "FSTH", "FSTH_plus")),
     "discriminators": ("latentpose_tpu_torch.models.discriminators",
-                       ("no_landmarks",)),
+                       ("no_landmarks", "FSTH")),
     "criterions": ("latentpose_tpu_torch.losses",
                    ("adversarial", "featmat", "idt_embed", "perceptual",
-                    "dice", "dis_embed")),
+                    "dice", "dis_embed", "l1_rgb")),
     "metrics": ("latentpose_tpu_torch.metrics",
                 ("psnr", "segmentation_iou")),
     "dataloaders": ("latentpose_tpu_torch.data",
-                    ("synthetic", "voxceleb2_segmentation_nolandmarks")),
+                    ("synthetic", "voxceleb2_segmentation_nolandmarks",
+                     "voxceleb2", "voxceleb2_segm",
+                     "voxceleb2_FSTH_crop")),
 }
 
 

@@ -1,10 +1,13 @@
 """Few-shot fine-tuning as a re-parameterisation (port of
 ``latentpose_tpu/runners/finetune.py``):
 
-1. ê = the mean identity embedding over all of the avatar's frames, with the
-   EMA embedder weights, the live BatchNorm statistics and eval mode;
-2. the generator's identity input becomes the trainable (1, E) parameter
-   ``finetune_embedding`` = ê, in params and in the EMA;
+1. ê = the mean identity embedding over all of the avatar's frames (with
+   their stickmen for the FSTH embedder), with the EMA embedder weights,
+   the live BatchNorm statistics and eval mode;
+2. the generator's per-avatar input becomes a trainable leaf, in params
+   and in the EMA: the (1, E) ``finetune_embedding`` = ê, or what the
+   generator's wrapper makes of ê (``make_finetune_state``: the FSTH
+   generator's packed AdaIN parameters ``finetune_affine``);
 3. the discriminator's label-embedding matrix W becomes one row = ê, with
    spectral-norm eps 1e-12 and the (u, v) of a fresh one-row init;
 4. both optimizers start fresh (RAdam from the fine-tune config).
@@ -41,9 +44,12 @@ def compute_averaged_identity_embedding(state: TrainState, dataloader,
     weights = state.ema_params["embedder"]
     chunks = []
     for data_dict, _ in dataloader:
-        frames = dequantize_batch_host(data_dict)["enc_rgbs"]
-        enc = torch.as_tensor(frames).to(device).to(dtype)
-        _, elemwise, _ = functional_call(embedder, weights, (enc,))
+        frames = dequantize_batch_host(data_dict)
+        # the identity frames (and their stickmen), no pose frame
+        inputs = [torch.as_tensor(frames[k]).to(device).to(dtype)
+                  if k in ("enc_rgbs", "enc_stickmen") else None
+                  for k in embedder.INPUT_KEYS]
+        _, elemwise, _ = functional_call(embedder, weights, tuple(inputs))
         chunks.append(elemwise.reshape(-1, elemwise.shape[-1]).float())
     logger.info("Averaged identity embedding over %d frame-chunks",
                 len(chunks))
@@ -64,12 +70,18 @@ def optimizers(state: TrainState, args):
 
 
 def enable_finetuning(state: TrainState, args, identity_embedding,
-                      generator=None) -> TrainState:
+                      generator=None, gen_wrapper=None) -> TrainState:
     """The fine-tune state from a meta-trained one (which stays as it was).
 
     ``identity_embedding``: ê (1, E).  ``generator``: a ``torch.Generator``
-    for the fresh one-row embedding's (u, v) init."""
+    for the fresh one-row embedding's (u, v) init.  ``gen_wrapper``: the
+    generator's ``Wrapper``; where it has ``make_finetune_state(generator,
+    ê)``, that gives the per-avatar leaves, else they are
+    {'finetune_embedding': ê}."""
     ident = identity_embedding.detach().float()
+    make = getattr(gen_wrapper, "make_finetune_state", None)
+    leaves = {"finetune_embedding": ident} if make is None \
+        else make(state.models["generator"], ident)
     models = dict(state.models)
     dis = copy.deepcopy(state.models["discriminator"])
     embed = SNEmbed(1, ident.shape[1], sn_eps=1e-12, generator=generator)
@@ -78,8 +90,9 @@ def enable_finetuning(state: TrainState, args, identity_embedding,
     dis.embed = embed.to(ident.device)
     models["discriminator"] = dis
     ema = dict(state.ema_params)
-    ema["finetune_embedding"] = ident.clone()
+    ema.update({k: v.detach().float().clone() for k, v in leaves.items()})
     new = TrainState(models=models, ema_params=ema, step=state.step,
-                     finetune_embedding=ident.clone().requires_grad_())
+                     **{k: v.detach().float().clone().requires_grad_()
+                        for k, v in leaves.items()})
     new.opt_g, new.opt_d = optimizers(new, args)
     return new

@@ -13,6 +13,14 @@ pass 3 the live rows.  Every spectral-norm state advances in the reference's
 order: the generator's once, the embedding's once (lookup), the trunk's
 three times; and the embedder's BatchNorm statistics once per forward.
 
+Each model family names its inputs: the embedder's and the generator's
+``INPUT_KEYS`` pick them from the batch and the step's results (the
+landmark families read ``enc_stickmen``, ``dec_stickmen`` or
+``dec_keypoints``), an FSTH fine-tune feeds the generator its trainable
+``finetune_affine``, and the discriminator's ``make_input`` builds what it
+scores (the FSTH discriminator interleaves the driver's stickman with the
+image).
+
 The step first divides the images of a uint8 batch (``--transfer_dtype
 uint8``, the wire) by 255 on the device; then it augments the batch
 (``--use_pixelwise_augs``, ``--use_affine_scale``, ``--use_affine_shift``)
@@ -29,7 +37,9 @@ the JAX package module by module:
   BatchNorm running statistics: f32; every gradient reaches its parameter
   in f32 (through the ``.to(bf16)`` of the weight in each layer);
 - the batch (uint8 or f32) -> f32 on the device -> augmentation in f32;
-- ``enc_rgbs`` and ``pose_input_rgbs`` -> bf16 before the embedder; both
+- ``enc_rgbs``, ``pose_input_rgbs``, ``enc_stickmen`` and
+  ``dec_stickmen`` -> bf16 before the models (``dec_keypoints`` stays f32,
+  so FSTH_plus's decoder runs in f32, as in the JAX package); both
   towers (every conv, BatchNorm, the conv_bn link, dense) return bf16:
   ``embeds``, ``embeds_elemwise``, ``pose_embedding``; BatchNorm and the
   link take their statistics in f32;
@@ -89,9 +99,13 @@ from latentpose_tpu_torch.runners.state import (TrainState, d_trainable,
 
 EMA_ALPHA = {True: 0.972, False: 0.999}      # fine-tune, meta-train
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# the batch keys the step reads (fine-tune reads enc_rgbs only for ê)
-STEP_KEYS = ("pose_input_rgbs", "target_rgbs", "real_segm", "label")
-META_STEP_KEYS = ("enc_rgbs",) + STEP_KEYS
+# the batch keys the step reads where the batch has them (fine-tune reads
+# the identity frames only for ê)
+STEP_KEYS = ("pose_input_rgbs", "target_rgbs", "real_segm", "label",
+             "dec_stickmen", "dec_keypoints")
+META_STEP_KEYS = ("enc_rgbs", "enc_stickmen") + STEP_KEYS
+# the model inputs cast to the compute dtype (as the JAX forward casts them)
+CAST_KEYS = ("enc_rgbs", "pose_input_rgbs", "enc_stickmen", "dec_stickmen")
 
 
 def compute_dtype(args):
@@ -103,9 +117,10 @@ def to_device(batch, device, keys=STEP_KEYS):
     """The step's inputs from a (data_dict, target_dict) host batch, images
     as they come (f32, or uint8 on the wire: the step divides on the
     device), labels as int64; ``keys``: :data:`META_STEP_KEYS` for
-    meta-train."""
+    meta-train (the ones the batch has)."""
     merged = {**batch[0], **batch[1]}
-    out = {key: torch.as_tensor(merged[key]).to(device) for key in keys}
+    out = {key: torch.as_tensor(merged[key]).to(device) for key in keys
+           if key in merged}
     out["label"] = out["label"].long()
     return out
 
@@ -132,6 +147,24 @@ def apply_criteria(criteria, data_dict):
     return losses_G, losses_D
 
 
+def model_inputs(batch, dtype):
+    """The batch with the models' image inputs (:data:`CAST_KEYS`) in the
+    compute dtype."""
+    return {**batch, **{k: batch[k].to(dtype) for k in CAST_KEYS
+                        if k in batch}}
+
+
+def finetune_inputs(leaves, batch_size):
+    """(embeds or None, the generator's keyword inputs) of a fine-tune's
+    per-avatar leaves ({name: (1, N) tensor})."""
+    embeds = leaves.get("finetune_embedding")
+    if embeds is not None:
+        embeds = embeds.expand(batch_size, -1)
+    extra = {} if leaves.get("finetune_affine") is None \
+        else {"finetune_affine": leaves["finetune_affine"]}
+    return embeds, extra
+
+
 def forward(state: TrainState, batch, train: bool, dropout_generator=None,
             dtype=torch.float32):
     """The populated data_dict of one step (reference key names); ``dtype``:
@@ -140,34 +173,42 @@ def forward(state: TrainState, batch, train: bool, dropout_generator=None,
     generator = state.models["generator"]
     dis = state.models["discriminator"]
     data_dict = dict(batch)
-    pose_input = batch["pose_input_rgbs"].to(dtype)
+    inputs = model_inputs(batch, dtype)
+    extra = {}
     if state.finetune:
         # the embedder is frozen: no gradient reaches it, but train-mode BN
         # still updates its running statistics
         with torch.no_grad():
-            pose = embedder.get_pose_embedding(pose_input, train,
-                                               dropout_generator)
-        embeds = state.finetune_embedding.expand(pose.shape[0], -1)
+            pose = embedder.get_pose_embedding(inputs["pose_input_rgbs"],
+                                               train, dropout_generator)
+        embeds, extra = finetune_inputs(state.finetune_leaves(),
+                                        batch["label"].shape[0])
         elemwise = None
     else:
         embeds, elemwise, pose = embedder(
-            batch["enc_rgbs"].to(dtype), pose_input, train,
-            dropout_generator)
-    fake, fake_segm = generator(embeds, pose, update_stats=True)
+            *[inputs.get(k) for k in embedder.INPUT_KEYS], train=train,
+            dropout_generator=dropout_generator)
+    inputs.update(embeds=embeds, pose_embedding=pose)
+    fake, fake_segm = generator(*[inputs.get(k)
+                                  for k in generator.INPUT_KEYS],
+                                update_stats=True, **extra)
     data_dict.update(embeds=embeds, embeds_elemwise=elemwise,
                      pose_embedding=pose, fake_rgbs=fake.float(),
-                     fake_segm=fake_segm.float())
+                     fake_segm=None if fake_segm is None
+                     else fake_segm.float())
 
     target = batch["target_rgbs"]
     target = target[:, 0] if target.dim() > 4 else target
+    fake_in = dis.make_input(inputs, fake).to(dtype)
+    real_in = dis.make_input(inputs, target).to(dtype)
     rows = dis.embed_labels(batch["label"], update_stats=True)
     # pass 1: fake through the G graph (only loss_G's G-side gradient is
     # taken from it); pass 2: fake detached, rows detached; pass 3: real
     fake_score_G, fake_features = dis.pass_inputs(
-        fake.to(dtype), rows.detach(), update_stats=True)
-    fake_score_D, _ = dis.pass_inputs(fake.detach().to(dtype), rows.detach(),
+        fake_in, rows.detach(), update_stats=True)
+    fake_score_D, _ = dis.pass_inputs(fake_in.detach(), rows.detach(),
                                       update_stats=True)
-    real_score, real_features = dis.pass_inputs(target.to(dtype), rows,
+    real_score, real_features = dis.pass_inputs(real_in, rows,
                                                 update_stats=True)
     data_dict.update(
         fake_features=[f.float() for f in fake_features],
@@ -260,8 +301,12 @@ def make_train_step(criteria, args, on_wire=None):
                     # (pass 1 reads the rows detached, passes 2-3 the fake
                     # detached); the backward of a global sum sums over
                     # ranks
-                    grads_g = _add(grads_g,
-                                   torch.autograd.grad(loss_G, g_params))
+                    # (a tensor the forward does not read, as the FSTH
+                    # projector in a fine-tune, has a zero gradient, as
+                    # in the JAX step)
+                    grads_g = _add(grads_g, torch.autograd.grad(
+                        loss_G, g_params, allow_unused=True,
+                        materialize_grads=True))
                     grads_d = _add(grads_d,
                                    torch.autograd.grad(loss_D, d_params))
                 scalars = {f"Loss_{k}": v.detach()

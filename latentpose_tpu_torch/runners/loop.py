@@ -35,7 +35,9 @@ from torch.func import functional_call
 from latentpose_tpu_torch.data import augmentation
 from latentpose_tpu_torch.data.pipeline import Handoff, default_collate
 from latentpose_tpu_torch.parallel import mesh as parallel
-from latentpose_tpu_torch.runners.holycow import compute_dtype
+from latentpose_tpu_torch.runners.holycow import (compute_dtype,
+                                                  finetune_inputs,
+                                                  model_inputs)
 from latentpose_tpu_torch.utils.meter import Meter
 from latentpose_tpu_torch.utils.visualize import make_visual
 
@@ -43,6 +45,12 @@ logger = logging.getLogger("latentpose_tpu_torch.loop")
 
 # the draw of the fixed probes' augmentation, keyed on (666, chunk start)
 PROBE_SEED = 666
+# the batch keys the eval forward reads
+EVAL_KEYS = ("enc_rgbs", "enc_stickmen", "pose_input_rgbs", "dec_stickmen",
+             "dec_keypoints")
+# the keys a cross-driving column takes from the other driver's sample
+DRIVER_KEYS = ("pose_input_rgbs", "dec_stickmen", "dec_keypoints",
+               "target_rgbs", "real_segm")
 # image keys that cross to the device as bytes under --transfer_dtype uint8
 TRANSFER_IMAGE_KEYS = ("enc_rgbs", "pose_input_rgbs", "target_rgbs",
                        "real_segm", "enc_stickmen", "dec_stickmen")
@@ -74,7 +82,7 @@ def device_prefetch(dataloader, device, keys, depth=2,
                     transfer_dtype="float32"):
     """Iterate (host batch, device batch) pairs: the host batch is the
     loader's (data_dict | target_dict) of numpy arrays, the device batch
-    holds ``keys`` of it on ``device`` (labels as int64).
+    holds the ``keys`` it has on ``device`` (labels as int64).
 
     A producer thread takes each batch from the loader, quantizes it with
     ``transfer_dtype`` uint8 (:func:`quantize_batch_u8`: a loader on the
@@ -92,7 +100,7 @@ def device_prefetch(dataloader, device, keys, depth=2,
                 host = {**data_dict, **target_dict}
                 sent = quantize_batch_u8(host) if wire else host
                 staged = {k: torch.from_numpy(np.ascontiguousarray(sent[k]))
-                          for k in keys}
+                          for k in keys if k in sent}
                 if cuda:
                     staged = {k: v.pin_memory() for k, v in staged.items()}
                 yield host, staged
@@ -134,36 +142,46 @@ def make_eval_forward(args):
         ema = state.ema_params if use_ema else {}
         batch = dequantize_batch_host(batch)
 
-        def get(key):       # the embedder's input, in the compute dtype
-            return torch.as_tensor(batch[key]).to(device).to(dtype)
+        inputs = model_inputs({k: torch.as_tensor(v).to(device)
+                               for k, v in batch.items()
+                               if k in EVAL_KEYS}, dtype)
 
         saved = {k: v.clone() for k, v in embedder.named_buffers()} \
             if train else None
         dropout = torch.Generator().manual_seed(seed) if train else None
+        extra = {}
         try:
             if state.finetune:
-                prefix = "pose_encoder."
-                tower = {k[len(prefix):]: v
-                         for k, v in ema.get("embedder", {}).items()
-                         if k.startswith(prefix)}
-                frames = get("pose_input_rgbs")[:, 0].permute(0, 3, 1, 2)
-                pose = functional_call(embedder.pose_encoder, tower,
-                                       (frames, train, dropout))
-                identity = ema.get("finetune_embedding",
-                                   state.finetune_embedding)
-                embeds = identity.expand(pose.shape[0], -1)
+                pose = None
+                if hasattr(embedder, "pose_encoder"):
+                    prefix = "pose_encoder."
+                    tower = {k[len(prefix):]: v
+                             for k, v in ema.get("embedder", {}).items()
+                             if k.startswith(prefix)}
+                    frames = inputs["pose_input_rgbs"][:, 0].permute(
+                        0, 3, 1, 2)
+                    pose = functional_call(embedder.pose_encoder, tower,
+                                           (frames, train, dropout))
+                leaves = {k: ema.get(k, v)
+                          for k, v in state.finetune_leaves().items()}
+                embeds, extra = finetune_inputs(
+                    leaves, inputs["pose_input_rgbs"].shape[0])
             else:
                 embeds, _, pose = functional_call(
                     embedder, ema.get("embedder", {}),
-                    (get("enc_rgbs"), get("pose_input_rgbs"), train, dropout))
+                    tuple(inputs.get(k) for k in embedder.INPUT_KEYS),
+                    {"train": train, "dropout_generator": dropout})
         finally:
             if saved is not None:
                 for k, v in embedder.named_buffers():
                     v.copy_(saved[k])
+        inputs.update(embeds=embeds, pose_embedding=pose)
         fake_rgbs, fake_segm = functional_call(
-            generator, ema.get("generator", {}), (embeds, pose),
-            {"update_stats": False})
-        return {"fake_rgbs": fake_rgbs.float(), "fake_segm": fake_segm.float(),
+            generator, ema.get("generator", {}),
+            tuple(inputs.get(k) for k in generator.INPUT_KEYS),
+            {"update_stats": False, **extra})
+        return {"fake_rgbs": fake_rgbs.float(),
+                "fake_segm": None if fake_segm is None else fake_segm.float(),
                 "pose_embedding": pose}
 
     return eval_forward
@@ -184,8 +202,9 @@ def try_other_driving_images(dataloader, eval_forward, state, batch, suffix,
     data, target = default_collate([dataset[i] for i in other])
     swapped = dict(batch)
     other_batch = dequantize_batch_host({**data, **target})
-    for key in ("pose_input_rgbs", "target_rgbs", "real_segm"):
-        swapped[key] = other_batch[key]
+    for key in DRIVER_KEYS:
+        if key in other_batch:
+            swapped[key] = other_batch[key]
     outputs = eval_forward(state, swapped)
     return {"pose_input_rgbs" + suffix: swapped["pose_input_rgbs"],
             "fake_rgbs" + suffix: _host(outputs)["fake_rgbs"]}
@@ -211,7 +230,7 @@ def run_fixed_id_eval(dataloader, eval_forward, state, args, writer,
         data, target = default_collate(
             [dataset.get(i, deterministic=True) for i in chunk])
         fixed = dequantize_batch_host({**data, **target})
-        if any(augments.values()):
+        if any(augments.values()) and "real_segm" in fixed:
             keys = ("pose_input_rgbs", "target_rgbs", "real_segm")
             draw = augmentation.step_draw(PROBE_SEED, start, device)
             augmented = augmentation.augment_data_dict(

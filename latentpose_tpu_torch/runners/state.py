@@ -6,12 +6,15 @@ them:
 - ``params``, ``batch_stats`` and ``spectral`` are the parameters,
   BatchNorm running statistics and spectral-norm (u, v) buffers of the
   three modules in ``models`` ({'embedder', 'generator', 'discriminator'});
-- ``finetune_embedding`` is a (1, E) leaf tensor after the fine-tune
-  re-parameterisation (None before);
+- the per-avatar trainable leaves after the fine-tune
+  re-parameterisation (None before; :meth:`TrainState.finetune_leaves`):
+  ``finetune_embedding``, the (1, E) identity embedding (the flagship,
+  FSTH_plus), or ``finetune_affine``, the FSTH generator's packed AdaIN
+  parameters (1, num_affine_params);
 - ``ema_params`` holds the EMA weights: {'embedder': {name: tensor},
-  'generator': {name: tensor}} by ``named_parameters`` name, plus
-  'finetune_embedding'; BatchNorm statistics are shared with the live
-  modules, not averaged;
+  'generator': {name: tensor}} by ``named_parameters`` name, plus an entry
+  for each per-avatar leaf, under its name; BatchNorm statistics are
+  shared with the live modules, not averaged;
 - ``opt_g`` / ``opt_d`` are the two optimizers (``runners/optim.py``), over
   :func:`g_trainable` and :func:`d_trainable`;
 - ``step`` is the global iteration;
@@ -30,6 +33,9 @@ from typing import Any, Dict, Optional
 
 import torch
 
+# the per-avatar leaves a fine-tune may train, in the JAX tree's key order
+FINETUNE_LEAVES = ("finetune_affine", "finetune_embedding")
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -40,10 +46,17 @@ class TrainState:
     opt_g: Any = None
     opt_d: Any = None
     layout: Any = None
+    finetune_affine: Optional[torch.Tensor] = None
 
     @property
     def finetune(self) -> bool:
-        return self.finetune_embedding is not None
+        return bool(self.finetune_leaves())
+
+    def finetune_leaves(self) -> Dict[str, torch.Tensor]:
+        """{name: tensor} of the per-avatar leaves the state has, in
+        :data:`FINETUNE_LEAVES` order."""
+        return {k: getattr(self, k) for k in FINETUNE_LEAVES
+                if getattr(self, k) is not None}
 
 
 def ema_of(module) -> dict:
@@ -54,11 +67,10 @@ def ema_of(module) -> dict:
 def g_trainable(state: TrainState):
     """The generator-side optimizer's tensors.  Meta-training: the generator
     and the whole embedder (identity and pose towers).  Fine-tuning: the
-    generator and the per-avatar identity embedding (the embedder is
-    frozen)."""
+    generator and the per-avatar leaves (the embedder is frozen)."""
     if state.finetune:
         return [*state.models["generator"].parameters(),
-                state.finetune_embedding]
+                *state.finetune_leaves().values()]
     return [*state.models["generator"].parameters(),
             *state.models["embedder"].parameters()]
 
@@ -88,7 +100,7 @@ def ema_pairs(state: TrainState):
         for name, tensor in state.ema_params[part].items():
             ema.append(tensor)
             live.append(params[name])
-    if state.finetune:
-        ema.append(state.ema_params["finetune_embedding"])
-        live.append(state.finetune_embedding)
+    for name, tensor in state.finetune_leaves().items():
+        ema.append(state.ema_params[name])
+        live.append(tensor)
     return ema, live

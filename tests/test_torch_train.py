@@ -457,12 +457,15 @@ def test_finetune_defaults_equal_the_config_file():
                  "need a device mesh", ValueError, id="flags1-A.17"),
     pytest.param(["--finetune", "--num_devices", "2"],
                  "Requested 2 devices, only", ValueError, id="flags2-A.17"),
-    pytest.param(["--finetune", "--dataloader", "voxceleb2_segm"], "A.19",
-                 NotImplementedError, id="flags3-A.19"),
+    pytest.param(["--finetune", "--dataloader",
+                  "voxceleb2_segmentation_nolandmarks_X2Face_FAbNet_crops"],
+                 "A.19", NotImplementedError, id="flags3-A.19"),
     pytest.param(["--finetune", "--dataloader", "voxceleb2_X2Face"], "A.19",
                  NotImplementedError, id="flags4-A.19"),
-    pytest.param(["--finetune", "--criterions", "adversarial, l1_rgb"],
-                 "A.19", NotImplementedError, id="flags5-A.19"),
+    # every criterion is ported since the FSTH slice (l1_rgb): what stays
+    # refused is the second A.19 slice's modules
+    pytest.param(["--finetune", "--discriminator", "none"],
+                 "A.19", ValueError, id="flags5-A.19"),
 ])
 def test_cli_refuses_what_is_not_ported(meta, flags, item, error):
     argv = ["--checkpoint_path", str(meta[1]), "--dataloader", "synthetic"]
@@ -516,7 +519,7 @@ def test_cli_refuses_other_families_and_fine_tuned_checkpoints(runs, meta,
     argv = ["--finetune", "--checkpoint_path", str(meta[1]), "--dataloader",
             "synthetic"]
     with pytest.raises(ValueError, match="not ported"):
-        tcli.resolve_args(argv + ["--generator", "FSTH"])
+        tcli.resolve_args(argv + ["--generator", "X2Face"])
     path = jckpt.save_checkpoint(tmp_path, runs["jstate"], runs["jargs"])
     assert tcli.resolve_args(["--checkpoint_path", str(path),
                               "--dataloader", "synthetic"]).finetune
