@@ -167,7 +167,7 @@ paths:
     resizes bit-equal card vs CPU, ArcFace within 1e-3 of its max and LPIPS
     within 1e-3 relative, each with a planted fault above its gate;
     ArcFace's ms a batch of 64 crops with the flip beside its FLOP bound;
-    ``cli.batched_finetune.main`` from the meta checkpoint (8 steps an
+    ``cli.batched_finetune.main`` from the meta checkpoint (4 steps an
     identity) and ``cli.batched_drive.main`` (every avatar, every driver),
     as child processes that inherit the blocked imports (a sitecustomize on
     their PYTHONPATH), each child's start-up and work and its kernel
@@ -208,6 +208,15 @@ paths:
     on the uint8 wire, 23 AdaIN launches a step; one meta step with the
     kernels against the plain versions under the step gate, with a
     planted fault; step times, peak memory, the stickman's host ms.
+21. the second half of the ablation families on that tree
+    (:func:`phase_ablations`): FAbNet+ (ragan) and X2Face+ at the
+    flagship's widths through ``cli.train.main`` (meta, ê and fine-tune;
+    16 conv_bn and 17 AdaIN launches a meta step) and ``cli.drive.main``,
+    their frozen encoders bit-unchanged; one FAbNet+ meta step against
+    the plain kernels under the step gate with a planted fault; X2Face
+    (``none``, ``l1_rgb``): meta, the identity images, drive, its forward
+    card vs CPU with a planted fault; ``--do_crop_ffhq`` on the card
+    against the CPU's FFHQ crops, with a planted fault.
 
 Step 3 also times the AdaIN wrapper's host cost by call path: the
 wrapper, the operator alone, and the checks and the ctypes launch called
@@ -330,7 +339,7 @@ FT_BATCH = 8
 FT_EPOCHS = 5          # 2 batches an epoch (16 identities // batch 8)
 META_STEPS = 5
 DIST_EPOCHS = 1        # part (i): 1 epoch of 2 steps (16 identities // 8)
-DIST_TIMED = 4         # part (i): staged steps timed each way, in turns
+DIST_TIMED = 2         # part (i): staged steps timed each way, in turns
 # part (ii): a rank's FSDP state between steps over its replicated state
 # (1/2 of the parameters, EMA and moments, plus the replicated buffers)
 FSDP_RESIDENT = 0.6
@@ -388,7 +397,7 @@ PREP_ANCHOR_SIGMA = 3.0
 # the eval phase's tree: identities, each with this many identity and
 # driver frames at size²; the fine-tune children's steps
 EVAL = dict(identities=2, frames=16, size=256)
-EVAL_FT_ITERATIONS = 8
+EVAL_FT_ITERATIONS = 4
 EVAL_NET_TOL = 1e-3    # card vs CPU: ArcFace (of max |e|), LPIPS (relative)
 EVAL_ID_TOL = 1e-4     # card vs CPU: the identity error, absolute
 EVAL_POSE_TOL = 1e-4   # card vs CPU: each pose error, relative
@@ -411,8 +420,8 @@ FSTH_MODELS = ["--embedder", "FSTH", "--generator", "FSTH",
                "--discriminator", "FSTH", "--criterions",
                "adversarial, featmat, l1_rgb, idt_embed"]
 FSTH_BATCH = 8         # and K=8: n_frames_for_encoder
-FSTH_META_STEPS = 3    # epochs of one step: 8 samples of the split
-FSTH_FT_STEPS = 3      # epochs of one step: one video's 8 frames
+FSTH_META_STEPS = 2    # epochs of one step: 8 samples of the split
+FSTH_FT_STEPS = 2      # epochs of one step: one video's 8 frames
 FSTH_FAULT_SCALE = 4   # the planted kernel fault: weight x (1 + 4 TOL)
 
 
@@ -3286,6 +3295,318 @@ def phase_fsth(prep, workdir, device):
     return launches, kernel, times, stick_ms
 
 
+# the pretrained-pose families: (embedder, VoxCeleb1 crop, gan_type)
+ABLATION_POSE = (("FAbNet_pretrained_embResNeXt", "fabnet", "ragan"),
+                 ("X2Face_pretrained_embResNeXt", "x2face", "gan"))
+ABLATION_FROZEN = {"FAbNet_pretrained_embResNeXt": ("pose_encoder",),
+                   "X2Face_pretrained_embResNeXt": ("pose_unet", "pose_proj")}
+ABLATION_META_STEPS = 2     # epochs of one step: 8 samples of the split
+ABLATION_FT_STEPS = 2       # epochs of one step: one video's 8 frames
+X2FACE_TOL = 1e-4           # X2Face's forward, card vs CPU, of the max
+X2FACE_FAULT = 1.001        # the planted fault: the warp's grid x 1.001
+FFHQ_LEVELS = 2             # FFHQ crops, card vs CPU: levels apart at most
+FFHQ_EQUAL = 0.99           # ... and the share of values equal
+FFHQ_LM_TOL = 1e-2          # ... and the landmarks, pixels
+FFHQ_FAULT_PX = 0.5         # the planted fault: landmarks 0.5 px off
+
+
+def _frozen_leaves(arrays, embedder):
+    """The frozen pose encoder's leaves (parameters and, FAb-Net's,
+    BatchNorm statistics) of flat JAX-layout arrays."""
+    prefixes = tuple(f"{coll}::embedder::{name}::"
+                     for coll in ("params", "batch_stats")
+                     for name in ABLATION_FROZEN[embedder])
+    return {k: v for k, v in arrays.items() if k.startswith(prefixes)}
+
+
+def _written(video):
+    """Whether drive wrote ``video``: the file, or without an encoder on
+    the machine its ``.frames`` directory of PNGs."""
+    return Path(video).exists() or Path(f"{video}.frames").is_dir()
+
+
+def _counted(fn):
+    """(fn(), the kernels' launches inside it)."""
+    torch.cuda.synchronize()
+    before = _launches()
+    out = fn()
+    torch.cuda.synchronize()
+    after = _launches()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+def _x2face_forward_gate(avatar, frames, device):
+    """The X2Face generator of ``avatar`` on the card and on the CPU on the
+    same batch (the stored identity images, 8 driver frames, f32, TF32
+    off): the gap relative to the output's max, the planted fault's (the
+    warp's grid scaled by X2FACE_FAULT), and the card's frames/s at the
+    drive's batch."""
+    from latentpose_tpu_torch.models.generators import X2Face as x2g_mod
+    args = cli.resolve_args([str(avatar), "--device", "cpu",
+                             "--compute_dtype", "float32"])
+    models, state = cli.load_finetuned(args, torch.device("cpu"))
+    gen = models["generator"]
+    images = state[convert.IDENTITY_IMAGES]
+    driver = torch.from_numpy(frames[:8]).float() / 255.0
+    enc = images.expand(len(driver), *images.shape[1:])
+    with torch.no_grad():
+        want, _ = gen(enc, driver[:, None])
+        card = copy.deepcopy(gen).to(device)
+        got, _ = card(enc.to(device), driver[:, None].to(device))
+        warp = x2g_mod.grid_sample_bilinear
+        x2g_mod.grid_sample_bilinear = lambda img, gx, gy: warp(
+            img, gx * X2FACE_FAULT, gy * X2FACE_FAULT)
+        try:
+            faulty, _ = card(enc.to(device), driver[:, None].to(device))
+        finally:
+            x2g_mod.grid_sample_bilinear = warp
+    scale = float(want.abs().max())
+    gap = float((got.cpu() - want).abs().max()) / scale
+    fault = float((faulty.cpu() - want).abs().max()) / scale
+    step = drive_lib.make_drive_fn({"embedder": None, "generator": card},
+                                   args)
+    batch = torch.from_numpy(np.resize(frames, (DRIVE_BATCH,)
+                                       + frames.shape[1:])).to(device)
+    dstate = {convert.IDENTITY_IMAGES: images.to(device)}
+    ms = cuda_ms(lambda: step(dstate, batch), 5)
+    return gap, fault, DRIVE_BATCH / ms * 1e3
+
+
+def _ffhq_gate(prep, workdir, device):
+    """``cli.preprocess_dataset --do_crop_ffhq`` on the card over the raw
+    tree (frames/s), then one video's FFHQ crops by the same cropper on
+    the CPU (FAN there too): crops within FFHQ_LEVELS with FFHQ_EQUAL of
+    the values equal, landmarks within FFHQ_LM_TOL px; the planted fault
+    (the CPU's landmarks FFHQ_FAULT_PX off) must fail the crops' gate."""
+    root, raw, wdir = Path(prep["data_root"]), Path(prep["raw"]), \
+        prep["weights"]
+    n = PREP["identities"] * PREP["videos"] * PREP["frames"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prep_cli.main(["--data_root", str(root), "--do_crop_ffhq",
+                   "--weights_dir", str(wdir), "--batch_size",
+                   str(PREP_BATCH), "--device", str(device)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    video = Path("id00000") / "video0"
+    card = np.stack([native_loader.decode(p) for p in sorted(
+        (root / "images-cropped-ffhq" / video).glob("*.png"))])
+    card_lm = np.stack([np.load(p) for p in sorted(
+        (root / "keypoints-cropped-ffhq" / video).glob("*.npy"))])
+    files = sorted((root / "images-cropped-ffhq").rglob("*.png"))
+    require(len(files) == n and card.shape == (PREP["frames"], 256, 256, 3),
+            f"--do_crop_ffhq wrote {len(files)} crops, {card.shape}")
+    frames = np.stack([native_loader.decode(p)
+                       for p in sorted((raw / video).glob("*.png"))])
+    # the CPU's crops: the CLI's cropper (FAN on the CPU) on the same frames
+    cropper = croppers.make_cropper("ffhq", (256, 256), wdir, "cpu")
+    landmarks = cropper.landmark_detector(frames)
+    cpu, cpu_lm = croppers.FFHQFaceCropper(
+        (256, 256), None, lambda imgs: landmarks, "cpu").crop_images(frames)
+    faulty, _ = croppers.FFHQFaceCropper(
+        (256, 256), None, lambda imgs: landmarks + np.float32(FFHQ_FAULT_PX),
+        "cpu").crop_images(frames)
+
+    def gaps(a, b):
+        diff = np.abs(a.astype(int) - b.astype(int))
+        return int(diff.max()), float((diff == 0).mean())
+
+    levels, equal = gaps(card, cpu)
+    f_levels, f_equal = gaps(faulty, cpu)
+    lm_gap = float(np.abs(card_lm - cpu_lm).max())
+    print(f"ablations ffhq: --do_crop_ffhq {n} frames of "
+          f"{PREP_CANVAS[1]}x{PREP_CANVAS[0]} on the card in {seconds:.2f} s "
+          f"({n / seconds:.1f} frames/s, FAN included); card vs CPU on "
+          f"{len(cpu)} crops: {levels} levels at most, {equal:.4%} equal, "
+          f"landmarks {lm_gap:.3g} px; planted fault ({FFHQ_FAULT_PX} px) "
+          f"{f_levels} levels, {f_equal:.4%} equal", flush=True)
+    require(levels <= FFHQ_LEVELS and equal >= FFHQ_EQUAL
+            and lm_gap <= FFHQ_LM_TOL, "FFHQ crops: card and CPU differ")
+    require(f_levels > FFHQ_LEVELS or f_equal < FFHQ_EQUAL,
+            "the planted FFHQ fault passes the crops' gate")
+    return n / seconds
+
+
+def phase_ablations(prep, workdir, device):
+    """The second half of the ablation families on the card, on the
+    preprocessed tree (its bboxes dict, segmentations and raw frames), at
+    the flagship's full widths, 256², batch 8, K=8, f32, through the
+    entry points a user calls:
+
+    - FAbNet+ (``--gan_type ragan``) and X2Face+ (``gan``): the flagship
+      generator and discriminator, the six criteria, the mixed-crop
+      dataloader; ``cli.train.main`` meta-trains ABLATION_META_STEPS steps
+      from a seeded init (16 conv_bn and 17 AdaIN launches a step), then
+      fine-tunes from that checkpoint (ê: 16 links a batch; then
+      ABLATION_FT_STEPS steps of 17 AdaINs), then ``cli.drive.main``
+      drives one video's PNG frames (17 AdaINs a batch); the frozen pose
+      encoder's parameters (and FAb-Net's statistics) bit-equal to the
+      seeded init in both checkpoints;
+    - one FAbNet+ meta step at batch 2 with the kernels against the same
+      step under ``_plain_kernels()`` under the step gate, and with the
+      generator's frames FT_FAULT_SCALE off, which must read above it;
+    - X2Face with ``voxceleb2_X2Face``, ``none`` and ``l1_rgb``: 2 meta
+      steps, the identity-image "fine-tune", ``cli.drive.main`` (no
+      kernel launches); its generator's forward card vs CPU within
+      X2FACE_TOL with its planted fault, and frames/s at the drive's
+      batch;
+    - the FFHQ crop (:func:`_ffhq_gate`).
+
+    Returns the kernels' launches and the numbers for the kernels line."""
+    t_phase = time.perf_counter()
+    workdir.mkdir(parents=True, exist_ok=True)
+    root, videos, split = _fsth_tree(prep, workdir)
+    data = ["--data_root", str(root), "--bboxes_dir", str(prep["bboxes"]),
+            "--n_frames_for_encoder", "8", "--batch_size", "8",
+            "--device", str(device), "--allow_random_vgg",
+            "--save_frequency", "0", "--experiments_dir", str(workdir)]
+    frames_dir = root / "images-cropped" / videos[0]
+    total = {"bn_relu_conv1x1_stats": 0, "adain_fused": 0}
+    per_meta = {"bn_relu_conv1x1_stats": 16, "adain_fused": ADAIN_PER_FORWARD}
+    per_ft = {"bn_relu_conv1x1_stats": 0, "adain_fused": ADAIN_PER_FORWARD}
+    times, metas = {}, {}
+    for embedder, crop, gan in ABLATION_POSE:
+        meta_argv = ["--config_name", "default", "--embedder", embedder,
+                     "--dataloader", "voxceleb2_segmentation_nolandmarks_"
+                     "X2Face_FAbNet_crops", "--voxceleb1_crop_type", crop,
+                     "--gan_type", gan, *data, "--train_split_path",
+                     str(split), "--num_epochs", str(ABLATION_META_STEPS),
+                     "--experiment_name", f"{embedder}_meta"]
+        steps, ft_steps = [], []
+        with _counted_steps(steps):
+            (_, meta), used = _counted(lambda: train_cli.main(meta_argv))
+        _require_steps(f"{embedder} meta-train", steps, per_meta,
+                       ABLATION_META_STEPS)
+        with _counted_steps(ft_steps):
+            (_, ft_path), ft_used = _counted(lambda: train_cli.main([
+                "--config_name", "finetuning-base", "--finetune",
+                "--checkpoint_path", str(meta), *data, "--train_split_path",
+                videos[0], "--num_epochs", str(ABLATION_FT_STEPS),
+                "--experiment_name", f"{embedder}_ft"]))
+        _require_steps(f"{embedder} fine-tune", ft_steps, per_ft,
+                       ABLATION_FT_STEPS)
+        require(ft_used["bn_relu_conv1x1_stats"] == 16,
+                f"{embedder}: ê launched {ft_used} (16 links, one batch)")
+        videos_out, drive_used = _counted(lambda: cli.main([
+            str(ft_path), "--images_paths", str(frames_dir),
+            "--destination", str(workdir / f"{embedder}_drive"),
+            "--device", str(device)]))
+        require(len(videos_out) == 1 and _written(videos_out[0])
+                and drive_used == per_ft,
+                f"{embedder} drive: {videos_out}, launched {drive_used}")
+        for k in total:
+            total[k] += used[k] + ft_used[k] + drive_used[k]
+        init_args = train_cli.resolve_args(meta_argv[:-2] + [
+            "--device", "cpu"])
+        init = convert.export_train_state(train_cli.init_state(
+            init_args, types.SimpleNamespace(num_labels=len(videos) * 2),
+            torch.device("cpu")))
+        want = _frozen_leaves(init, embedder)
+        require(want, f"{embedder}: no frozen leaves")
+        for path in (meta, ft_path):
+            got = _frozen_leaves(ckpt_lib.load_arrays(path), embedder)
+            require(set(got) == set(want) and all(
+                np.array_equal(got[k], want[k]) for k in want),
+                f"{embedder}: the frozen pose encoder moved in {path}")
+        meta_ms = float(np.median([s["ms"] for s in steps[1:]]))
+        ft_ms = float(np.median([s["ms"] for s in ft_steps[1:]]))
+        times[embedder] = (meta_ms, ft_ms)
+        metas[embedder] = meta
+        print(f"ablations {embedder} ({gan}, {crop} crop): meta-train "
+              f"{ABLATION_META_STEPS} steps through cli.train, batch 8 K=8 "
+              f"256² f32, step_ms each "
+              f"{', '.join(f'{s['ms']:.1f}' for s in steps)}; losses "
+              f"{steps[-1]['losses']}; fine-tune (ê + "
+              f"{ABLATION_FT_STEPS} steps) step_ms each "
+              f"{', '.join(f'{s['ms']:.1f}' for s in ft_steps)}; drive "
+              f"through cli.drive launched {drive_used}; the frozen "
+              f"encoder's {len(want)} leaves bit-equal to the seeded init "
+              f"after both", flush=True)
+
+    # FAbNet+: the meta step with the kernels against the plain versions
+    embedder = ABLATION_POSE[0][0]
+    args = train_cli.resolve_args(["--checkpoint_path",
+                                   str(metas[embedder]), *data,
+                                   "--train_split_path", str(split)])
+    state = train_cli.load_checkpoint(args, torch.device("cpu"))
+    batches = iter(train_cli.build_dataloader(args, "train", "train"))
+    data_dict, target = next(batches)
+    batches.close()
+    host = ({k: v[:2] for k, v in data_dict.items()},
+            {k: v[:2] for k, v in target.items()})
+    keys = holycow.META_STEP_KEYS
+    generator = type(state.models["generator"])
+    plain = _run_step(args, state, host, keys, device, _plain_kernels)
+    runs = {"kernels": _run_step(args, state, host, keys, device),
+            "planted fault": _run_step(
+                args, state, host, keys, device,
+                lambda: _planted_frame_fault(generator))}
+    gaps = {way: _gaps(plain, run) for way, run in runs.items()}
+    for way, gap in gaps.items():
+        _print_gaps(f"ablations {embedder} meta step {way} vs plain "
+                    f"kernels, batch 2 256² f32 (TF32 off)", *gap)
+    _require_step(f"{embedder} meta step (kernels vs plain)",
+                  *gaps["kernels"], GRAD_TOL)
+    name, gap = _worst_loss(gaps["planted fault"][0])
+    require(gap > STEP_TOL, f"the planted {embedder} fault passes the step "
+            f"gate: {name} {gap}")
+    del state, plain, runs
+    torch.cuda.empty_cache()
+
+    # X2Face: the none discriminator, l1_rgb, the identity images
+    x2_steps = []
+    with _counted_steps(x2_steps):
+        _, x2_meta = train_cli.main([
+            "--embedder", "X2Face", "--generator", "X2Face",
+            "--discriminator", "none", "--criterions", "l1_rgb",
+            "--dataloader", "voxceleb2_X2Face", "--optimizer", "Adam",
+            *data, "--train_split_path", str(split), "--num_epochs", "2",
+            "--experiment_name", "x2face_meta"])
+    _require_steps("X2Face meta-train", x2_steps,
+                   {"bn_relu_conv1x1_stats": 0, "adain_fused": 0}, 2)
+    _, avatar = train_cli.main([
+        "--finetune", "--checkpoint_path", str(x2_meta), *data,
+        "--train_split_path", videos[0], "--X2Face_num_identity_images",
+        "8", "--experiment_name", "x2face_avatar"])
+    arrays = ckpt_lib.load_arrays(avatar)
+    images = arrays[f"params::{convert.IDENTITY_IMAGES}"]
+    require(images.shape == (1, 8, 256, 256, 3)
+            and not train_cli.checkpoint_is_finetuned(avatar)
+            and not any(k.startswith("opt_state_d") for k in arrays),
+            f"X2Face avatar: identity images {images.shape}")
+    x2_videos, x2_used = _counted(lambda: cli.main([
+        str(avatar), "--images_paths", str(frames_dir), "--destination",
+        str(workdir / "x2face_drive"), "--device", str(device)]))
+    require(len(x2_videos) == 1 and _written(x2_videos[0])
+            and not any(x2_used.values()),
+            f"X2Face drive: {x2_videos}, launched {x2_used}")
+    drive_frames = np.stack([native_loader.decode(p)
+                             for p in sorted(frames_dir.glob("*.png"))])
+    x2_gap, x2_fault, x2_fps = _x2face_forward_gate(avatar, drive_frames,
+                                                    device)
+    x2_ms = float(np.median([s["ms"] for s in x2_steps[1:]]))
+    print(f"ablations X2Face: meta-train 2 steps (voxceleb2_X2Face, none, "
+          f"l1_rgb) step_ms each {', '.join(f'{s['ms']:.1f}' for s in x2_steps)}"
+          f"; losses {x2_steps[-1]['losses']}; identity images "
+          f"{images.shape}; drive through cli.drive, no kernel; the "
+          f"generator card vs CPU {x2_gap:.3g} of the max (gate "
+          f"{X2FACE_TOL}), planted fault {x2_fault:.3g}; drive batch "
+          f"{DRIVE_BATCH} f32 {x2_fps:.1f} frames/s", flush=True)
+    require(x2_gap <= X2FACE_TOL, f"X2Face forward: card and CPU differ by "
+            f"{x2_gap}")
+    require(x2_fault > X2FACE_TOL, f"the planted X2Face fault passes: "
+            f"{x2_fault}")
+    ffhq_fps = _ffhq_gate(prep, workdir, device)
+    seconds = time.perf_counter() - t_phase
+    print(f"ablations phase: {seconds:.1f} s; launches {total}", flush=True)
+    return total, {"meta_step_ms": {k: v[0] for k, v in times.items()},
+                   "finetune_step_ms": {k: v[1] for k, v in times.items()},
+                   "x2face_meta_step_ms": x2_ms,
+                   "x2face_card_vs_cpu": x2_gap,
+                   "x2face_drive_fps": x2_fps, "ffhq_fps": ffhq_fps,
+                   "seconds": seconds}
+
+
 CHILD_SITE = '''
 import atexit, sys, time
 for _name in {blocked!r}:
@@ -4637,6 +4958,9 @@ def main():
         fsth_launches, fsth_kernel, fsth_times, stick_ms = timed(
             "fsth", phase_fsth, prep, Path(workdir) / "fsth", device)
         torch.cuda.empty_cache()
+        abl_launches, abl = timed("ablations", phase_ablations, prep,
+                                  Path(workdir) / "ablations", device)
+        torch.cuda.empty_cache()
         timed("ehat_card_vs_cpu", phase_ehat_card_vs_cpu, ft_state, loader,
               device)
         timed("step_card_vs_cpu", phase_step_card_vs_cpu, ft_args,
@@ -4657,6 +4981,8 @@ def main():
                 + bf16_launches[k] + dist_launches[k] for k in ft_launches}
     launches["adain_fused"] += int8_adains + crop_adains + reference_launches \
         + fsth_launches
+    for k in launches:
+        launches[k] += abl_launches[k]
 
     print("phases by seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in sorted(PHASE_SECONDS.items(),
@@ -4687,7 +5013,10 @@ def main():
                  "finetune_step_ms": fsth_times["f32"][1],
                  "bf16_meta_step_ms": fsth_times["bf16 + uint8"][0],
                  "bf16_finetune_step_ms": fsth_times["bf16 + uint8"][1],
-                 "stickman_host_ms": stick_ms}}, {
+                 "stickman_host_ms": stick_ms},
+        "ablations_launches": abl_launches["adain_fused"],
+        "ablations": {k: abl[k] for k in ("meta_step_ms",
+                                          "finetune_step_ms")}}, {
         "name": "bn_relu_conv1x1_stats", "route": "cuda",
         "source": "latentpose_tpu_torch/csrc/conv_bn_fused.cu",
         "replaces": "latentpose_tpu/ops/pallas/conv_bn_fused.py:58",
@@ -4703,7 +5032,11 @@ def main():
         "bf16_train_launches": bf16_launches["bn_relu_conv1x1_stats"],
         "bf16_train": conv_train16,
         "distributed_child_launches": dist_children["bn_relu_conv1x1_stats"],
-        "eval_child_launches": protocol_launches["bn_relu_conv1x1_stats"]}]}))
+        "eval_child_launches": protocol_launches["bn_relu_conv1x1_stats"],
+        "ablations_launches": abl_launches["bn_relu_conv1x1_stats"],
+        "ablations": {k: abl[k] for k in (
+            "x2face_meta_step_ms", "x2face_card_vs_cpu", "x2face_drive_fps",
+            "ffhq_fps", "seconds")}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

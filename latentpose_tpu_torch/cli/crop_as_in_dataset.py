@@ -12,6 +12,9 @@ landmarks from FAN (``fan_2d.npz``), one ``.npy`` a frame.  Crops are
 written as PNG through the port's own encoder (the JAX package writes JPEG
 at quality 95 through PIL; the dataset reads either).  Frames of one size
 go through the nets and the C++ crop in batches of ``--batch_size``.
+``--crop-style ffhq`` crops the FFHQ quad of FAN's landmarks instead
+(``preprocess/croppers.py`` ``FFHQFaceCropper``, on ``--device``); it
+takes no boxes.
 """
 
 from __future__ import annotations

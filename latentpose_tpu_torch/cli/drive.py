@@ -205,16 +205,19 @@ def inline_crop_frames(path, args, detector=None):
 
 
 def load_finetuned(args, device):
-    """Build the flagship's drive modules from ``args``, load the fine-tuned
+    """Build the drive modules from ``args``, load the fine-tuned
     checkpoint ``args.checkpoint_path`` into them and move them to
-    ``device``.  Returns (models, state) for :func:`make_drive_fn`.  The
+    ``device``.  Returns (models, state) for :func:`make_drive_fn`: the
+    state holds ``finetune_embedding``, or for X2Face (a self-contained
+    generator) the avatar's ``finetune_identity_images``.  The
     FSTH family is refused: its generators take the driver's stickman or
     keypoints, which drive does not compute (nor does the JAX package's
     drive)."""
     if args.generator in ("FSTH", "FSTH_plus"):
         raise NotImplementedError(
-            f"drive takes the flagship's latent pose; the {args.generator} "
-            "generator needs the driver's landmarks (ROADMAP.md A.19)")
+            f"drive takes a latent pose; the {args.generator} generator "
+            "needs the driver's landmarks, which drive does not compute (nor "
+            "does the JAX package's drive)")
     models = {
         "embedder": registry.load_wrapper("embedders", args.embedder)
         .get_net(args),
@@ -226,7 +229,10 @@ def load_finetuned(args, device):
         models["generator"])
     for name in models:
         models[name] = models[name].to(device).eval()
-    state = {"finetune_embedding": torch.from_numpy(identity).to(device)}
+    leaf = convert.IDENTITY_IMAGES \
+        if drive_lib.self_contained(models["generator"]) \
+        else "finetune_embedding"
+    state = {leaf: torch.from_numpy(identity).to(device)}
     logger.info("Loaded fine-tuned checkpoint %s (iteration %d)",
                 args.checkpoint_path, args.iteration)
     return models, state

@@ -123,9 +123,18 @@ def resolve_args(argv=None):
     return args
 
 
+# the embedder the export covers; the ablation families' avatars wait
+EXPORTED_EMBEDDER = "unsupervised_pose_separate_embResNeXt_segmentation"
+
+
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = resolve_args(argv)
+    if args.embedder != EXPORTED_EMBEDDER:
+        raise NotImplementedError(
+            f"export of a {args.embedder} avatar is not ported to PyTorch "
+            "yet (ROADMAP.md A.19, export of the ablation avatars); the "
+            "port exports the flagship's")
     models, state = drive_cli.load_finetuned(args, torch.device(args.device))
 
     quant_calib = None

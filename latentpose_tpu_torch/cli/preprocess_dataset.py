@@ -9,11 +9,13 @@ the same flags), in stages:
   3. ``--do_compute_segmentation``: Graphonomy masks (``graphonomy.npz``,
      test-time scales 0.75 / 1.0 / 1.5 / 2.0) of every crop ->
      ``segmentation-cropped/`` (3-channel PNG);
-  4. ``--do_compute_pose_3dmm``: an external estimator command.
+  4. ``--do_compute_pose_3dmm``: an external estimator command;
+  5. ``--do_crop_ffhq``: every folder of frames cropped FFHQ-style from FAN's
+     landmarks -> ``images-cropped-ffhq/`` and ``keypoints-cropped-ffhq/``.
 
-The tree is what ``voxceleb2_segmentation_nolandmarks`` reads.  The nets run
-on ``--device`` (``cuda`` unless ``cpu`` is given).  ``--do_crop_ffhq``
-waits for ROADMAP A.19.
+The tree is what ``voxceleb2_segmentation_nolandmarks`` reads.  The nets
+(and the FFHQ crop) run on ``--device`` (``cuda`` unless ``cpu`` is
+given).
 
     python -m latentpose_tpu_torch.cli.preprocess_dataset --data_root ROOT \
         --do_crop --do_compute_segmentation --weights_dir DIR
@@ -125,11 +127,6 @@ def build_parser():
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
-    if args.do_crop_ffhq:
-        raise NotImplementedError(
-            "--do_crop_ffhq is not ported to PyTorch yet (ROADMAP.md A.19, "
-            "with the X2Face and FAbNet crops); run the JAX package's "
-            "preprocess_dataset for it")
     if args.do_compute_pose_3dmm and not args.pose_3dmm_command:
         raise SystemExit(
             "--do_compute_pose_3dmm needs --pose_3dmm_command: the "
@@ -172,6 +169,17 @@ def main(argv=None):
         out_dir.mkdir(parents=True, exist_ok=True)
         subprocess.run(args.pose_3dmm_command.split()
                        + [list_file, str(out_dir)], check=True)
+    if args.do_crop_ffhq:
+        from latentpose_tpu_torch.preprocess.croppers import make_cropper
+        cropper = make_cropper("ffhq", (args.image_size, args.image_size),
+                               args.weights_dir, args.device)
+        try:
+            crop_identities(root / args.raw_images_dir,
+                            root / "images-cropped-ffhq",
+                            root / "keypoints-cropped-ffhq", cropper,
+                            args.batch_size)
+        finally:
+            cropper.close()
 
 
 if __name__ == "__main__":

@@ -12,15 +12,25 @@ Dataloaders: ``voxceleb2_segmentation_nolandmarks`` (the preprocessed
 VoxCeleb2 tree: frames, segmentation masks, bboxes, split CSVs; fine-tuning
 reads one directory of a person's images), the landmark datasets
 ``voxceleb2``, ``voxceleb2_segm`` and ``voxceleb2_FSTH_crop`` (frames,
-``keypoints-cropped`` and their stickmen) and ``synthetic`` (procedural
-faces; ``--synthetic_stickmen`` adds keypoints and stickmen).
+``keypoints-cropped`` and their stickmen), the VoxCeleb1-crop datasets
+``voxceleb2_X2Face`` and ``voxceleb2_segmentation_nolandmarks_X2Face_
+FAbNet_crops`` (``--voxceleb1_crop_type x2face|fabnet``) and ``synthetic``
+(procedural faces; ``--synthetic_stickmen`` adds keypoints and stickmen).
 
-Model families: the flagship (the defaults of ``--config_name default``)
-and the few-shot-talking-heads baseline: ``--embedder FSTH --generator
-FSTH|FSTH_plus --discriminator FSTH`` on a landmark dataset, with the
-criterion ``l1_rgb`` beside the others (``idt_embed`` takes its face box
-from the keypoints).  An FSTH fine-tune trains the generator's packed AdaIN
-parameters (``finetune_affine``) where the flagship and FSTH_plus train ê.
+Model families: the flagship (the defaults of ``--config_name default``),
+the few-shot-talking-heads baseline (``--embedder FSTH|no_pose_encoder
+--generator FSTH|FSTH_plus --discriminator FSTH`` on a landmark dataset,
+with the criterion ``l1_rgb`` beside the others; ``idt_embed`` takes its
+face box from the keypoints), X2Face (``--embedder X2Face --generator
+X2Face --discriminator none --criterions l1_rgb``), the pretrained-pose
+ablations (``--embedder X2Face_pretrained_embResNeXt|FAbNet_pretrained_
+embResNeXt`` with the flagship's generator and discriminator: a frozen
+pose encoder beside ResNeXt-50) and ``--embedder simple_conv``;
+``--gan_type gan|rgan|ragan``.  An FSTH fine-tune trains the generator's
+packed AdaIN parameters (``finetune_affine``) where the flagship and the
+others train ê; X2Face's "fine-tune" takes no step: it stores the
+avatar's first ``--X2Face_num_identity_images`` images
+(:func:`store_identity_images`).
 
 Meta-training (no ``--finetune``) starts from a seeded init of the flagship
 models, or resumes a meta-trained checkpoint of either package: the
@@ -101,10 +111,11 @@ from latentpose_tpu_torch import checkpoint as ckpt_lib
 from latentpose_tpu_torch import convert, registry
 from latentpose_tpu_torch.data.dataloader import \
     get_dataloader as build_dataloader
+from latentpose_tpu_torch.losses.adversarial import GAN_TYPES
 from latentpose_tpu_torch.ops.spectral_norm import SNEmbed
 from latentpose_tpu_torch.parallel import launch
 from latentpose_tpu_torch.parallel import mesh as parallel
-from latentpose_tpu_torch.runners import finetune as ft
+from latentpose_tpu_torch.runners import build, finetune as ft
 from latentpose_tpu_torch.runners import holycow, loop
 from latentpose_tpu_torch.runners.state import (FINETUNE_LEAVES, TrainState,
                                                 ema_of, shard_groups)
@@ -147,7 +158,8 @@ DEFAULTS = dict(
     profile_dir="", profile_steps=5, config_name="",
     param_sharding="replicated", synthetic_stickmen=False, l1_weight=30.0,
     embed_padding="zero", embed_num_blocks=6, gen_num_downsample_blocks=4,
-    norm_layer="in")
+    norm_layer="in", X2Face_num_identity_images=1, simple_embedder_width=32,
+    voxceleb1_crop_type="x2face")
 
 # Defaults that a plugin's get_args gives its own arg in the JAX package,
 # where they differ from DEFAULTS: they take DEFAULTS' level when the run
@@ -207,7 +219,8 @@ def build_parser():
                  "img_dir", "segm_dir", "kp_dir", "bboxes_dir",
                  "train_split_path", "val_split_path", "saver",
                  "profile_dir", "embed_padding", "gen_padding",
-                 "dis_padding", "average_function"):
+                 "dis_padding", "average_function", "gan_type",
+                 "voxceleb1_crop_type"):
         parser.add_argument(f"--{name}", default=None)
     parser.add_argument("--param_sharding", choices=PARAM_SHARDING,
                         default=None)
@@ -222,11 +235,13 @@ def build_parser():
                  "n_frames_for_encoder", "batch_size_inference",
                  "num_visuals_per_img", "profile_steps",
                  "embed_num_blocks", "gen_num_downsample_blocks",
-                 "gen_constant_input_size"):
+                 "gen_constant_input_size", "X2Face_num_identity_images",
+                 "simple_embedder_width"):
         parser.add_argument(f"--{name}", type=int, default=None)
     parser.add_argument("--fixed_val_ids", type=int, action="append",
                         default=None)
-    for name in ("lr_gen", "lr_dis", "beta1", "l1_weight"):
+    for name in ("lr_gen", "lr_dis", "beta1", "l1_weight", "fm_weight",
+                 "dice_weight"):
         parser.add_argument(f"--{name}", type=float, default=None)
     for name in ("allow_random_vgg", "set_eval_mode_in_train", "skip_eval",
                  "explicit_grad_reduce", "weights_running_average",
@@ -326,15 +341,18 @@ def resolve_args(argv=None):
                          "need a device mesh (--num_devices > 1)")
     for kind, names in (("dataloaders", [args.dataloader]),
                         ("metrics", _names(args.metrics)),
-                        ("criterions", _names(args.criterions))):
+                        ("criterions", _names(args.criterions)),
+                        ("embedders", [args.embedder]),
+                        ("generators", [args.generator]),
+                        ("discriminators", [args.discriminator])):
         for name in names:
-            if name not in registry.names(kind):
-                _refuse(f"{kind[:-1]} {name!r} (the port has "
-                        f"{list(registry.names(kind))})", "A.19")
-    for kind, name in (("embedders", args.embedder),
-                       ("generators", args.generator),
-                       ("discriminators", args.discriminator)):
-        registry.load_wrapper(kind, name)      # raises for other families
+            registry.load_wrapper(kind, name)   # raises for unknown names
+    if args.gan_type not in GAN_TYPES:
+        raise ValueError(f"--gan_type {args.gan_type!r}: one of "
+                         f"{list(GAN_TYPES)}")
+    if args.voxceleb1_crop_type not in ("x2face", "fabnet"):
+        raise ValueError(f"--voxceleb1_crop_type "
+                         f"{args.voxceleb1_crop_type!r}: x2face or fabnet")
     if args.optimizer not in ft.OPTIMIZERS:
         raise ValueError(f"--optimizer {args.optimizer!r}: the JAX package "
                          f"has {sorted(ft.OPTIMIZERS)}")
@@ -366,14 +384,16 @@ def build_models(args, generator=None):
 
 
 def init_state(args, dataloader, device) -> TrainState:
-    """A fresh meta-train state from ``args.random_seed``: the flagship
-    models' init, the EMA equal to it, fresh optimizers; the discriminator
-    has a row for each of the loader's identities."""
+    """A fresh meta-train state from ``args.random_seed``: the models' init
+    (with the converted weights of a frozen dependency where found,
+    ``runners/build.py``), the EMA equal to it, fresh optimizers; the
+    discriminator has a row for each of the loader's identities."""
     if not args.num_labels:
         args.num_labels = dataloader.num_labels
     generator = torch.Generator().manual_seed(args.random_seed)
-    models = {k: m.to(device)
-              for k, m in build_models(args, generator=generator).items()}
+    models = build_models(args, generator=generator)
+    build.overlay_pretrained(models)
+    models = {k: m.to(device) for k, m in models.items()}
     state = TrainState(models=models, ema_params={
         part: ema_of(models[part]) for part in ("embedder", "generator")})
     state.opt_g, state.opt_d = ft.optimizers(state, args)
@@ -385,13 +405,15 @@ def init_state(args, dataloader, device) -> TrainState:
 def load_checkpoint(args, device) -> TrainState:
     """The train state of ``args.checkpoint_path`` on ``device``, optimizers
     included: a meta-trained one (the discriminator with the checkpoint's
-    ``num_labels``) or a fine-tuned one (its one-row discriminator and
-    identity embedding)."""
+    ``num_labels``; X2Face's identity images where its "fine-tune" stored
+    them) or a fine-tuned one (its one-row discriminator and per-avatar
+    leaves)."""
     flat = ckpt_lib.load_arrays(args.checkpoint_path)
     finetuned = checkpoint_is_finetuned(args.checkpoint_path)
-    embed = flat[ckpt_lib.SEP.join(("params", "discriminator", "embed",
-                                    "embedding"))]
-    args.num_labels = int(embed.shape[0])
+    embed = flat.get(ckpt_lib.SEP.join(("params", "discriminator", "embed",
+                                        "embedding")))
+    if embed is not None:       # the none discriminator has no rows
+        args.num_labels = int(embed.shape[0])
     models = build_models(args)
     leaves = {}
     if finetuned:
@@ -404,8 +426,12 @@ def load_checkpoint(args, device) -> TrainState:
                   for name in FINETUNE_LEAVES
                   if f"params{ckpt_lib.SEP}{name}" in flat}
     models = {k: m.to(device) for k, m in models.items()}
+    images = flat.get(f"params{ckpt_lib.SEP}{convert.IDENTITY_IMAGES}")
     state = TrainState(models=models, ema_params={},
                        **{k: v.requires_grad_() for k, v in leaves.items()})
+    if images is not None:
+        state.finetune_identity_images = torch.zeros(images.shape,
+                                                     device=device)
     state.ema_params.update({k: torch.zeros_like(v)
                              for k, v in leaves.items()})
     state.opt_g, state.opt_d = ft.optimizers(state, args)
@@ -450,6 +476,35 @@ def start_finetuning(args, state, dataloader, device):
         gen_wrapper=registry.load_wrapper("generators", args.generator))
     args.num_labels = 1
     return state
+
+
+def store_identity_images(args, state, dataloader, device):
+    """X2Face's "fine-tune" (its generator's ``FINETUNE_PARAM`` is 'none'):
+    no step; the avatar is its first ``--X2Face_num_identity_images``
+    images (``pose_input_rgbs`` of frame 0, f32, the uint8 wire divided),
+    stored as ``finetune_identity_images`` (1, N, H, W, 3) in the state,
+    which stays a meta-train one, and saved.  Under N ranks rank 0 reads a
+    loader of the whole avatar (one process's).  Returns the path saved."""
+    if parallel.initialized() and parallel.is_main():
+        with parallel.local_view():
+            dataloader = build_dataloader(args, "train", "train")
+    wanted = int(args.X2Face_num_identity_images or 8)
+    images = np.zeros((0, args.image_size, args.image_size, 3), np.float32)
+    if parallel.is_main():
+        collected = []
+        for data_dict, _ in dataloader:
+            data_dict = loop.dequantize_batch_host(data_dict)
+            collected.append(np.asarray(data_dict["pose_input_rgbs"][:, 0]))
+            if sum(len(c) for c in collected) >= wanted:
+                break
+        images = np.concatenate(collected)[:wanted]
+        logger.info("Saving X2Face model with %d identity images",
+                    len(images))
+    state.finetune_identity_images = torch.from_numpy(
+        np.ascontiguousarray(images[None], np.float32)).to(device)
+    args.experiment_dir = str(Path(args.experiments_dir)
+                              / (args.experiment_name or "x2face"))
+    return save(args, state)
 
 
 def make_step(args, criteria):
@@ -568,6 +623,9 @@ def _train(args, argv, device):
     if state is None:
         state = init_state(args, train_loader, device)
     criteria = build_criteria(args, device)
+    if args.finetune and getattr(state.models["generator"], "FINETUNE_PARAM",
+                                 "embedding") == "none":
+        return state, store_identity_images(args, state, train_loader, device)
     if args.finetune and not state.finetune:
         # ê on the whole state, before it is sharded
         state = start_finetuning(args, state, train_loader, device)

@@ -13,7 +13,11 @@ so each leaf maps by its module's type:
 - the optimizers' state, optax's ``ScaleByAdamState`` under
   ``opt_state_g::0`` / ``opt_state_d::0`` (``count``, and ``mu`` / ``nu``
   trees shaped as the trainable params) <-> the port's ``count`` and
-  per-tensor moments, each moment transposed as its parameter is.
+  per-tensor moments, each moment transposed as its parameter is; the
+  ``none`` discriminator's ``set_to_zero`` holds no state and writes no
+  key;
+- X2Face's avatar, ``params::finetune_identity_images`` (1, N, H, W, 3),
+  as it is.
 
 Two readers and one writer: drive reads the EMA weights of a fine-tuned
 checkpoint (:func:`load_drive_weights`); training reads a meta-trained or
@@ -34,6 +38,7 @@ import torch.nn as nn
 from latentpose_tpu_torch.checkpoint import SEP
 from latentpose_tpu_torch.nn.blocks import InstanceNormAffine
 from latentpose_tpu_torch.ops.spectral_norm import SNConv, SNDense, SNEmbed
+from latentpose_tpu_torch.runners.optim import SetToZero
 
 _CONV = ((3, 2, 0, 1), (2, 3, 1, 0))        # HWIO -> OIHW, and back
 _DENSE = ((1, 0), (1, 0))
@@ -46,6 +51,8 @@ SKIPPED = re.compile(
     r"|opt_state_[gd](::.*)?"                                   # optimizers
     r"|(params|ema_params|spectral)::discriminator::.*")
 PARTS = ("embedder", "generator", "discriminator")
+# X2Face's avatar: the identity images its "fine-tune" stores
+IDENTITY_IMAGES = "finetune_identity_images"
 EMA_PARTS = ("embedder", "generator")
 
 
@@ -197,6 +204,8 @@ def export_optimizer_states(state) -> dict:
     flat = {}
     for prefix, layout in optimizer_layouts(state).items():
         opt = _optimizers(state)[prefix]
+        if isinstance(opt, SetToZero):      # optax's EmptyState: no leaf
+            continue
         head = SEP.join((prefix, "0"))
         flat[SEP.join((head, "count"))] = np.asarray(opt.count, np.int32)
         for (path, _, to_jax), mu, nu in zip(layout, opt.mu, opt.nu):
@@ -222,9 +231,16 @@ def load_train_state(flat, state):
         used |= load_into(state.models[part], flat, part)
     for part in EMA_PARTS:
         ema, keys = read_ema(state.models[part], flat, part)
-        device = next(state.models[part].parameters()).device
+        device = next(iter(state.models[part].parameters()),
+                      torch.empty(0)).device
         state.ema_params[part] = {k: v.to(device) for k, v in ema.items()}
         used |= keys
+    images = state.finetune_identity_images
+    if images is not None:
+        key = _key("params", "", IDENTITY_IMAGES)
+        with torch.no_grad():
+            images.copy_(_to_torch(flat, key, None, images.shape))
+        used.add(key)
     for name, leaf in state.finetune_leaves().items():
         for coll, target in (("params", leaf),
                              ("ema_params", state.ema_params[name])):
@@ -254,6 +270,9 @@ def export_train_state(state) -> dict:
         flat[f"params{SEP}{name}"] = leaf.detach().cpu().numpy()
         flat[f"ema_params{SEP}{name}"] = \
             state.ema_params[name].detach().cpu().numpy()
+    if state.finetune_identity_images is not None:
+        flat[_key("params", "", IDENTITY_IMAGES)] = \
+            state.finetune_identity_images.detach().cpu().numpy()
     if state.opt_g is not None:
         flat.update(export_optimizer_states(state))
     return flat
@@ -275,7 +294,10 @@ def export(model, part: str, params=("params", "ema_params")) -> dict:
 
 def load_drive_weights(flat, embedder, generator):
     """Load a fine-tuned checkpoint's drive weights into the two modules and
-    return the identity embedding (1, E) as a numpy array.
+    return the avatar: the identity embedding (1, E) as a numpy array, or
+    for a self-contained generator (X2Face, whose ``INPUT_KEYS`` hold
+    ``enc_rgbs``) the identity images (1, N, H, W, 3) its "fine-tune"
+    stored.
 
     EMA copies are read where present (``ema_params`` for embedder, generator
     and ``finetune_embedding``), BatchNorm statistics from ``batch_stats``,
@@ -288,11 +310,13 @@ def load_drive_weights(flat, embedder, generator):
         has_ema = any(k.startswith(f"ema_params{SEP}{part}{SEP}") for k in flat)
         used |= load_into(model, flat, part,
                           "ema_params" if has_ema else "params")
-    key = f"ema_params{SEP}finetune_embedding"
+    leaf = IDENTITY_IMAGES if "enc_rgbs" in generator.INPUT_KEYS \
+        else "finetune_embedding"
+    key = f"ema_params{SEP}{leaf}"
     if key not in flat:
-        key = f"params{SEP}finetune_embedding"
+        key = f"params{SEP}{leaf}"
     if key not in flat:
-        raise KeyError("checkpoint has no finetune_embedding: drive needs a "
+        raise KeyError(f"checkpoint has no {leaf}: drive needs a "
                        "fine-tuned checkpoint")
     used.add(key)
     shadowed = {k for k in flat if k.startswith(f"params{SEP}")

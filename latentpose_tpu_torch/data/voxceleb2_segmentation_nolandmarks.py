@@ -71,7 +71,8 @@ class SegmSampleLoader(voxceleb.SampleLoader):
 
     def __init__(self, data_root, img_dir=None, segm_dir=None,
                  bboxes_dir=None, deterministic=False, wire_dtype="float32"):
-        super().__init__(data_root, img_dir, deterministic=deterministic)
+        super().__init__(data_root, img_dir, deterministic=deterministic,
+                         wire_dtype=wire_dtype)
         self.segm_dir = segm_dir
         self.dtype = {"float32": np.float32, "uint8": np.uint8}[wire_dtype]
         try:
@@ -183,6 +184,11 @@ class VoxCeleb2SegmDataset(voxceleb.VoxCeleb2DatasetBase):
     def __getitem__(self, index):
         return self.get(index)
 
+    def pose_input(self, path, frame, images):
+        """The driver's ``pose_input_rgbs`` (1, H, W, 3): its crop
+        ``images`` (the mixed-crop dataset takes another)."""
+        return images
+
     def get(self, index, deterministic=False):
         """Sample ``index`` as (data_dict, target_dict); ``deterministic``
         (or a deterministic loader) draws the frames with seed 666."""
@@ -196,7 +202,8 @@ class VoxCeleb2SegmDataset(voxceleb.VoxCeleb2DatasetBase):
                 load_image=True, load_segmentation=not self.inference)
             image = sample["image"][None]            # (1, H, W, 3)
             data_dict["enc_rgbs"] = image
-            data_dict["pose_input_rgbs"] = image
+            data_dict["pose_input_rgbs"] = self.pose_input(
+                path, self.dirlist.files[index], image)
             if not self.inference:
                 segm = sample["segmentation"][None]
                 data_dict["target_rgbs"] = masked_target(image, segm)
@@ -209,7 +216,8 @@ class VoxCeleb2SegmDataset(voxceleb.VoxCeleb2DatasetBase):
                                        rng)
             images = self.loader.load_images(path, ids, self.imsize)
             data_dict["enc_rgbs"] = images[:-1]
-            data_dict["pose_input_rgbs"] = images[-1:]
+            data_dict["pose_input_rgbs"] = self.pose_input(path, ids[-1],
+                                                           images[-1:])
             if not self.inference:
                 segm = self.loader.load_segm(path, ids[-1:], self.imsize)
                 data_dict["target_rgbs"] = masked_target(images[-1:], segm)

@@ -1,5 +1,6 @@
 """FSTH embedder (port of ``latentpose_tpu/models/embedders/FSTH.py``): a
-strided ResBlock tower over concat(stickman, rgb) of each identity frame,
+strided ResBlock tower over concat(stickman, rgb) of each identity frame
+(the rgb alone with ``use_stickmen=False``, ``no_pose_encoder``),
 the spatial sum of its features, then the mean ('sum') or max over the
 frames.  No pose path: the FSTH generators take the pose from landmarks.
 
@@ -30,14 +31,16 @@ class Embedder(nn.Module):
 
     def __init__(self, num_channels=64, max_num_channels=512,
                  embed_channels=512, num_blocks=6, padding="zero",
-                 average_function="sum", generator=None):
+                 average_function="sum", generator=None, use_stickmen=True):
         super().__init__()
+        self.use_stickmen = use_stickmen
         if average_function not in ("sum", "max"):
             raise ValueError("average_function must be sum|max, got "
                              f"{average_function!r}")
         self.embed_channels = embed_channels
         self.average_function = average_function
-        self.encoder = SumPoolEncoder(6, num_channels, max_num_channels,
+        self.encoder = SumPoolEncoder(6 if use_stickmen else 3, num_channels,
+                                      max_num_channels,
                                       embed_channels, num_blocks, padding,
                                       generator=generator)
 
@@ -46,9 +49,11 @@ class Embedder(nn.Module):
         """enc_rgbs, enc_stickmen (B, K, H, W, 3) -> (embeds (B, E),
         embeds_elemwise (B, K, E)); ``train`` advances the tower's
         spectral-norm states."""
-        if enc_stickmen is None:
-            raise ValueError("the FSTH embedder needs enc_stickmen")
-        x = torch.cat([enc_stickmen, enc_rgbs], dim=-1)
+        x = enc_rgbs
+        if self.use_stickmen:
+            if enc_stickmen is None:
+                raise ValueError("the FSTH embedder needs enc_stickmen")
+            x = torch.cat([enc_stickmen, enc_rgbs], dim=-1)
         b, k = x.shape[:2]
         x = x.reshape(b * k, *x.shape[2:]).permute(0, 3, 1, 2)
         pooled, _ = self.encoder(
@@ -64,8 +69,11 @@ class Embedder(nn.Module):
         return None
 
     def forward(self, enc_rgbs, pose_input_rgbs=None, enc_stickmen=None,
-                train: bool = False, dropout_generator=None):
+                train: bool = False, dropout_generator=None,
+                compute_identity: bool = True):
         """(embeds, embeds_elemwise, None)."""
+        if not compute_identity:
+            return None, None, None
         embeds, elemwise = self.get_identity_embedding(enc_rgbs,
                                                        enc_stickmen, train)
         return embeds, elemwise, None

@@ -4,7 +4,8 @@ encoder (port of
 
 - identity: ResNeXt-50 over the K identity frames folded into the batch,
   then the mean ('sum') or max over the frames; eval form for fine-tune's
-  ê, train form in meta-train;
+  ê, train form in meta-train (:class:`ResNeXtIdentity`, which the
+  pretrained-pose embedders share);
 - pose: MobileNetV2 on driving frame 0, in eval or train form (meta-train
   trains it; the fine-tune step runs it frozen with train-mode BatchNorm).
 
@@ -28,11 +29,15 @@ class Wrapper:
                         generator=generator)
 
 
-class Embedder(nn.Module):
+class ResNeXtIdentity(nn.Module):
+    """The identity half: ResNeXt-50 over the K frames folded into the
+    batch, then the mean ('sum') or max; a subclass adds the pose path
+    (``get_pose_embedding``, ``pose_module``)."""
+
     INPUT_KEYS = ("enc_rgbs", "pose_input_rgbs")
 
-    def __init__(self, identity_embedding_size=512, pose_embedding_size=256,
-                 average_function="sum", generator=None):
+    def __init__(self, identity_embedding_size=512, average_function="sum",
+                 generator=None):
         super().__init__()
         if average_function not in ("sum", "max"):
             raise ValueError("average_function must be 'sum' or 'max', got "
@@ -41,8 +46,6 @@ class Embedder(nn.Module):
         self.average_function = average_function
         self.identity_encoder = ResNeXt50(num_classes=identity_embedding_size,
                                           generator=generator)
-        self.pose_encoder = MobileNetV2(num_classes=pose_embedding_size,
-                                        generator=generator)
 
     def get_identity_embedding(self, enc_rgbs, train: bool = False):
         """enc_rgbs (B, K, H, W, 3) -> (embeds (B, E), embeds_elemwise
@@ -55,6 +58,29 @@ class Embedder(nn.Module):
             else emb.amax(dim=1)
         return agg, emb
 
+    def forward(self, enc_rgbs, pose_input_rgbs=None, train: bool = False,
+                dropout_generator=None, compute_identity: bool = True):
+        """(embeds, embeds_elemwise, pose embedding or None), as the JAX
+        module's ``__call__``: identity first (unless not
+        ``compute_identity``), then pose, both in eval or both in train
+        form (meta-train); ``torch.func.functional_call`` runs it with
+        other weights (the EMA copy)."""
+        embeds, elemwise = self.get_identity_embedding(enc_rgbs, train) \
+            if compute_identity else (None, None)
+        pose = None if pose_input_rgbs is None \
+            else self.get_pose_embedding(pose_input_rgbs, train,
+                                         dropout_generator)
+        return embeds, elemwise, pose
+
+
+class Embedder(ResNeXtIdentity):
+    def __init__(self, identity_embedding_size=512, pose_embedding_size=256,
+                 average_function="sum", generator=None):
+        super().__init__(identity_embedding_size, average_function,
+                         generator)
+        self.pose_encoder = MobileNetV2(num_classes=pose_embedding_size,
+                                        generator=generator)
+
     def get_pose_embedding(self, pose_input_rgbs, train: bool = False,
                            dropout_generator=None):
         """pose_input_rgbs (B, T, H, W, 3) -> (B, pose_embedding_size),
@@ -62,14 +88,6 @@ class Embedder(nn.Module):
         return self.pose_encoder(pose_input_rgbs[:, 0].permute(0, 3, 1, 2),
                                  train, dropout_generator)
 
-    def forward(self, enc_rgbs, pose_input_rgbs=None, train: bool = False,
-                dropout_generator=None):
-        """(embeds, embeds_elemwise, pose embedding or None), as the JAX
-        module's ``__call__``: identity first, then pose, both in eval or
-        both in train form (meta-train); ``torch.func.functional_call``
-        runs it with other weights (the EMA copy)."""
-        embeds, elemwise = self.get_identity_embedding(enc_rgbs, train)
-        pose = None if pose_input_rgbs is None \
-            else self.get_pose_embedding(pose_input_rgbs, train,
-                                         dropout_generator)
-        return embeds, elemwise, pose
+    def pose_module(self):
+        """The pose path as a module of (B, 3, H, W) frames (drive)."""
+        return self.pose_encoder

@@ -1,6 +1,8 @@
-"""Nearest 2x upsampling, 2x2 average pooling and the polyphase kernel of
-the int8 upsample conv (port of ``upsample_nearest_2x``, ``avg_pool_2x``,
-``s2d_up_kernel`` and ``depth_to_space`` of ``latentpose_tpu/ops/image.py``).
+"""Nearest 2x upsampling, 2x2 average pooling, the polyphase kernel of
+the int8 upsample conv and X2Face's bilinear warp (port of
+``upsample_nearest_2x``, ``avg_pool_2x``, ``s2d_up_kernel``,
+``depth_to_space`` and ``grid_sample_bilinear`` of
+``latentpose_tpu/ops/image.py``).
 
 These act on the modules' internal NCHW tensors (``channels_last`` memory
 format is kept).  The float path upsamples and then convolves, the same math
@@ -57,3 +59,15 @@ def depth_to_space(y, c_out: int):
     y = y.reshape(b, 2, 2, c_out, h, w).permute(0, 3, 4, 1, 5, 2)
     return y.reshape(b, c_out, 2 * h, 2 * w).contiguous(
         memory_format=torch.channels_last)
+
+
+def grid_sample_bilinear(images, grid_x, grid_y):
+    """Bilinear sampling with reflection padding, ``align_corners=False``
+    (torch's grid_sample convention: -1 is the left / top edge of the
+    border pixels).  images (B, C, H, W); grid_x, grid_y (B, Ho, Wo) in
+    normalised coordinates -> (B, C, Ho, Wo).  Out-of-range coordinates
+    reflect about the image's border (-0.5 and size - 0.5) and are then
+    clipped to the pixel centres, as the JAX function folds them."""
+    grid = torch.stack([grid_x, grid_y], dim=-1).to(images.dtype)
+    return F.grid_sample(images, grid, mode="bilinear",
+                         padding_mode="reflection", align_corners=False)

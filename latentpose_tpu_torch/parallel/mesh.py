@@ -309,7 +309,10 @@ def reduce_grads(grads, dtype=None, on_wire=None):
     """The mean over ranks of one group's gradients: one flattened bucket,
     cast to ``dtype`` (if given) for the all-reduce only, returned in the
     gradients' own dtype and shapes.  ``on_wire(bucket)`` (if given) sees
-    the bucket as it goes on the wire."""
+    the bucket as it goes on the wire.  An empty group (the ``none``
+    discriminator's) has nothing to reduce."""
+    if not grads:
+        return []
     flat = torch.cat([g.reshape(-1) for g in grads])
     bucket = flat if dtype is None else flat.to(dtype)
     if on_wire is not None:
@@ -394,7 +397,9 @@ def reduce_scatter_grads(grads, dtype=None, on_wire=None):
     ``dtype`` (if given) for the wire only.  Returns ``[slice]`` in the
     gradients' dtype, what the group's optimizer over its shard takes.
     ``on_wire(bucket)`` (if given) sees the bucket as it goes on the
-    wire."""
+    wire.  An empty group (no bucket) has nothing to reduce."""
+    if not grads:
+        return []
     bucket = Bucket(grads)
     flat = bucket.flatten(grads)
     wire = flat if dtype is None else flat.to(dtype)
@@ -517,7 +522,8 @@ def shard_state(state, groups):
     :class:`Bucket` of which this rank keeps its slice of the parameters,
     their EMA (``state.ema_params``, where each live tensor has one) and
     the moments of ``state.opt_g`` ('g') and ``state.opt_d`` ('d'); every
-    full tensor is freed.  A world of 1 leaves the state as it is, as the
+    full tensor is freed.  An empty group is left out (its optimizer holds
+    nothing).  A world of 1 leaves the state as it is, as the
     JAX CLI without a mesh does.  Returns the state."""
     if world() == 1 or state.layout is not None:
         return state
@@ -540,6 +546,8 @@ def shard_state(state, groups):
                                  if all(has) else None)
         optimizers = {}
         for name, opt in (("g", state.opt_g), ("d", state.opt_d)):
+            if name not in built:       # an empty group: no moments
+                continue
             group = built[name]
             if [id(p) for p in opt.params] != [id(t) for t in group.live]:
                 raise ValueError(f"optimizer {name} is not over group "

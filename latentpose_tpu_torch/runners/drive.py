@@ -1,7 +1,12 @@
 """Driving (inference) engine (port of ``latentpose_tpu/runners/drive.py``).
 
 A fine-tuned avatar is puppeteered by a driver sequence: per frame batch,
-pose encoder -> generator, with identity from the fine-tuned embedding.
+pose encoder -> generator, with identity from the fine-tuned embedding (the
+pose path is the embedder's ``pose_module``: the flagship's MobileNetV2,
+or the frozen X2Face or FAb-Net encoder the pretrained-pose embedders
+carry).  A self-contained generator (X2Face, whose ``INPUT_KEYS`` hold
+``enc_rgbs``) runs without an embedder: the avatar's identity images,
+broadcast to the batch, are its ``enc_rgbs`` and the frames its driver.
 Frames travel as uint8 where the source decodes to bytes and are rescaled on
 the device.  With ``--quantize int8_static`` the generator's activation
 scales come from a calibration pass (:func:`calibrate_quant_scales`).
@@ -66,7 +71,7 @@ class DriveModule(nn.Module):
     def __init__(self, embedder, generator, identity=None,
                  dtype=torch.float32):
         super().__init__()
-        self.pose_encoder = embedder.pose_encoder
+        self.pose_encoder = embedder.pose_module()
         self.generator = generator
         self.register_buffer("identity", identity)
         self.dtype = dtype
@@ -84,23 +89,63 @@ class DriveModule(nn.Module):
         return rgbs.float(), segm.float()
 
 
+class SelfContainedDriveModule(nn.Module):
+    """The drive step of a self-contained generator (X2Face): a wire batch
+    of driver frames and the avatar's identity images (1, N, H, W, 3) ->
+    (rgbs (B, H, W, 3) f32, None).  Frames and images are cast to
+    ``dtype`` as the JAX drive casts them (the generator then computes in
+    f32, as flax promotes them)."""
+
+    def __init__(self, generator, dtype=torch.float32):
+        super().__init__()
+        self.generator = generator
+        self.dtype = dtype
+
+    def forward(self, pose_frames, identity_images):
+        if pose_frames.dtype == torch.uint8:
+            x = (pose_frames.float() / 255.0).to(self.dtype)
+        else:
+            x = pose_frames.to(self.dtype)
+        enc = identity_images.expand(x.shape[0], *identity_images.shape[1:])
+        rgbs, _ = self.generator(enc.to(self.dtype), x[:, None])
+        return rgbs.float(), None
+
+
+def self_contained(generator) -> bool:
+    """Whether ``generator`` reads the identity images itself (X2Face)."""
+    return "enc_rgbs" in generator.INPUT_KEYS
+
+
+def avatar(state):
+    """The avatar tensor of a drive state: ``finetune_embedding`` (1, E),
+    or a self-contained generator's ``finetune_identity_images``."""
+    return state.get("finetune_embedding",
+                     state.get("finetune_identity_images"))
+
+
 def make_drive_fn(models, args, quant_calib=None):
     """The frame-batch driver: ``(state, pose_frames) -> (rgbs, segm)``,
-    :class:`DriveModule` under ``torch.inference_mode``.
+    :class:`DriveModule` (or :class:`SelfContainedDriveModule`) under
+    ``torch.inference_mode``.
 
-    ``state["finetune_embedding"]`` is the (1, E) identity on the models'
-    device; pose_frames as :class:`DriveModule` takes them.
-    ``quant_calib``: the calibrated activation maxima of an
-    ``int8_static`` generator, loaded into it here.
+    ``state`` holds the avatar on the models' device: the (1, E) identity
+    ``finetune_embedding``, or X2Face's ``finetune_identity_images``;
+    pose_frames as :class:`DriveModule` takes them.  ``quant_calib``: the
+    calibrated activation maxima of an ``int8_static`` generator, loaded
+    into it here.
     """
     if quant_calib is not None:
         load_quant_calib(models["generator"], quant_calib)
-    module = DriveModule(models["embedder"], models["generator"],
-                         dtype=compute_dtype(args))
+    if self_contained(models["generator"]):
+        module = SelfContainedDriveModule(models["generator"],
+                                          compute_dtype(args))
+    else:
+        module = DriveModule(models["embedder"], models["generator"],
+                             dtype=compute_dtype(args))
 
     @torch.inference_mode()
     def drive_step(state, pose_frames):
-        return module(pose_frames, state["finetune_embedding"])
+        return module(pose_frames, avatar(state))
 
     return drive_step
 
@@ -135,7 +180,7 @@ def calibrate_quant_scales(models, args, state, frames, batch_size=32):
         for conv in convs.values():
             conv.act_absmax.zero_()
     step = make_drive_fn(models, args)
-    device = state["finetune_embedding"].device
+    device = avatar(state).device
     with calibrating(generator):
         for chunk, _ in _padded_batches(frames, batch_size):
             step(state, torch.from_numpy(chunk).to(device))
@@ -157,7 +202,7 @@ def drive_sequence(drive_fn, state, frames, batch_size=32):
     rank 0 gathers the sequence (:func:`_gather`); the others return None.
     """
     rank, world = parallel.rank(), parallel.world()
-    device = state["finetune_embedding"].device
+    device = avatar(state).device
     cuda = device.type == "cuda"
     in_flight, outputs = [], []
     for k, (chunk, keep) in enumerate(_padded_batches(frames, batch_size)):

@@ -25,7 +25,7 @@ from torch.func import functional_call
 
 from latentpose_tpu_torch.ops.spectral_norm import SNEmbed
 from latentpose_tpu_torch.runners.loop import dequantize_batch_host
-from latentpose_tpu_torch.runners.optim import Adam, RAdam
+from latentpose_tpu_torch.runners.optim import Adam, RAdam, SetToZero
 from latentpose_tpu_torch.runners.state import (TrainState, d_trainable,
                                                 g_trainable)
 
@@ -61,12 +61,15 @@ OPTIMIZERS = {"Adam": Adam, "RAdam": RAdam}
 
 def optimizers(state: TrainState, args):
     """Fresh optimizers over the two trainable sets (reference betas
-    (beta1, 0.999), eps 1e-5): ``args.optimizer`` is Adam or RAdam."""
+    (beta1, 0.999), eps 1e-5): ``args.optimizer`` is Adam or RAdam; a
+    discriminator with nothing to train (``none``) takes
+    :class:`SetToZero`, as its JAX wrapper's ``get_optimizer``."""
     opt = OPTIMIZERS[args.optimizer]
+    opt_d = opt if d_trainable(state) else SetToZero
     return (opt(g_trainable(state), args.lr_gen, b1=args.beta1, b2=0.999,
                 eps=1e-5),
-            opt(d_trainable(state), args.lr_dis, b1=args.beta1, b2=0.999,
-                eps=1e-5))
+            opt_d(d_trainable(state), args.lr_dis, b1=args.beta1, b2=0.999,
+                  eps=1e-5))
 
 
 def enable_finetuning(state: TrainState, args, identity_embedding,

@@ -16,10 +16,16 @@ three times; and the embedder's BatchNorm statistics once per forward.
 Each model family names its inputs: the embedder's and the generator's
 ``INPUT_KEYS`` pick them from the batch and the step's results (the
 landmark families read ``enc_stickmen``, ``dec_stickmen`` or
-``dec_keypoints``), an FSTH fine-tune feeds the generator its trainable
+``dec_keypoints``; the X2Face generator the identity frames and the
+driver themselves), an FSTH fine-tune feeds the generator its trainable
 ``finetune_affine``, and the discriminator's ``make_input`` builds what it
 scores (the FSTH discriminator interleaves the driver's stickman with the
-image).
+image).  The ``none`` discriminator (X2Face) scores zeros, has no rows, no
+features and no tensor to train; with no D criterion loss_D is 0.  A
+generator without segmentation (X2Face) leaves ``fake_segm`` None.  A
+frozen pose encoder (``X2Face_pretrained_embResNeXt``,
+``FAbNet_pretrained_embResNeXt``) gets zero gradients, which leave Adam's
+moments and its weights as they were.
 
 The step first divides the images of a uint8 batch (``--transfer_dtype
 uint8``, the wire) by 255 on the device; then it augments the batch
@@ -201,12 +207,14 @@ def forward(state: TrainState, batch, train: bool, dropout_generator=None,
     target = target[:, 0] if target.dim() > 4 else target
     fake_in = dis.make_input(inputs, fake).to(dtype)
     real_in = dis.make_input(inputs, target).to(dtype)
+    # (None for the ``none`` discriminator, which has no rows)
     rows = dis.embed_labels(batch["label"], update_stats=True)
+    rows_sg = None if rows is None else rows.detach()
     # pass 1: fake through the G graph (only loss_G's G-side gradient is
     # taken from it); pass 2: fake detached, rows detached; pass 3: real
     fake_score_G, fake_features = dis.pass_inputs(
-        fake_in, rows.detach(), update_stats=True)
-    fake_score_D, _ = dis.pass_inputs(fake_in.detach(), rows.detach(),
+        fake_in, rows_sg, update_stats=True)
+    fake_score_D, _ = dis.pass_inputs(fake_in.detach(), rows_sg,
                                       update_stats=True)
     real_score, real_features = dis.pass_inputs(real_in, rows,
                                                 update_stats=True)
@@ -296,7 +304,10 @@ def make_train_step(criteria, args, on_wire=None):
                     data_dict = forward(state, micro, train, masks, dtype)
                     losses_G, losses_D = apply_criteria(criteria, data_dict)
                     loss_G = sum(losses_G.values())
-                    loss_D = sum(losses_D.values())
+                    # no D criterion (X2Face): loss_D is 0, as in the JAX
+                    # step
+                    loss_D = sum(losses_D.values()) if losses_D \
+                        else torch.zeros((), device=loss_G.device)
                     # the two graphs share no node that needs a gradient
                     # (pass 1 reads the rows detached, passes 2-3 the fake
                     # detached); the backward of a global sum sums over
@@ -307,8 +318,9 @@ def make_train_step(criteria, args, on_wire=None):
                     grads_g = _add(grads_g, torch.autograd.grad(
                         loss_G, g_params, allow_unused=True,
                         materialize_grads=True))
-                    grads_d = _add(grads_d,
-                                   torch.autograd.grad(loss_D, d_params))
+                    # (the ``none`` discriminator has no tensor to train)
+                    grads_d = _add(grads_d, torch.autograd.grad(
+                        loss_D, d_params) if d_params else [])
                 scalars = {f"Loss_{k}": v.detach()
                            for k, v in {**losses_G, **losses_D}.items()}
                 scalars["loss_G"] = loss_G.detach()

@@ -152,16 +152,12 @@ def make_eval_forward(args):
         extra = {}
         try:
             if state.finetune:
-                pose = None
-                if hasattr(embedder, "pose_encoder"):
-                    prefix = "pose_encoder."
-                    tower = {k[len(prefix):]: v
-                             for k, v in ema.get("embedder", {}).items()
-                             if k.startswith(prefix)}
-                    frames = inputs["pose_input_rgbs"][:, 0].permute(
-                        0, 3, 1, 2)
-                    pose = functional_call(embedder.pose_encoder, tower,
-                                           (frames, train, dropout))
+                # the pose path alone (no identity frames in a fine-tune)
+                _, _, pose = functional_call(
+                    embedder, ema.get("embedder", {}),
+                    (None, inputs["pose_input_rgbs"]),
+                    {"train": train, "dropout_generator": dropout,
+                     "compute_identity": False})
                 leaves = {k: ema.get(k, v)
                           for k, v in state.finetune_leaves().items()}
                 embeds, extra = finetune_inputs(

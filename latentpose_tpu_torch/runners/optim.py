@@ -2,7 +2,8 @@
 EMA of weights (port of the optimizers in ``latentpose_tpu/runners/
 holycow.py`` ``get_gen_optimizer``, ``models/discriminators/no_landmarks.py``
 ``get_optimizer``, and the EMA in ``runners/holycow.py`` ``train_step``).
-Meta-training takes Adam, fine-tuning RAdam.
+Meta-training takes Adam, fine-tuning RAdam; the ``none`` discriminator
+takes optax's ``set_to_zero`` (:class:`SetToZero`).
 
 ``torch.optim.RAdam`` is not the same update: it puts eps as
 ``sqrt(bc2) / (sqrt(v) + eps)`` where optax has ``1 / (sqrt(v / bc2) + eps)``,
@@ -95,6 +96,20 @@ class RAdam(Adam):
             else:
                 update = mu_hat
             p.add_(update * -self.lr)
+
+
+class SetToZero:
+    """``optax.set_to_zero()``: the ``none`` discriminator's optimizer, over
+    no tensor.  Its state is optax's ``EmptyState``, which a checkpoint
+    does not hold (``convert.py`` writes and reads nothing for it)."""
+
+    def __init__(self, params=(), *args, **kwargs):
+        self.params = list(params)
+        self.count = 0
+        self.mu, self.nu = [], []
+
+    def step(self, grads):
+        pass
 
 
 @torch.no_grad()

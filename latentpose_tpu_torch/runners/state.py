@@ -11,6 +11,10 @@ them:
   ``finetune_embedding``, the (1, E) identity embedding (the flagship,
   FSTH_plus), or ``finetune_affine``, the FSTH generator's packed AdaIN
   parameters (1, num_affine_params);
+- ``finetune_identity_images``: X2Face's avatar (1, N, H, W, 3), the
+  identity images its "fine-tune" stores (no optimizer trains them, no EMA
+  tracks them, and the state stays a meta-train one, as in the JAX
+  package); None otherwise;
 - ``ema_params`` holds the EMA weights: {'embedder': {name: tensor},
   'generator': {name: tensor}} by ``named_parameters`` name, plus an entry
   for each per-avatar leaf, under its name; BatchNorm statistics are
@@ -47,6 +51,7 @@ class TrainState:
     opt_d: Any = None
     layout: Any = None
     finetune_affine: Optional[torch.Tensor] = None
+    finetune_identity_images: Optional[torch.Tensor] = None
 
     @property
     def finetune(self) -> bool:
@@ -82,11 +87,12 @@ def d_trainable(state: TrainState):
 def shard_groups(state: TrainState):
     """The groups a sharded state lays out, each one bucket: 'g' and 'd'
     (the two optimizers' tensors, in their order) and, in a fine-tune,
-    'frozen' (the embedder, which no optimizer trains)."""
+    'frozen' (the embedder, which no optimizer trains); an empty group (the
+    ``none`` discriminator's, a parameterless embedder's) is left out."""
     groups = {"g": g_trainable(state), "d": d_trainable(state)}
     if state.finetune:
         groups["frozen"] = list(state.models["embedder"].parameters())
-    return groups
+    return {name: live for name, live in groups.items() if live}
 
 
 def ema_pairs(state: TrainState):

@@ -224,9 +224,12 @@ def test_cli_trains_fsth_on_a_landmark_tree(tmp_path, dataloader):
     (["--dataloader", "voxceleb2_X2Face"], "A.19"),
 ])
 def test_cli_refuses_the_second_slice(flags, item):
+    """The second A.19 slice (``none``, ``no_pose_encoder``, X2Face, its
+    dataset) was refused here until it was ported; now its names
+    resolve (``tests/test_torch_ablation_cli.py`` trains them)."""
     argv = [*TINY, *SYNTHETIC, "--generator", "FSTH", *flags]
-    with pytest.raises((NotImplementedError, ValueError), match=item):
-        tcli.resolve_args(argv)
+    args = tcli.resolve_args(argv)
+    assert getattr(args, flags[0][2:]) == flags[1]
 
 
 def test_fsth_generator_takes_its_own_default_depth():

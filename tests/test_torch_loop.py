@@ -424,7 +424,8 @@ def test_cli_flags_resolve_as_the_jax_cli():
     assert (args.num_workers, args.prefetch_size, args.log_frequency_images,
             args.set_eval_mode_in_test, args.skip_eval) == (4, 16, 500, True,
                                                             True)
-    with pytest.raises(NotImplementedError, match="A.19"):
+    # a metric the JAX registry does not have either
+    with pytest.raises(ValueError, match="Unknown metric 'lpips'"):
         tcli.resolve_args(["--config_name", "default", "--dataloader",
                            "synthetic", "--metrics", "lpips"])
 

@@ -453,9 +453,14 @@ def test_crop_cli_matches_jax(tmp_path, weights_dir, small_nets, jax_png):
                           "--device", "cpu", "--batch_size", "1"]) == 2
     _compare_crops(tmp_path / "port", tmp_path / "jax")
     _compare_landmarks(tmp_path / "port_lm", tmp_path / "jax_lm")
-    with pytest.raises(NotImplementedError, match="A.19"):
-        crop_cli.main([str(src), str(tmp_path / "ffhq"), "--crop-style",
-                       "ffhq", "--device", "cpu"])
+    # the FFHQ style (A.19's second slice; the crop itself is held against
+    # the JAX cropper in tests/test_torch_ablation_data.py): the same stems
+    assert crop_cli.main([str(src), str(tmp_path / "ffhq"), "--crop-style",
+                          "ffhq", *common, "--landmarks-dir",
+                          str(tmp_path / "ffhq_lm"), "--device", "cpu"]) == 2
+    assert sorted(p.stem for p in (tmp_path / "ffhq").glob("*.png")) \
+        == sorted(p.stem for p in (tmp_path / "port").glob("*.png")) \
+        == sorted(p.stem for p in (tmp_path / "ffhq_lm").glob("*.npy"))
 
 
 def test_preprocess_dataset_matches_jax(tmp_path, weights_dir, small_nets,
@@ -496,7 +501,13 @@ def test_preprocess_dataset_matches_jax(tmp_path, weights_dir, small_nets,
                                     / rel.with_suffix(".png"))
         assert set(np.unique(got)) <= {0, 255}
         assert ((got == want).all(-1) | (np.abs(acc - 0.5) <= REL)).all()
-    with pytest.raises(NotImplementedError, match="A.19"):
-        prep_cli.main(["--data_root", str(tmp_path / "port"),
-                       "--do_crop_ffhq", "--device", "cpu"])
+    # --do_crop_ffhq (A.19's second slice; its crops are held against the
+    # JAX CLI's in test_crop_cli_matches_jax): the same stems, FFHQ-style
+    prep_cli.main(["--data_root", str(port_root), "--do_crop_ffhq",
+                   "--device", "cpu", *flags])
+    for sub, suffix in (("images-cropped-ffhq", ".png"),
+                        ("keypoints-cropped-ffhq", ".npy")):
+        assert sorted(p.relative_to(port_root / sub).with_suffix("")
+                      for p in (port_root / sub).rglob(f"*{suffix}")) \
+            == stems, sub
 

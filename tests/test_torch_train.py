@@ -337,9 +337,17 @@ def test_adversarial_matches_jax():
                                float(jg["adversarial_G"]), rtol=1e-6)
     np.testing.assert_allclose(float(td["adversarial_D"]),
                                float(jd["adversarial_D"]), rtol=1e-6)
+    # the relativistic forms (ported with A.19's second slice; their
+    # gradients are held in tests/test_torch_ablation_models.py)
     for other in ("rgan", "ragan"):
-        with pytest.raises(NotImplementedError, match="A.19"):
-            tadv.Criterion(other)
+        jg, jd = jadv.Criterion(other)({k: jnp.asarray(v)
+                                        for k, v in scores.items()})
+        tg, td = tadv.Criterion(other)({k: torch.from_numpy(v)
+                                        for k, v in scores.items()})
+        np.testing.assert_allclose(float(tg["adversarial_G"]),
+                                   float(jg["adversarial_G"]), rtol=1e-6)
+        np.testing.assert_allclose(float(td["adversarial_D"]),
+                                   float(jd["adversarial_D"]), rtol=1e-6)
 
 
 def test_featmat_matches_jax():
@@ -457,18 +465,22 @@ def test_finetune_defaults_equal_the_config_file():
                  "need a device mesh", ValueError, id="flags1-A.17"),
     pytest.param(["--finetune", "--num_devices", "2"],
                  "Requested 2 devices, only", ValueError, id="flags2-A.17"),
+    # the second A.19 slice's dataloaders and the none discriminator were
+    # refused until it was ported: now they resolve (error None)
     pytest.param(["--finetune", "--dataloader",
                   "voxceleb2_segmentation_nolandmarks_X2Face_FAbNet_crops"],
-                 "A.19", NotImplementedError, id="flags3-A.19"),
+                 "A.19", None, id="flags3-A.19"),
     pytest.param(["--finetune", "--dataloader", "voxceleb2_X2Face"], "A.19",
-                 NotImplementedError, id="flags4-A.19"),
-    # every criterion is ported since the FSTH slice (l1_rgb): what stays
-    # refused is the second A.19 slice's modules
+                 None, id="flags4-A.19"),
     pytest.param(["--finetune", "--discriminator", "none"],
-                 "A.19", ValueError, id="flags5-A.19"),
+                 "A.19", None, id="flags5-A.19"),
 ])
 def test_cli_refuses_what_is_not_ported(meta, flags, item, error):
     argv = ["--checkpoint_path", str(meta[1]), "--dataloader", "synthetic"]
+    if error is None:
+        args = tcli.resolve_args(argv + flags)
+        assert getattr(args, flags[1][2:]) == flags[2]
+        return
     with pytest.raises(error, match=item):
         tcli.resolve_args(argv + flags)
 
@@ -518,8 +530,8 @@ def test_cli_refuses_other_families_and_fine_tuned_checkpoints(runs, meta,
     CLI reads them; ``--no-finetune`` is refused)."""
     argv = ["--finetune", "--checkpoint_path", str(meta[1]), "--dataloader",
             "synthetic"]
-    with pytest.raises(ValueError, match="not ported"):
-        tcli.resolve_args(argv + ["--generator", "X2Face"])
+    with pytest.raises(ValueError, match="Unknown generator"):
+        tcli.resolve_args(argv + ["--generator", "nonexistent"])
     path = jckpt.save_checkpoint(tmp_path, runs["jstate"], runs["jargs"])
     assert tcli.resolve_args(["--checkpoint_path", str(path),
                               "--dataloader", "synthetic"]).finetune
