@@ -55,7 +55,7 @@ paths:
    and take one more step, the step and Adam count continuing;
 9. one meta step on the card and on the CPU from the seeded meta
    checkpoint's state (ROADMAP C.8: a state the card meta-trained differs
-   from call to call) and the same batch (batch 2, f32,
+   from call to call) and the same batch (batch 1, f32,
    train-mode BatchNorm in both towers, the same dropout masks,
    augmentation off: its per-pixel fields are drawn on the device): losses,
    the BatchNorm statistics' update and the discriminator's gradient within
@@ -344,6 +344,7 @@ DIST_TIMED = 2         # part (i): staged steps timed each way, in turns
 # (1/2 of the parameters, EMA and moments, plus the replicated buffers)
 FSDP_RESIDENT = 0.6
 STEP_TOL = 1e-3        # card vs CPU, one train step, relative
+META_CHECK_BATCH = 1   # the meta step card vs CPU (f32 and f64): its batch
 # card vs CPU, one train step: the generator's and each tower's gradient,
 # L2 relative (the meta step's towers read 6.9e-3-3.1e-2); a fault of
 # 1 - FAULT_SCALE in the embeddings' gradient must read above it (0.30)
@@ -443,6 +444,11 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+# the profiler records the card's activity alone: the host's operator
+# events, which no reading here uses, took most of a meta step's parse
+DEVICE_ONLY = [torch.profiler.ProfilerActivity.CUDA]
+
+
 def device_busy_ms(fn, steps, names=()):
     """Per call of ``fn`` over ``steps`` profiled calls: the summed duration
     of its CUDA kernels (one stream: the device's busy time), and of the
@@ -452,9 +458,7 @@ def device_busy_ms(fn, steps, names=()):
     kernel shorter than its wrapper's host cost."""
     fn()
     torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=DEVICE_ONLY) as prof:
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
@@ -485,9 +489,7 @@ def kernel_breakdown(fn):
     activity."""
     fn()
     torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=DEVICE_ONLY) as prof:
         fn()
         torch.cuda.synchronize()
     by_name = {}
@@ -582,8 +584,7 @@ def adain_kernels_per_call(device):
     x, w, b = adain_inputs(DRIVE_BATCH, 65536, 64, torch.bfloat16, device, 8)
     adain_op.adain(x, w, b)
     torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=DEVICE_ONLY) as prof:
         adain_op.adain(x, w, b)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
@@ -1122,18 +1123,20 @@ def _copy_state(state, args, device, dtype=torch.float32):
     return new
 
 
-def _leaves(state):
-    """{(module, kind): {name: CPU copy}}: each module's parameters, its
-    BatchNorm statistics, and the optimizers' first moments by parameter
-    (Adam's ``mu``: with beta1 = 0 the step's gradient), the embedder's
-    split by tower."""
+def _leaves(state, kinds=("stats", "gradient")):
+    """{(module, kind): {name: CPU copy}} of ``kinds``: each module's
+    BatchNorm statistics ("stats") and the optimizers' first moments by
+    parameter ("gradient": Adam's ``mu``, with beta1 = 0 the step's
+    gradient), the embedder's split by tower.  No gate reads the
+    parameters, so they are not copied."""
     out = {}
-    for part, m in state.models.items():
-        out[(part, "params")] = {k: v.detach().cpu().clone()
-                                 for k, v in m.named_parameters()}
-        out[(part, "stats")] = {k: v.detach().cpu().clone()
-                                for k, v in m.named_buffers()
-                                if "running" in k}
+    if "stats" in kinds:
+        for part, m in state.models.items():
+            out[(part, "stats")] = {k: v.detach().cpu().clone()
+                                    for k, v in m.named_buffers()
+                                    if "running" in k}
+    if "gradient" not in kinds:
+        return out
     # g_trainable's order: the generator, then the embedder (meta-train)
     # or the identity embedding (fine-tune)
     owners = ["generator"] * sum(
@@ -1147,9 +1150,20 @@ def _leaves(state):
     out[("discriminator", "gradient")] = {
         str(i): mu.detach().cpu().clone()
         for i, mu in enumerate(state.opt_d.mu)}
-    for name, leaf in state.finetune_leaves().items():
-        out[(name, "params")] = {"": leaf.detach().cpu().clone()}
     return out
+
+
+# a phase's criteria by (device, compute dtype, build function, names): seeded
+# towers, rebuilt the same for every step; cleared after each phase
+_CRITERIA = {}
+
+
+def _criteria(args, device):
+    key = (str(device), args.compute_dtype, train_cli.build_criteria,
+           args.criterions)
+    if key not in _CRITERIA:
+        _CRITERIA[key] = train_cli.build_criteria(args, device)
+    return _CRITERIA[key]
 
 
 def _run_step(args, state, host, keys, device, patch=contextlib.nullcontext,
@@ -1158,10 +1172,9 @@ def _run_step(args, state, host, keys, device, patch=contextlib.nullcontext,
     with the host batch, inside ``patch()``: (losses, leaves before, leaves
     after, s)."""
     st = _copy_state(state, args, device, dtype)
-    before = _leaves(st)
+    before = _leaves(st, ("stats",))
     with patch():
-        step_fn = train_cli.make_step(args, train_cli.build_criteria(args,
-                                                                     device))
+        step_fn = train_cli.make_step(args, _criteria(args, device))
         t0 = time.perf_counter()
         scalars = step_fn(st, holycow.to_device(host, device, keys))
         scalars = {k: float(v) for k, v in scalars.items()}
@@ -1177,8 +1190,6 @@ def _gaps(ref, other):
             for k in losses}
     rel = {}
     for group, leaves in after.items():
-        if group[1] == "params":
-            continue
         num = sum(float((o_after[group][k] - leaves[k]).square().sum())
                   for k in leaves)
         den = sum(float((leaves[k] - (before[group][k] if group[1] == "stats"
@@ -1356,7 +1367,8 @@ def _float64(args):
 
 def phase_meta_step_card_vs_cpu(args, meta_ckpt, loader, device):
     """One meta step from the same state and batch on the card and on the
-    CPU: batch 2, train-mode BatchNorm in both towers, the same dropout
+    CPU: batch META_CHECK_BATCH, train-mode BatchNorm in both towers (its
+    K=8 identity frames in the identity tower), the same dropout
     masks (drawn on the CPU, keyed on seed and step), augmentation off (its
     per-pixel fields come from a generator on the device).
 
@@ -1387,7 +1399,7 @@ def phase_meta_step_card_vs_cpu(args, meta_ckpt, loader, device):
         args.use_affine_shift = False
     args.checkpoint_path = str(meta_ckpt)
     state = train_cli.load_checkpoint(args, torch.device("cpu"))
-    host, keys = _batch_of(loader, 2), holycow.META_STEP_KEYS
+    host, keys = _batch_of(loader, META_CHECK_BATCH), holycow.META_STEP_KEYS
     embedder = type(state.models["embedder"])
     ways = {"card": contextlib.nullcontext, "card, plain link": _plain_link,
             "card, planted fault": lambda: _planted_fault(embedder)}
@@ -1396,7 +1408,8 @@ def phase_meta_step_card_vs_cpu(args, meta_ckpt, loader, device):
     for way, patch in ways.items():
         runs[way] = _run_step(args, state, host, keys, device, patch)
         gaps[way] = _gaps(cpu, runs[way])
-        _print_gaps(f"meta step {way} vs cpu, batch 2 {args.image_size}² "
+        _print_gaps(f"meta step {way} vs cpu, batch {META_CHECK_BATCH} "
+                    f"{args.image_size}² "
                     f"f32 (TF32 off; {runs[way][3]:.2f} s, cpu "
                     f"{cpu[3]:.2f} s)", *gaps[way])
     _print_gaps("meta step card, kernel vs plain link",
@@ -1417,7 +1430,8 @@ def phase_meta_step_card_vs_cpu(args, meta_ckpt, loader, device):
     gaps64 = {"card": _gaps(cpu64, card64),
               "card, planted fault": _gaps(cpu64, fault64_run)}
     for way, gap in gaps64.items():
-        _print_gaps(f"meta step f64 {way} vs cpu f64, batch 2 "
+        _print_gaps(f"meta step f64 {way} vs cpu f64, batch "
+                    f"{META_CHECK_BATCH} "
                     f"{args.image_size}² (plain link and AdaIN; "
                     f"{card64[3]:.2f} s, cpu {cpu64[3]:.2f} s)", *gap)
     # f32 against its own rounding: each f32 step's distance to its own
@@ -1697,14 +1711,15 @@ def phase_meta_train(meta_ckpt, workdir, device, modes=()):
     print(f"meta-train ({label}): {META_STEPS} steps, step {state.step}, "
           f"Adam count {state.opt_g.count}; first losses {losses[0]}; last "
           f"{losses[-1]}; launches per step {launches[0]}", flush=True)
-    busy, _ = device_busy_ms(lambda: step_fn(state, batches[0]), 1)
+    # one profiled step: its device busy time and its time by kind
+    kinds, top = kernel_breakdown(lambda: step_fn(state, batches[1]))
+    busy = None if kinds is None else sum(kinds.values())
     idle = "not measured" if busy is None else f"{1 - busy / median:.3f}"
     print(f"meta-train {label}, batch 8 K=8 {args.image_size}², 6 criteria, "
           f"3 augmentations: step_ms median={median:.2f} (each "
           f"{', '.join(f'{t:.1f}' for t in times)}) images/s="
           f"{8 / median * 1e3:.2f} peak_mem_MiB={peak:.0f}; one step "
           f"device_busy_ms={_ms(busy)} idle_share={idle}", flush=True)
-    kinds, top = kernel_breakdown(lambda: step_fn(state, batches[1]))
     if kinds is not None:
         traced = sum(kinds.values())
         print(f"meta-train step ({label}) device time by kind: " + "; ".join(
@@ -1990,11 +2005,12 @@ def phase_real_data(meta_ckpt, tree, rows, workdir, device, staged_ms,
     _require_steps("real-data fine-tune", steps,
                    {"bn_relu_conv1x1_stats": 0, "adain_fused": adains},
                    REAL_FT_EPOCHS)
-    before = ckpt_lib.load_arrays(path)
-    after = ckpt_lib.load_arrays(ft_path)
     key = "params::generator::head_conv::kernel"
-    require(state.finetune and not np.array_equal(before[key], after[key]),
-            "the generator did not move in fine-tuning")
+    with ckpt_lib.open_arrays(path) as before, \
+            ckpt_lib.open_arrays(ft_path) as after:
+        require(state.finetune and not np.array_equal(before[key],
+                                                      after[key]),
+                "the generator did not move in fine-tuning")
     eval_launches = {k: launches[k] - ehat[k]
                      - sum(s["launches"][k] for s in steps) for k in launches}
     require(all(s["wire"] == {wire} for s in steps), f"real-data fine-tune "
@@ -2217,7 +2233,7 @@ def phase_int8_drive(ckpt, workdir, frames, device):
         for mode in QUANT_MODES + QUANT_MODES[::-1]:
             fn, state = drive[mode]
             steps.setdefault((b, mode), []).append(
-                cuda_ms(lambda: fn(state, wire), 10))
+                cuda_ms(lambda: fn(state, wire), 5))
     for (b, mode), ms in steps.items():
         print(f"drive device step {mode or 'bf16'} batch {b}: step_ms="
               f"{ms[0]:.3f} / {ms[1]:.3f} (two turns) device_step_fps="
@@ -2334,46 +2350,56 @@ def phase_card_vs_cpu(ckpt, models, state, frames):
 
 # ------------------------------------------------------ export, reference .pth
 
-# Run in a child with the blocked imports (CHILD_SITE): load a ``.pt2``, run
-# it once over the frames with the kernel's launches counted, save the
-# frames, then time its step with CUDA events.
+# Run in a child with the blocked imports (CHILD_SITE), started before the
+# exports: it loads a small artifact (the deserialiser's imports, the card's
+# context), says it is ready, and waits for the jobs' file on its input;
+# then for each job it loads a ``.pt2``, runs it once over the frames with
+# the kernel's launches counted, saves the frames, and times its step with
+# CUDA events.
 EXPORT_CHILD = '''
 import json, sys, time
 import numpy as np, torch
 from latentpose_tpu_torch.cli.export import load_serving_artifact
 from latentpose_tpu_torch.ops import adain
-pt2, frames_path, out_path, device = sys.argv[1:5]
+device, warm = sys.argv[1:3]
+# as eager drive runs in the smoke: cuDNN's convolutions in full f32
+torch.backends.cudnn.allow_tf32 = False
 cuda = device == "cuda"
 sync = torch.cuda.synchronize if cuda else (lambda: None)
-t0 = time.perf_counter()
-serve = load_serving_artifact(pt2)
-load_s = time.perf_counter() - t0
-frames = torch.from_numpy(np.load(frames_path)).to(device)
-sync()
-adain.adain.launches = 0
-with torch.inference_mode():
-    rgbs, segm = serve(frames)
-sync()
-launches = adain.adain.launches
-np.save(out_path, rgbs.cpu().numpy())
-for _ in range(3):
-    serve(frames)
-if cuda:
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    sync()
-    start.record()
-    for _ in range(10):
-        serve(frames)
-    end.record()
-    end.synchronize()
-    step_ms = start.elapsed_time(end) / 10
-else:
+load_serving_artifact(warm)
+print("export child: ready", flush=True)
+jobs = json.loads(open(sys.stdin.readline().strip()).read())
+for job in jobs:
     t0 = time.perf_counter()
+    serve = load_serving_artifact(job["pt2"])
+    load_s = time.perf_counter() - t0
+    frames = torch.from_numpy(np.load(job["frames"])).to(device)
+    sync()
+    adain.adain.launches = 0
+    with torch.inference_mode():
+        rgbs, segm = serve(frames)
+    sync()
+    launches = adain.adain.launches
+    np.save(job["out"], rgbs.cpu().numpy())
     serve(frames)
-    step_ms = (time.perf_counter() - t0) * 1e3
-print("export child: " + json.dumps({
-    "launches": launches, "load_s": load_s, "step_ms": step_ms,
-    "segm": list(segm.shape)}), flush=True)
+    if cuda:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        sync()
+        start.record()
+        for _ in range(5):
+            serve(frames)
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / 5
+    else:
+        t0 = time.perf_counter()
+        serve(frames)
+        step_ms = (time.perf_counter() - t0) * 1e3
+    del serve
+    print("export child: " + json.dumps({
+        "name": job["name"], "launches": launches, "load_s": load_s,
+        "step_ms": step_ms,
+        "segm": None if segm is None else list(segm.shape)}), flush=True)
 '''
 
 
@@ -2399,17 +2425,21 @@ def _run_child(command, env, prefix=None):
     return (json.loads(found[-1]) if found else None), wall, proc
 
 
-def phase_export(ckpt, workdir, frames, device):
-    """``cli.export.main`` on the card from the fine-tuned checkpoint, at
-    batch 32 on the uint8 wire: bf16, and int8_static calibrated on the
-    smoke's 32 frames (``synthetic://3``, named explicitly).  Each ``.pt2``
-    runs in a child with the blocked imports over the same frames, against
-    eager ``drive_sequence`` here within 1e-3, with 17 AdaIN launches a
-    forward through the operator; an artifact exported with the head
-    AdaIN's weights moved by 0.05 must read above that gate.  The export's
-    seconds and bytes, the artifact's step (CUDA events) beside eager's.
-    Returns the children's AdaIN launches."""
-    from latentpose_tpu_torch.cli import export as export_cli
+def phase_export(ckpt, avatars, workdir, frames, device):
+    """``cli.export.main`` on the card at batch 32 on the uint8 wire: the
+    fine-tuned flagship checkpoint in bf16, and in int8_static calibrated
+    on the smoke's 32 frames (``synthetic://3``, named explicitly); the
+    ablation avatars (``avatars``: FAbNet+, X2Face+ and X2Face, from
+    :func:`phase_ablations`) in f32.  One child with the blocked imports
+    loads each ``.pt2`` in turn and serves the same frames, against eager
+    ``drive_sequence`` here within 1e-3, with the AdaIN launches a forward
+    through the operator reckoned from the code (17; X2Face none, and no
+    mask); the bf16 artifact against eager drive with the head AdaIN's
+    weights moved by 0.05 must read above that gate.  The child starts
+    before the exports and waits for its jobs, so its start-up runs beside
+    them; it serves and times alone.  The export's seconds and bytes, the
+    load's seconds, the artifact's step (CUDA events) beside eager's.
+    Returns the child's AdaIN launches."""
     t_phase = time.perf_counter()
     workdir.mkdir(parents=True, exist_ok=True)
     env = child_env(workdir)
@@ -2417,76 +2447,130 @@ def phase_export(ckpt, workdir, frames, device):
     wire = (frames * 255 + 0.5).astype(np.uint8)
     np.save(workdir / "frames.npy", wire)
     host = torch.from_numpy(wire).to(device)
-    per_forward = ADAIN_PER_FORWARD
-    launches = 0
-    for mode, flags in (("bf16", []), ("int8_static", [
-            "--quantize", "int8_static", "--calibration_source",
-            "synthetic://3"])):
+    warm = workdir / "warm.pt2"
+    torch.export.save(torch.export.export(
+        torch.nn.Conv2d(3, 3, 1).to(device),
+        (torch.zeros(1, 3, 8, 8, device=device),)), str(warm))
+    t_child = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, str(workdir / "export_child.py"), device.type,
+         str(warm)], env=env, cwd=ROOT, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        return _export_jobs(ckpt, avatars, workdir, frames, device, wire,
+                            host, child, t_child, t_phase)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
+def _export_jobs(ckpt, avatars, workdir, frames, device, wire, host, child,
+                 t_child, t_phase):
+    """:func:`phase_export`'s exports, eager drives and checks, with the
+    serving ``child`` started."""
+    from latentpose_tpu_torch.cli import export as export_cli
+    # (name, checkpoint, the export's flags, drive's flags, AdaIN launches
+    # a forward); the ablation avatars in f32, as the CPU tests hold them
+    f32 = ["--compute_dtype", "float32"]
+    quant = ["--quantize", "int8_static"]
+    jobs = [("bf16", ckpt, [], [], ADAIN_PER_FORWARD),
+            ("int8_static", ckpt, quant + ["--calibration_source",
+                                           "synthetic://3"], quant,
+             ADAIN_PER_FORWARD)]
+    jobs += [(name, path, f32, f32,
+              0 if name == "X2Face" else ADAIN_PER_FORWARD)
+             for name, path in avatars.items()]
+    wants, notes = {}, {}
+    for mode, path, flags, drive_flags, _ in jobs:
         dest = workdir / f"{mode}.pt2"
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        export_cli.main([str(ckpt), "--destination", str(dest), *flags,
-                         *_on(device)])
+        export_cli.main([str(path), "--destination", str(dest),
+                         "--transfer_dtype", "uint8", *flags, *_on(device)])
         torch.cuda.synchronize()
         export_s = time.perf_counter() - t0
         meta = json.loads(Path(f"{dest}.json").read_text())
+        masked = mode != "X2Face"
         require(meta["platforms"] == [device.type] and meta["batch_size"] ==
-                DRIVE_BATCH and meta["transfer_dtype"] == "uint8",
+                DRIVE_BATCH and meta["transfer_dtype"] == "uint8"
+                and meta["outputs"] == ["fake_rgbs",
+                                        "fake_segm" if masked else None],
                 f"export {mode}: {meta}")
-
-        args = cli.resolve_args([str(ckpt), *flags[:2]])
+        args = cli.resolve_args([str(path), *drive_flags])
         models, state = cli.load_finetuned(args, device)
-        calib = None if mode == "bf16" else drive_lib.calibrate_quant_scales(
-            models, args, state, frames, batch_size=DRIVE_BATCH)
+        calib = None if mode != "int8_static" else \
+            drive_lib.calibrate_quant_scales(models, args, state, frames,
+                                             batch_size=DRIVE_BATCH)
         drive_fn = drive_lib.make_drive_fn(models, args, quant_calib=calib)
-        want = drive_lib.drive_sequence(drive_fn, state, wire, DRIVE_BATCH)
-        eager_ms = cuda_ms(lambda: drive_fn(state, host), 10)
+        wants[mode] = drive_lib.drive_sequence(drive_fn, state, wire,
+                                               DRIVE_BATCH)
+        notes[mode] = (export_s, meta["bytes"],
+                       cuda_ms(lambda: drive_fn(state, host), 5))
+        if mode == "bf16":      # the planted fault: eager drive moved
+            head = models["generator"].adain_features[-1]
+            with torch.no_grad():
+                models["generator"].projector_1.bias[-head:] += 0.05
+            faulty = drive_lib.drive_sequence(
+                drive_lib.make_drive_fn(models, args), state, wire,
+                DRIVE_BATCH)
+        del models, state, drive_fn
+        torch.cuda.empty_cache()
 
-        record, wall, _ = _run_child(
-            [sys.executable, str(workdir / "export_child.py"), str(dest),
-             str(workdir / "frames.npy"), str(workdir / f"{mode}.npy"),
-             device.type],
-            env, "export child: ")
-        require(record is not None, f"export {mode}: the child printed no "
-                "record")
+    spec = [{"name": mode, "pt2": str(workdir / f"{mode}.pt2"),
+             "frames": str(workdir / "frames.npy"),
+             "out": str(workdir / f"{mode}.npy")} for mode, *_ in jobs]
+    (workdir / "jobs.json").write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    out, _ = child.communicate(str(workdir / "jobs.json") + "\n",
+                               timeout=900)
+    served, wall = time.perf_counter() - t0, time.perf_counter() - t_child
+    if child.returncode:
+        print(out[-3000:], flush=True)
+    require(child.returncode == 0, f"the export child exited with "
+            f"{child.returncode}")
+    require("export child: ready" in out, "the export child did not warm up")
+    records = {r["name"]: r for r in (
+        json.loads(line[len("export child: "):])
+        for line in out.splitlines()
+        if line.startswith("export child: {"))}
+    require(set(records) == set(wants), f"export child served "
+            f"{sorted(records)}, exported {sorted(wants)}")
+    launches = 0
+    size = FLAGSHIP["image_size"]
+    for mode, _, _, _, per_forward in jobs:
+        record, want = records[mode], wants[mode]
         got = np.load(workdir / f"{mode}.npy")
         gap = float(np.abs(got - want).max())
         launches += record["launches"]
-        print(f"export {mode}: cli.export {export_s:.2f} s, {meta['bytes']} "
-              f"bytes ({meta['bytes'] / 2**20:.1f} MiB); child {wall:.1f} s "
-              f"(load {record['load_s']:.2f} s); artifact vs eager "
-              f"drive_sequence, {len(wire)} frames: max_abs_diff {gap:.3g} "
-              f"(gate 1e-3); adain launches in one forward "
-              f"{record['launches']} (reckoned {per_forward}); step at batch "
-              f"{DRIVE_BATCH}: artifact {record['step_ms']:.3f} ms, eager "
-              f"{eager_ms:.3f} ms (events)", flush=True)
-        size = FLAGSHIP["image_size"]
+        export_s, nbytes, eager_ms = notes[mode]
+        print(f"export {mode}: cli.export {export_s:.2f} s, {nbytes} bytes "
+              f"({nbytes / 2**20:.1f} MiB); in the child load "
+              f"{record['load_s']:.2f} s; artifact vs eager drive_sequence, "
+              f"{len(wire)} frames: max_abs_diff {gap:.3g} (gate 1e-3); "
+              f"adain launches in one forward {record['launches']} "
+              f"(reckoned {per_forward}); step at batch {DRIVE_BATCH}: "
+              f"artifact {record['step_ms']:.3f} ms, eager {eager_ms:.3f} "
+              f"ms (events)", flush=True)
+        segm = None if mode == "X2Face" else [len(wire), size, size, 1]
         require(np.isfinite(got).all() and got.shape == want.shape and
-                record["segm"] == [len(wire), size, size, 1],
+                record["segm"] == segm,
                 f"export {mode}: frames {got.shape}, segm {record['segm']}")
         require(gap <= 1e-3, f"export {mode}: the artifact differs from "
                 f"eager drive by {gap}")
         require(record["launches"] == per_forward,
                 f"export {mode}: {record['launches']} AdaIN launches a "
                 f"forward, reckoned {per_forward}")
-        if mode == "bf16":
-            head = models["generator"].adain_features[-1]
-            with torch.no_grad():
-                models["generator"].projector_1.bias[-head:] += 0.05
-            faulty = export_cli.export_serving_artifact(
-                models, state, args, DRIVE_BATCH, torch.uint8)
-            torch.export.save(faulty, str(workdir / "fault.pt2"))
-            serve = export_cli.load_serving_artifact(workdir / "fault.pt2")
-            with torch.inference_mode():
-                fault = float((serve(host)[0].cpu().numpy() - want).__abs__()
-                              .max())
-            print(f"export planted fault (the head AdaIN's weights + 0.05): "
-                  f"max_abs_diff {fault:.3g} (gate 1e-3)", flush=True)
-            require(fault > 1e-3, f"the planted export fault passes the "
-                    f"gate: {fault}")
-        del models, state, drive_fn
-        torch.cuda.empty_cache()
-    print(f"export phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    fault = float(np.abs(np.load(workdir / "bf16.npy") - faulty).max())
+    print(f"export planted fault (eager drive with the head AdaIN's "
+          f"weights + 0.05) against the bf16 artifact: max_abs_diff "
+          f"{fault:.3g} (gate 1e-3)", flush=True)
+    require(fault > 1e-3, f"the planted export fault passes the gate: "
+            f"{fault}")
+    print(f"export: one child served {len(jobs)} artifacts in {served:.1f} "
+          f"s after its jobs came ({wall:.1f} s from its start, beside the "
+          f"exports); phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return launches
 
 
@@ -2616,9 +2700,10 @@ def write_prep_weights(wdir, frame, device):
     ``frame`` above the mean, so that few anchors pass the decode's fixed
     threshold; Graphonomy's background bias is set so that its person
     probability's median on ``frame`` (resized to 256²) is 0.5."""
-    nets = {"s3fd.npz": _seeded(s3fd_mod.S3FD(), 11),
-            "fan_2d.npz": _seeded(fan_mod.FAN(), 12),
-            "graphonomy.npz": _seeded(graph_mod.Graphonomy(), 13)}
+    empty = weights.empty_module      # _seeded sets every drawn value
+    nets = {"s3fd.npz": _seeded(empty(s3fd_mod.S3FD), 11),
+            "fan_2d.npz": _seeded(empty(fan_mod.FAN), 12),
+            "graphonomy.npz": _seeded(empty(graph_mod.Graphonomy), 13)}
     s3fd_net = nets["s3fd.npz"]
     with torch.no_grad():
         for i in range(6):
@@ -2817,8 +2902,8 @@ def _prep_net_times(wdir, frames, crops, device):
         return segmentation.segment_with_tta(seg, crops[:PREP_BATCH])
 
     wall = cuda_ms(segment, 2)
-    busy, _ = device_busy_ms(segment, 1)
     kinds, top = kernel_breakdown(segment)
+    busy = None if kinds is None else sum(kinds.values())
     traced = "device busy not measured" if busy is None else \
         f"device busy {busy:.3f} ms, idle {1 - busy / wall:.3f}"
     print(f"preprocess segmentation batch of {PREP_BATCH} crops, 4 scales: "
@@ -3196,19 +3281,20 @@ def phase_fsth(prep, workdir, device):
                        {"bn_relu_conv1x1_stats": 0,
                         "adain_fused": FSTH_PER_FORWARD}, ft_steps)
         launches += sum(s["launches"]["adain_fused"] for s in ft_record)
-        before, after = (ckpt_lib.load_arrays(p) for p in (meta, ft_path))
-        require("params::finetune_affine" in after
-                and "params::finetune_embedding" not in after
-                and np.isfinite(after["params::finetune_affine"]).all(),
-                f"FSTH fine-tune ({label}): its checkpoint's leaves")
-        for key in ("params::generator::project::kernel",
-                    "spectral::generator::project::u"):
-            require(np.array_equal(before[key], after[key]),
-                    f"FSTH fine-tune ({label}) moved {key}")
-        require(not np.array_equal(
-            before["params::generator::head_conv::kernel"],
-            after["params::generator::head_conv::kernel"]),
-            f"FSTH fine-tune ({label}) left the generator as it was")
+        with ckpt_lib.open_arrays(meta) as before, \
+                ckpt_lib.open_arrays(ft_path) as after:
+            require("params::finetune_affine" in after.files
+                    and "params::finetune_embedding" not in after.files
+                    and np.isfinite(after["params::finetune_affine"]).all(),
+                    f"FSTH fine-tune ({label}): its checkpoint's leaves")
+            for key in ("params::generator::project::kernel",
+                        "spectral::generator::project::u"):
+                require(np.array_equal(before[key], after[key]),
+                        f"FSTH fine-tune ({label}) moved {key}")
+            require(not np.array_equal(
+                before["params::generator::head_conv::kernel"],
+                after["params::generator::head_conv::kernel"]),
+                f"FSTH fine-tune ({label}) left the generator as it was")
         ft_ms = float(np.median([s["ms"] for s in ft_record[1:]]))
         times[label] = (meta_ms, ft_ms)
         ckpts[label] = meta
@@ -3224,7 +3310,6 @@ def phase_fsth(prep, workdir, device):
               f"{', '.join(f'{s['ms']:.1f}' for s in ft_record)}) "
               f"peak_mem_MiB={ft_peak:.0f}; AdaIN launches a step "
               f"{steps[0]['launches']['adain_fused']}", flush=True)
-        del before, after
 
     # FSTH_plus: the flagship's decoder driven by the keypoints, 17 AdaINs
     # a forward; its fine-tune trains ê
@@ -3246,9 +3331,10 @@ def phase_fsth(prep, workdir, device):
                        {"bn_relu_conv1x1_stats": 0,
                         "adain_fused": ADAIN_PER_FORWARD}, 2)
         launches += sum(s["launches"]["adain_fused"] for s in record)
-    arrays = ckpt_lib.load_arrays(plus_path)
-    require("params::finetune_embedding" in arrays
-            and "params::finetune_affine" not in arrays,
+    with ckpt_lib.open_arrays(plus_path) as arrays:
+        held = arrays.files
+    require("params::finetune_embedding" in held
+            and "params::finetune_affine" not in held,
             "FSTH_plus fine-tune: its checkpoint's leaves")
     print(f"fsth_plus f32: meta-train 2 steps (each "
           f"{', '.join(f'{s['ms']:.1f}' for s in plus_steps)} ms), "
@@ -3256,7 +3342,6 @@ def phase_fsth(prep, workdir, device):
           f"{', '.join(f'{s['ms']:.1f}' for s in plus_ft)} ms) through "
           f"cli.train; AdaIN launches a step "
           f"{plus_steps[0]['launches']['adain_fused']}", flush=True)
-    del arrays
 
     # the step with the kernels against the plain versions, batch 2
     args = train_cli.resolve_args([
@@ -3298,25 +3383,27 @@ def phase_fsth(prep, workdir, device):
 # the pretrained-pose families: (embedder, VoxCeleb1 crop, gan_type)
 ABLATION_POSE = (("FAbNet_pretrained_embResNeXt", "fabnet", "ragan"),
                  ("X2Face_pretrained_embResNeXt", "x2face", "gan"))
+ABLATION_NAMES = {"FAbNet_pretrained_embResNeXt": "FAbNet+",
+                  "X2Face_pretrained_embResNeXt": "X2Face+"}
 ABLATION_FROZEN = {"FAbNet_pretrained_embResNeXt": ("pose_encoder",),
                    "X2Face_pretrained_embResNeXt": ("pose_unet", "pose_proj")}
 ABLATION_META_STEPS = 2     # epochs of one step: 8 samples of the split
 ABLATION_FT_STEPS = 2       # epochs of one step: one video's 8 frames
 X2FACE_TOL = 1e-4           # X2Face's forward, card vs CPU, of the max
-X2FACE_FAULT = 1.001        # the planted fault: the warp's grid x 1.001
+X2FACE_FAULT_PX = 1.0       # the planted fault: the warp's grid 1 px off
 FFHQ_LEVELS = 2             # FFHQ crops, card vs CPU: levels apart at most
 FFHQ_EQUAL = 0.99           # ... and the share of values equal
 FFHQ_LM_TOL = 1e-2          # ... and the landmarks, pixels
 FFHQ_FAULT_PX = 0.5         # the planted fault: landmarks 0.5 px off
 
 
-def _frozen_leaves(arrays, embedder):
-    """The frozen pose encoder's leaves (parameters and, FAb-Net's,
-    BatchNorm statistics) of flat JAX-layout arrays."""
+def _frozen_keys(keys, embedder):
+    """The frozen pose encoder's keys (parameters and, FAb-Net's,
+    BatchNorm statistics) among flat JAX-layout keys."""
     prefixes = tuple(f"{coll}::embedder::{name}::"
                      for coll in ("params", "batch_stats")
                      for name in ABLATION_FROZEN[embedder])
-    return {k: v for k, v in arrays.items() if k.startswith(prefixes)}
+    return [k for k in keys if k.startswith(prefixes)]
 
 
 def _written(video):
@@ -3339,8 +3426,8 @@ def _x2face_forward_gate(avatar, frames, device):
     """The X2Face generator of ``avatar`` on the card and on the CPU on the
     same batch (the stored identity images, 8 driver frames, f32, TF32
     off): the gap relative to the output's max, the planted fault's (the
-    warp's grid scaled by X2FACE_FAULT), and the card's frames/s at the
-    drive's batch."""
+    warp's grid moved X2FACE_FAULT_PX pixels right and down), and the
+    card's frames/s at the drive's batch."""
     from latentpose_tpu_torch.models.generators import X2Face as x2g_mod
     args = cli.resolve_args([str(avatar), "--device", "cpu",
                              "--compute_dtype", "float32"])
@@ -3354,8 +3441,9 @@ def _x2face_forward_gate(avatar, frames, device):
         card = copy.deepcopy(gen).to(device)
         got, _ = card(enc.to(device), driver[:, None].to(device))
         warp = x2g_mod.grid_sample_bilinear
+        shift = 2 * X2FACE_FAULT_PX / images.shape[-2]   # normalised
         x2g_mod.grid_sample_bilinear = lambda img, gx, gy: warp(
-            img, gx * X2FACE_FAULT, gy * X2FACE_FAULT)
+            img, gx + shift, gy + shift)
         try:
             faulty, _ = card(enc.to(device), driver[:, None].to(device))
         finally:
@@ -3452,7 +3540,8 @@ def phase_ablations(prep, workdir, device):
       batch;
     - the FFHQ crop (:func:`_ffhq_gate`).
 
-    Returns the kernels' launches and the numbers for the kernels line."""
+    Returns the kernels' launches and the numbers for the kernels line,
+    with the three avatars (``avatars``) for :func:`phase_export`."""
     t_phase = time.perf_counter()
     workdir.mkdir(parents=True, exist_ok=True)
     root, videos, split = _fsth_tree(prep, workdir)
@@ -3464,7 +3553,7 @@ def phase_ablations(prep, workdir, device):
     total = {"bn_relu_conv1x1_stats": 0, "adain_fused": 0}
     per_meta = {"bn_relu_conv1x1_stats": 16, "adain_fused": ADAIN_PER_FORWARD}
     per_ft = {"bn_relu_conv1x1_stats": 0, "adain_fused": ADAIN_PER_FORWARD}
-    times, metas = {}, {}
+    times, metas, avatars = {}, {}, {}
     for embedder, crop, gan in ABLATION_POSE:
         meta_argv = ["--config_name", "default", "--embedder", embedder,
                      "--dataloader", "voxceleb2_segmentation_nolandmarks_"
@@ -3501,10 +3590,12 @@ def phase_ablations(prep, workdir, device):
         init = convert.export_train_state(train_cli.init_state(
             init_args, types.SimpleNamespace(num_labels=len(videos) * 2),
             torch.device("cpu")))
-        want = _frozen_leaves(init, embedder)
+        want = {k: init[k] for k in _frozen_keys(init, embedder)}
         require(want, f"{embedder}: no frozen leaves")
         for path in (meta, ft_path):
-            got = _frozen_leaves(ckpt_lib.load_arrays(path), embedder)
+            with ckpt_lib.open_arrays(path) as arrays:
+                got = {k: arrays[k]
+                       for k in _frozen_keys(arrays.files, embedder)}
             require(set(got) == set(want) and all(
                 np.array_equal(got[k], want[k]) for k in want),
                 f"{embedder}: the frozen pose encoder moved in {path}")
@@ -3512,6 +3603,7 @@ def phase_ablations(prep, workdir, device):
         ft_ms = float(np.median([s["ms"] for s in ft_steps[1:]]))
         times[embedder] = (meta_ms, ft_ms)
         metas[embedder] = meta
+        avatars[ABLATION_NAMES[embedder]] = ft_path
         print(f"ablations {embedder} ({gan}, {crop} crop): meta-train "
               f"{ABLATION_META_STEPS} steps through cli.train, batch 8 K=8 "
               f"256² f32, step_ms each "
@@ -3568,11 +3660,12 @@ def phase_ablations(prep, workdir, device):
         "--finetune", "--checkpoint_path", str(x2_meta), *data,
         "--train_split_path", videos[0], "--X2Face_num_identity_images",
         "8", "--experiment_name", "x2face_avatar"])
-    arrays = ckpt_lib.load_arrays(avatar)
-    images = arrays[f"params::{convert.IDENTITY_IMAGES}"]
+    with ckpt_lib.open_arrays(avatar) as arrays:
+        held, images = arrays.files, arrays[
+            f"params::{convert.IDENTITY_IMAGES}"]
     require(images.shape == (1, 8, 256, 256, 3)
             and not train_cli.checkpoint_is_finetuned(avatar)
-            and not any(k.startswith("opt_state_d") for k in arrays),
+            and not any(k.startswith("opt_state_d") for k in held),
             f"X2Face avatar: identity images {images.shape}")
     x2_videos, x2_used = _counted(lambda: cli.main([
         str(avatar), "--images_paths", str(frames_dir), "--destination",
@@ -3604,7 +3697,8 @@ def phase_ablations(prep, workdir, device):
                    "x2face_meta_step_ms": x2_ms,
                    "x2face_card_vs_cpu": x2_gap,
                    "x2face_drive_fps": x2_fps, "ffhq_fps": ffhq_fps,
-                   "seconds": seconds}
+                   "seconds": seconds, "avatars": {**avatars,
+                                                   "X2Face": avatar}}
 
 
 CHILD_SITE = '''
@@ -3686,10 +3780,16 @@ def _children_of(module, children):
         module.subprocess = saved
 
 
+_CHILD_ENV = {}
+
+
 def child_env(root):
-    """The environment of the batched CLIs' children: CHILD_SITE's
-    directory and the repository on PYTHONPATH; checks that a child cannot
-    import cv2 there."""
+    """The environment of the smoke's children: CHILD_SITE's directory and
+    the repository on PYTHONPATH; the first call checks that a child cannot
+    import cv2 there (the site is written once, under that call's
+    ``root``, which stays for the run)."""
+    if _CHILD_ENV:
+        return dict(_CHILD_ENV)
     site = root / "child_site"
     site.mkdir(parents=True, exist_ok=True)
     (site / "sitecustomize.py").write_text(CHILD_SITE.format(
@@ -3702,6 +3802,7 @@ def child_env(root):
         capture_output=True, text=True, timeout=300)
     require(probe.returncode != 0 and "smoke child: started" in probe.stderr,
             f"a child imports cv2 or skips the site: {probe.stderr[-500:]}")
+    _CHILD_ENV.update(env)
     return env
 
 
@@ -3735,8 +3836,10 @@ def write_eval_weights(wdir):
     features) and FAN (4 hourglasses) in the JAX package's flat-npz layout
     (``arcface_r100.npz``, ``fan_2d.npz``), read back bit-equal."""
     wdir.mkdir(parents=True, exist_ok=True)
-    for name, net in (("arcface_r100.npz", _seeded(arcface.ArcFaceR100(), 21)),
-                      ("fan_2d.npz", _seeded(fan_mod.FAN(), 22))):
+    empty = weights.empty_module      # _seeded sets every drawn value
+    for name, net in (("arcface_r100.npz",
+                       _seeded(empty(arcface.ArcFaceR100), 21)),
+                      ("fan_2d.npz", _seeded(empty(fan_mod.FAN), 22))):
         np.savez(wdir / name, **weights.flax_from_state_dict(net))
         back = weights.state_dict_from_flax(
             net, weights.load_flat_npz_variables(str(wdir / name)))
@@ -3820,8 +3923,8 @@ def phase_eval_nets(wdir, frames, device):
 
     crops = backends.face_crops(list(frames[:8]), bbox, (112, 112),
                                 resize_cubic, cpu)
-    net = weights.load_flax_weights(arcface.ArcFaceR100(),
-                                    str(wdir / "arcface_r100.npz")).eval()
+    net = weights.load_flax_weights(weights.empty_module(
+        arcface.ArcFaceR100), str(wdir / "arcface_r100.npz")).eval()
     with torch.no_grad():
         want = net(crops)
         card = net.to(device)
@@ -3909,12 +4012,11 @@ def _cli_numbers(stdout):
     return out
 
 
-def phase_eval_tf32(data_root, results, identities, wdir, frames, cpu, env,
-                    device, child_device):
-    """ROADMAP C.6: ``compute_pose_identity_error`` as a user runs it, a
-    child with its own defaults (the blocked imports; the backends run
-    their nets in full f32 whatever the process sets), held against the
-    CPU run at EVAL_ID_TOL and EVAL_POSE_TOL.  In this process, on the
+def phase_eval_tf32(data_root, results, identities, wdir, frames, cpu,
+                    device):
+    """ROADMAP C.6 (the gate itself is :func:`phase_eval`'s card run, the
+    CLI's ``main`` with its own defaults under torch's TF32 defaults).  In
+    this process, on the
     tree's real rendered frames: how far cuDNN's TF32 moves ArcFace's
     embeddings and FAN's heatmaps from f32, as a share of each max, and
     each net's forward time both ways (CUDA events); and the CLI's
@@ -3975,21 +4077,6 @@ def phase_eval_tf32(data_root, results, identities, wdir, frames, cpu, env,
           f"identity error {tf32_gaps[0]:.3g} absolute, pose errors "
           f"{tf32_gaps[1]:.3g} relative (not gated)", flush=True)
 
-    _, wall, proc = _run_child([
-        sys.executable, "-m",
-        "latentpose_tpu_torch.cli.compute_pose_identity_error",
-        "--results_root", str(results("c6")), "--data_root", str(data_root),
-        "--identities", *identities, "--num_frames", str(EVAL["frames"]),
-        "--image_size", str(EVAL["size"]), "--eval_weights_dir", str(wdir),
-        *_on(child_device)], env)
-    numbers = _cli_numbers(proc.stdout)
-    gaps = _eval_gaps(numbers, cpu)
-    print(f"eval C.6 child (its own defaults): {numbers}; {wall:.2f} s "
-          f"wall; against the CPU run: identity error {gaps[0]:.3g} "
-          f"absolute, pose errors {gaps[1]:.3g} relative (gates "
-          f"{EVAL_ID_TOL}, {EVAL_POSE_TOL})", flush=True)
-    require(gaps[0] <= EVAL_ID_TOL and gaps[1] <= EVAL_POSE_TOL,
-            f"the eval CLI's own defaults differ from the CPU run: {gaps}")
 
 
 def phase_eval_jpeg(root, data_root, results, identities, seeded, device):
@@ -4172,10 +4259,27 @@ def phase_eval(meta_ckpt, root, device, child_device="cuda"):
         return _results_root(root / name, sweep, identities, swap_from)
 
     seeded = ["--eval_weights_dir", str(wdir)]
-    card, wall, stages, peak = _eval_run(data_root, results("card"),
-                                         identities, device, *seeded)
+    # ROADMAP C.6: the CLI as a user's process runs it, under torch's own
+    # backend defaults (cuDNN's TF32 on, matmul's off, no autotuning, no
+    # deterministic algorithms): the backends' nets run in full f32
+    # whatever the process sets, so it meets the CPU run's gate.  A fresh
+    # process would add only a clean interpreter, CUDA context and cuDNN
+    # handle.
+    backend = torch.backends
+    flags = (backend.cudnn.allow_tf32, backend.cuda.matmul.allow_tf32,
+             backend.cudnn.benchmark, backend.cudnn.deterministic)
+    (backend.cudnn.allow_tf32, backend.cuda.matmul.allow_tf32,
+     backend.cudnn.benchmark, backend.cudnn.deterministic) = (
+        True, False, False, False)
+    try:
+        card, wall, stages, peak = _eval_run(data_root, results("card"),
+                                             identities, device, *seeded)
+    finally:
+        (backend.cudnn.allow_tf32, backend.cuda.matmul.allow_tf32,
+         backend.cudnn.benchmark, backend.cudnn.deterministic) = flags
     scored = n * n * f
-    print(f"eval compute_pose_identity_error, seeded ArcFace + FAN, card: "
+    print(f"eval compute_pose_identity_error, seeded ArcFace + FAN, card, "
+          f"its own defaults under torch's TF32 defaults (C.6): "
           f"{card}; {wall:.2f} s end to end, {scored} reenactment frames "
           f"({scored / wall:.1f} frames/s); peak {peak:.0f} MiB", flush=True)
     per_call = {k: 1e3 * s / c for k, (s, c) in stages.items()}
@@ -4209,17 +4313,18 @@ def phase_eval(meta_ckpt, root, device, child_device="cuda"):
         identities, device, *seeded)
     runs, faulty = _eval_gaps(card, cpu), _eval_gaps(fault, cpu)
     print(f"eval compute_pose_identity_error card vs cpu ({cpu_wall:.1f} s "
-          f"on the CPU): identity error {runs[0]:.3g} absolute, pose errors "
-          f"{runs[1]:.3g} relative; the fault (avatar 0's reenactments "
-          f"swapped for identity 1's driver frames) {faulty[0]:.3g} and "
-          f"{faulty[1]:.3g} (gates "
+          f"on the CPU, {f} frames): identity error {runs[0]:.3g} absolute "
+          f"({runs[0] / EVAL_ID_TOL:.3g} of its gate), pose errors "
+          f"{runs[1]:.3g} relative ({runs[1] / EVAL_POSE_TOL:.3g} of its "
+          f"gate); the fault (avatar 0's reenactments swapped for identity "
+          f"1's driver frames) {faulty[0]:.3g} and {faulty[1]:.3g} (gates "
           f"{EVAL_ID_TOL}, {EVAL_POSE_TOL})", flush=True)
     require(runs[0] <= EVAL_ID_TOL and runs[1] <= EVAL_POSE_TOL,
             f"card and CPU protocols differ: {runs}")
     require(faulty[0] > EVAL_ID_TOL and faulty[1] > EVAL_POSE_TOL,
             f"the swapped reenactments pass the gate: {faulty}")
     phase_eval_tf32(data_root, results, identities, wdir, frames, cpu,
-                    children.env, device, torch.device(child_device))
+                    device)
     phase_eval_jpeg(root, data_root, results, identities, seeded, device)
 
     proxy, wall, stages, _ = _eval_run(
@@ -4354,7 +4459,7 @@ def dist_child(meta_ckpt, out, rank, port, device="cuda:0"):
                 state = train_cli.place_state(args, copy.deepcopy(loaded))
                 step_fn = train_cli.make_step(args, criteria)
                 with parallel.gathered(state, whole=True):
-                    before = _leaves(state)
+                    before = _leaves(state, ("stats",))
                 _zero_launches()
                 if cuda:
                     torch.cuda.synchronize()
@@ -4833,6 +4938,89 @@ def meta_repro(modes=("default", "deterministic")):
                   flush=True)
 
 
+BLOCK_VARIANTS = (("ResBlockShuffle", dict(upsample=True), 2),
+                  ("ResBlockV2", dict(resize_layer="nearest"), 2),
+                  ("ResBlockV2Shuffle", dict(resize_layer="nearest"), 2),
+                  ("ResBlockNoSpectralNorm", dict(upsample=True), 2),
+                  ("GatedResBlock", dict(upsample=True), 2),
+                  ("MobileNetBlock", dict(upsample=True), 3))
+BLOCK_SHAPE = (8, 128, 64, 32)      # batch, in and out channels, side
+
+
+def phase_blocks(device):
+    """The ``nn/blocks.py`` variants with ``norm_layer='adain'`` on the
+    card, each once at (batch, channels in, out, side) BLOCK_SHAPE from a
+    seeded init with seeded per-sample affines: the forward through the
+    AdaIN kernel (its launches counted: 2 a residual variant, 3 a
+    MobileNetBlock, whose first two norms are instance norms with shared
+    affines through the same kernel) against the same forward with the
+    plain version, within TOL of the output's max.  Returns {variant:
+    (launches, max_rel_err)}."""
+    b, cin, cout, side = BLOCK_SHAPE
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(b, cin, side, side, generator=gen).to(device)
+    ada = [tuple(torch.randn(b, c, generator=gen).to(device)
+                 for _ in range(2)) for c in (cin, cout)]
+    out = {}
+    for name, kw, per_forward in BLOCK_VARIANTS:
+        cls = getattr(blocks, name)
+        if name == "MobileNetBlock":
+            block, args = cls(cin, cout, "adain", **kw), (ada[1],)
+        else:
+            extra = {} if name == "ResBlockNoSpectralNorm" else \
+                dict(generator=gen)
+            block, args = cls(cin, cout, norm_layer="adain", **kw,
+                              **extra), tuple(ada)
+        block = block.to(device)
+        with torch.no_grad():
+            _zero_launches()
+            got = block(x, *args)
+            torch.cuda.synchronize()
+            launches = _launches()["adain_fused"]
+            with _plain_kernels():
+                want = block(x, *args)
+        err = float((got - want).abs().max() / want.abs().max())
+        out[name] = (launches, err)
+        require(launches == per_forward and err <= TOL[torch.float32],
+                f"block {name}: {launches} AdaIN launches (reckoned "
+                f"{per_forward}), kernel vs plain {err:.3g} of the max")
+    print("blocks (adain, batch {}, {}->{} channels, {}² up): ".format(
+        b, cin, cout, side) + ", ".join(
+            f"{k} {n} launches, kernel vs plain {e:.3g}"
+            for k, (n, e) in out.items()) + f" (gate {TOL[torch.float32]})",
+          flush=True)
+    return out
+
+
+def phase_config(workdir, device):
+    """``cli.train.main`` with ``--config_name synthetic`` (read from
+    ``configs/synthetic.yaml`` without yaml) on the card: one meta step
+    at the config's 64² and batch 4 through both kernels (the config's
+    flagship models at full width; one epoch of the 4 synthetic
+    identities), its args as the config gives them."""
+    _zero_launches()
+    state, path = train_cli.main([
+        "--config_name", "synthetic", "--synthetic_num_labels", "4",
+        "--experiments_dir", str(workdir), "--device", str(device)])
+    torch.cuda.synchronize()
+    launches = _launches()
+    saved = ckpt_lib.peek_args(path)
+    per_forward = {"bn_relu_conv1x1_stats": 16, "adain_fused": len(
+        state.models["generator"].adain_features)}
+    # the step's forward and the visual grid's at step 0
+    require(state.step == 1 and saved["image_size"] == 64
+            and saved["batch_size"] == 4 and saved["allow_random_vgg"]
+            and saved["experiment_name"] == "synthetic"
+            and launches == {k: 2 * v for k, v in per_forward.items()},
+            f"--config_name synthetic: step {state.step}, args "
+            f"{ {k: saved[k] for k in ('image_size', 'batch_size')} }, "
+            f"launches {launches}")
+    print(f"config: cli.train --config_name synthetic, 1 step at "
+          f"{saved['image_size']}² batch {saved['batch_size']}; launches "
+          f"{launches}; saved {path.name}", flush=True)
+    return launches
+
+
 PHASE_SECONDS = {}
 
 
@@ -4843,6 +5031,7 @@ def timed(name, fn, *args, **kwargs):
     try:
         return fn(*args, **kwargs)
     finally:
+        _CRITERIA.clear()
         PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) \
             + time.perf_counter() - t0
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4887,6 +5076,7 @@ def main():
     conv_train16 = timed("conv_bn_train_bf16", phase_conv_bn_train, device,
                          torch.bfloat16)
     adain_train16 = timed("adain_train", phase_adain_train, device)
+    block_variants = timed("blocks", phase_blocks, device)
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as workdir:
@@ -4920,6 +5110,9 @@ def main():
               f"{staged16_ms:.2f} ms against f32 {staged_ms:.2f} ms (same "
               f"run): {staged16_ms / staged_ms:.3f} of the f32 step",
               flush=True)
+        torch.cuda.empty_cache()
+        config_launches = timed("config", phase_config,
+                                Path(workdir) / "config", device)
         torch.cuda.empty_cache()
         dist_launches, dist_children = timed(
             "distributed", phase_distributed, meta_ckpt,
@@ -4968,7 +5161,8 @@ def main():
         del ft_args, ft_state, ft_seeded, loader
         torch.cuda.empty_cache()
         export_launches = timed("export", phase_export, ft_ckpt,
-                                Path(workdir) / "export", frames, device)
+                                abl["avatars"], Path(workdir) / "export",
+                                frames, device)
         reference_launches = timed(
             "reference_checkpoint", phase_reference_checkpoint,
             Path(workdir) / "reference", device)
@@ -4978,7 +5172,8 @@ def main():
     bf16_launches = {k: meta16_launches[k] + real16_launches[k]
                      for k in ft_launches}
     launches = {k: meta_launches[k] + ft_launches[k] + real_launches[k]
-                + bf16_launches[k] + dist_launches[k] for k in ft_launches}
+                + bf16_launches[k] + dist_launches[k] + config_launches[k]
+                for k in ft_launches}
     launches["adain_fused"] += int8_adains + crop_adains + reference_launches \
         + fsth_launches
     for k in launches:
@@ -5003,6 +5198,9 @@ def main():
         "distributed_child_launches": dist_children["adain_fused"],
         "eval_child_launches": protocol_launches["adain_fused"],
         "export_child_launches": export_launches,
+        "config_launches": config_launches["adain_fused"],
+        "block_variants": {k: {"launches": n, "max_rel_err": e}
+                           for k, (n, e) in block_variants.items()},
         "reference_drive_launches": reference_launches,
         "fsth_launches": fsth_launches,
         "fsth": {"max_rel_err": fsth_kernel[0], "ms": fsth_kernel[1],
@@ -5033,6 +5231,7 @@ def main():
         "bf16_train": conv_train16,
         "distributed_child_launches": dist_children["bn_relu_conv1x1_stats"],
         "eval_child_launches": protocol_launches["bn_relu_conv1x1_stats"],
+        "config_launches": config_launches["bn_relu_conv1x1_stats"],
         "ablations_launches": abl_launches["bn_relu_conv1x1_stats"],
         "ablations": {k: abl[k] for k in (
             "x2face_meta_step_ms", "x2face_card_vs_cpu", "x2face_drive_fps",

@@ -10,12 +10,15 @@ layouts; ``convert.py`` maps them onto the port's modules.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import shutil
 from pathlib import Path
 
 import numpy as np
+
+from latentpose_tpu_torch.utils import npz
 
 logger = logging.getLogger("latentpose_tpu_torch.checkpoint")
 
@@ -24,8 +27,15 @@ SEP = "::"
 
 def load_arrays(checkpoint_path) -> dict:
     """All arrays of a checkpoint, by their flat ``::`` keys."""
-    with np.load(Path(checkpoint_path) / "arrays.npz") as raw:
-        return {k: raw[k] for k in raw.files}
+    return npz.read_npz(Path(checkpoint_path) / "arrays.npz")
+
+
+@contextlib.contextmanager
+def open_arrays(checkpoint_path):
+    """The checkpoint's arrays as a mapping that reads each array when it
+    is looked up, open for the block."""
+    with npz.NpzArrays(Path(checkpoint_path) / "arrays.npz") as raw:
+        yield raw
 
 
 def peek_args(checkpoint_path) -> dict:
@@ -56,8 +66,21 @@ def write_arrays(path, arrays: dict, meta: dict):
     directory ``path``, made if needed."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
-    np.savez(path / "arrays.npz", **arrays)
+    npz.write_npz(path / "arrays.npz", arrays)
     (path / "meta.json").write_text(json.dumps(meta, indent=1))
+
+
+def _jsonable(args: dict) -> dict:
+    """The args as the JAX package saves them: a path, or any value JSON
+    cannot hold, as its string."""
+    out = {}
+    for key, value in args.items():
+        try:
+            json.dumps(value)
+        except TypeError:
+            value = str(value)
+        out[key] = value
+    return out
 
 
 def save_checkpoint(experiment_dir, arrays: dict, args: dict, iteration: int,
@@ -74,7 +97,7 @@ def save_checkpoint(experiment_dir, arrays: dict, args: dict, iteration: int,
     try:
         write_arrays(path, arrays, {
             "format_version": 1, "iteration": int(iteration),
-            "finetune": bool(finetune), "args": args})
+            "finetune": bool(finetune), "args": _jsonable(args)})
     except OSError:
         logger.exception("Failed writing checkpoint %s — removing partial "
                          "file (disk full?)", path)

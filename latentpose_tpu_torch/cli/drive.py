@@ -11,6 +11,9 @@ Driver sources: a directory of images, a video file, or ``synthetic://K``
 ``meta.json``; flags given here override them.  Compute runs in bf16 unless
 ``--compute_dtype`` is given.
 
+Args resolve as the JAX drive CLI resolves them (``config/``): the
+checkpoint's saved args, then ``--config_name``'s config, then the flags.
+
 ``--quantize int8`` runs the generator's block convs in int8 with a dynamic
 activation scale; ``--quantize int8_static`` with scales calibrated on the
 first driver sequence's leading ``--calibration_frames`` frames, then used
@@ -33,18 +36,16 @@ its box from the ``--bboxes_dir`` dict or from S³FD (``s3fd.npz`` under
 
 from __future__ import annotations
 
-import argparse
 import logging
 import os
 import sys
-import types
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from latentpose_tpu_torch import checkpoint as ckpt_lib
-from latentpose_tpu_torch import convert, registry
+from latentpose_tpu_torch import config, convert, registry
 from latentpose_tpu_torch.data.common import crop as crop_lib
 from latentpose_tpu_torch.data.common.voxceleb import IMAGE_EXTENSIONS
 from latentpose_tpu_torch.data import native_loader
@@ -218,15 +219,14 @@ def load_finetuned(args, device):
             f"drive takes a latent pose; the {args.generator} generator "
             "needs the driver's landmarks, which drive does not compute (nor "
             "does the JAX package's drive)")
-    models = {
-        "embedder": registry.load_wrapper("embedders", args.embedder)
-        .get_net(args),
-        "generator": registry.load_wrapper("generators", args.generator)
-        .get_net(args),
-    }
-    identity = convert.load_drive_weights(
-        ckpt_lib.load_arrays(args.checkpoint_path), models["embedder"],
-        models["generator"])
+    cpu = torch.device("cpu")
+    models = {part: registry.empty_net(kind, getattr(args, part), args, cpu)
+              for part, kind in (("embedder", "embedders"),
+                                 ("generator", "generators"))}
+    # only what drive reads is read (the EMA weights, not the optimizers)
+    with ckpt_lib.open_arrays(args.checkpoint_path) as flat:
+        identity = convert.load_drive_weights(flat, models["embedder"],
+                                              models["generator"])
     for name in models:
         models[name] = models[name].to(device).eval()
     leaf = convert.IDENTITY_IMAGES \
@@ -239,65 +239,60 @@ def load_finetuned(args, device):
 
 
 def build_parser():
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("checkpoint_path")
-    parser.add_argument("data_root_positional", nargs="?", metavar="DATA_ROOT")
-    parser.add_argument("--data_root", default=None)
-    parser.add_argument("--img_dir", default=None)
-    parser.add_argument("--images_paths", nargs="+", default=[])
-    parser.add_argument("--destination", default="driving_results")
-    parser.add_argument("--drive_batch_size", type=int, default=32)
-    parser.add_argument("--compute_dtype", default=None,
-                        choices=["float32", "bfloat16"])
-    parser.add_argument("--num_devices", type=int, default=None)
-    parser.add_argument("--device", default="cuda",
-                        help="torch device to drive on")
-    parser.add_argument("--quantize", default="",
-                        choices=["", "int8", "int8_static"])
-    parser.add_argument("--calibration_frames", type=int, default=64,
-                        help="int8_static: how many leading driver frames "
-                             "feed the calibration pass")
-    parser.add_argument("--crop", action=argparse.BooleanOptionalAction,
-                        default=False,
-                        help="crop raw driver footage as the dataset does")
-    parser.add_argument("--bboxes_dir", default=None,
-                        help="--crop: the per-frame bbox .npy dict "
-                             "(default: the checkpoint's)")
+    """The JAX drive CLI's parser (the core flags and drive's own) and
+    ``--device``."""
+    parser = config.build_core_parser()
+    parser.add("--images_paths", type=str, nargs="+", default=[])
+    parser.add("--destination", type=str, default="driving_results")
+    parser.add("--drive_batch_size", type=int, default=32)
+    parser.add("--crop", action="store_bool", default=False,
+               help="crop raw driver footage as the dataset does")
+    parser.add("--quantize", type=str, default="",
+               choices=["", "int8", "int8_static"])
+    parser.add("--calibration_frames", type=int, default=64,
+               help="int8_static: how many leading driver frames feed the "
+                    "calibration pass")
+    parser.add("--device", type=str, default="cuda",
+               help="torch device to drive on")
     return parser
 
 
+def positional_argv(argv, data_root: bool):
+    """The JAX CLIs' rewrite of ``CHECKPOINT [DATA_ROOT]`` positionals into
+    ``--checkpoint_path`` (and ``--data_root``) before resolution, so that
+    the checkpoint's saved args take their level."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and not argv[0].startswith("-"):
+        argv = ["--checkpoint_path", argv.pop(0)] + argv
+    if data_root and len(argv) > 2 and not argv[2].startswith("-"):
+        argv = argv[:2] + ["--data_root", argv[2]] + argv[3:]
+    return argv
+
+
 def resolve_args(argv=None):
-    """CLI flags over the checkpoint's saved args, with drive's overrides."""
-    cli = build_parser().parse_args(argv)
-    cli.data_root = cli.data_root or cli.data_root_positional
-    del cli.data_root_positional
-    return inference_args(cli, "drive")
+    """The args of a drive, resolved as the JAX drive CLI resolves them
+    (defaults < the checkpoint's saved args < ``--config_name``'s config <
+    flags), with drive's overrides (:func:`inference_args`)."""
+    argv = positional_argv(argv, data_root=True)
+    args, _, _, _ = config.get_args_and_modules(build_parser(), argv=argv)
+    return inference_args(args, argv, "drive")
 
 
-def inference_args(cli, what):
-    """The parsed flags ``cli`` (with ``checkpoint_path``) over the
-    checkpoint's saved args, with the inference overrides of drive and
-    export (the reference's ``drive.py:48-59``): fine-tune and inference
-    on, bf16 compute unless ``--compute_dtype`` was given; ``--num_devices``
-    checked against the visible devices (drive), or 1 (export: the
-    exported program is single-device)."""
-    if not os.path.exists(os.path.join(cli.checkpoint_path, "meta.json")):
+def inference_args(args, argv, what):
+    """The resolved ``args`` of a drive or an export with the inference
+    overrides (the reference's ``drive.py:48-59``): fine-tune and
+    inference on, bf16 compute unless ``--compute_dtype`` is in ``argv``;
+    ``--num_devices`` checked against the visible devices (drive), or 1
+    (export: the exported program is single-device)."""
+    if not args.checkpoint_path or not os.path.exists(
+            os.path.join(args.checkpoint_path, "meta.json")):
         raise FileNotFoundError(
-            f"Checkpoint `{cli.checkpoint_path}` not found — {what} needs a "
-            "fine-tuned checkpoint")
-    args = types.SimpleNamespace(**ckpt_lib.peek_args(cli.checkpoint_path))
-    for key, value in vars(cli).items():
-        if value is not None:
-            setattr(args, key, value)
+            f"Checkpoint `{args.checkpoint_path}` not found — {what} needs "
+            "a fine-tuned checkpoint")
     args.finetune = True
     args.inference = True
-    if cli.compute_dtype is None:
+    if not config.flag_given(argv, "--compute_dtype"):
         args.compute_dtype = "bfloat16"    # serving default
-    # a checkpoint converted from the reference's may lack these
-    for key, default in (("bboxes_dir", "/non/existent/file"),
-                         ("data_root", None), ("num_devices", 0)):
-        if not hasattr(args, key):
-            setattr(args, key, default)
     if what == "export":
         args.num_devices = 1
     world = parallel.requested_world(args.num_devices)

@@ -79,23 +79,22 @@ without the flag, reads it whole and keeps its slice.  With one rank the
 flag does nothing, as with the JAX CLI.
 
 Arguments resolve as the JAX package's ``config/resolution.py`` resolves
-them, lowest to highest: the JAX core defaults (:data:`DEFAULTS`), the
-checkpoint's saved args, the config that ``--config_name`` names (read only
-when it is given), then the flags given here (``--fixed_val_ids`` appends, as
-argparse's append does).  An experiment without ``--experiment_name`` is
-named after the config.  The port carries two configs as dicts, since yaml
-is not imported: ``default`` (``configs/default.yaml``, :data:`META_CONFIG`,
-the flagship's meta-training) and ``finetuning-base``
-(``configs/finetuning-base.yaml``, :data:`FINETUNE_CONFIG`); another name is
-refused (ROADMAP.md A.21).  So a fresh meta-training run passes
-``--config_name default`` and a fine-tune ``--config_name finetuning-base``,
-as with the JAX CLI.  What the port does not run yet is refused with the
-ROADMAP.md item that will bring it.
+them (``latentpose_tpu_torch/config/``), lowest to highest: the parser's
+defaults (the JAX core parser's and each selected plugin's), the
+checkpoint's saved args, the config that ``--config_name`` names (any
+``configs/<name>.yaml`` under the working directory, read without yaml),
+then the flags given here; an experiment without ``--experiment_name`` is
+named after the config.  The parser accepts every flag the JAX train CLI's
+does, and ``--device``; an arg that no parser level holds (a key the
+selected plugins do not register) takes the default of the first plugin
+that registers it (``config.plugin_defaults``).  So a fresh
+meta-training run passes ``--config_name default`` and a fine-tune
+``--config_name finetuning-base``, as with the JAX CLI.
 """
 
 from __future__ import annotations
 
-import argparse
+import copy
 import json
 import logging
 import signal
@@ -108,7 +107,7 @@ import numpy as np
 import torch
 
 from latentpose_tpu_torch import checkpoint as ckpt_lib
-from latentpose_tpu_torch import convert, registry
+from latentpose_tpu_torch import config, convert, registry
 from latentpose_tpu_torch.data.dataloader import \
     get_dataloader as build_dataloader
 from latentpose_tpu_torch.losses.adversarial import GAN_TYPES
@@ -124,79 +123,6 @@ from latentpose_tpu_torch.utils.saver import Saver
 
 logger = logging.getLogger("latentpose_tpu_torch.train")
 
-# The JAX package's defaults for the args this path reads (config/core_args.py
-# and the plugins' get_args), below the checkpoint's saved args.
-DEFAULTS = dict(
-    in_channels=3, out_channels=3, num_channels=64, max_num_channels=512,
-    embed_channels=512, pose_embedding_size=136, image_size=256,
-    optimizer="Adam", lr_gen=5e-5, lr_dis=2e-4, beta1=0.0, batch_size=8,
-    num_labels=0, num_devices=0, compute_dtype="float32", random_seed=123,
-    experiments_dir="data/experiments", experiment_name="",
-    vgg_weights_dir="data/weights", allow_random_vgg=False, num_epochs=10 ** 9,
-    set_eval_mode_in_train=False, save_frequency=1, skip_eval=True,
-    weights_running_average=True, finetune=False,
-    average_function="sum", gen_padding="zero", gen_constant_input_size=4,
-    gen_num_residual_blocks=2, dis_padding="zero", dis_num_blocks=7,
-    gan_type="gan", fm_weight=10.0, perc_weight=1e-2, idt_embed_weight=2e-3,
-    dis_embed_weight=1e-2, dice_weight=1.0, num_enc_frames=8,
-    synthetic_num_labels=16, synthetic_frames_per_video=32,
-    transfer_dtype="float32", grad_accum_steps=1, grad_dtype="float32",
-    explicit_grad_reduce=False, use_pixelwise_augs=False,
-    use_affine_scale=False, use_affine_shift=False, log_frequency_loss=1,
-    iteration=0, dataloader="", criterions="", metrics="", data_root="",
-    generator="", embedder="", discriminator="", runner="",
-    img_dir="images-cropped", kp_dir="keypoints-cropped",
-    segm_dir="segmentation-cropped", bboxes_dir="/non/existent/file",
-    train_split_path="data/splits/train.csv",
-    val_split_path="data/splits/val.csv", num_workers=4, prefetch_size=16,
-    n_frames_for_encoder=8, draw_oval=True, inference=False, logging=True,
-    saver="", detailed_metrics=True, log_frequency_images=100,
-    log_frequency_fixed_images=2500, fixed_val_ids=[50, 100, 200, 250, 300],
-    batch_size_inference=5, num_visuals_per_img=2, set_eval_mode_in_test=True,
-    args_to_ignore="checkpoint,splits_dir,experiments_dir,extension,"
-                   "experiment_name,rank,local_rank,world_size",
-    profile_dir="", profile_steps=5, config_name="",
-    param_sharding="replicated", synthetic_stickmen=False, l1_weight=30.0,
-    embed_padding="zero", embed_num_blocks=6, gen_num_downsample_blocks=4,
-    norm_layer="in", X2Face_num_identity_images=1, simple_embedder_width=32,
-    voxceleb1_crop_type="x2face")
-
-# Defaults that a plugin's get_args gives its own arg in the JAX package,
-# where they differ from DEFAULTS: they take DEFAULTS' level when the run
-# selects the plugin.
-PLUGIN_DEFAULTS = {("generator", "FSTH"): dict(gen_num_residual_blocks=4)}
-
-# configs/default.yaml, the flagship meta-training config.
-META_CONFIG = dict(
-    generator="vector_pose_unsupervised_segmentation_noBottleneck",
-    embedder="unsupervised_pose_separate_embResNeXt_segmentation",
-    discriminator="no_landmarks",
-    criterions="idt_embed, perceptual, adversarial, featmat, dis_embed, dice",
-    dataloader="voxceleb2_segmentation_nolandmarks", runner="holycow",
-    train_split_path="./data/splits/train.csv",
-    val_split_path="./data/splits/val.csv", img_dir="images-cropped",
-    kp_dir="keypoints-cropped", segm_dir="segmentation-cropped",
-    experiments_dir="experiments/", data_root="",
-    bboxes_dir="/non/existent/file", num_devices=0, batch_size=8,
-    num_workers=4, prefetch_size=16, perc_weight=3e-2, idt_embed_weight=0.6e-2,
-    pose_embedding_size=256, log_frequency_images=500,
-    log_frequency_fixed_images=2500, use_pixelwise_augs=True,
-    use_affine_scale=True, use_affine_shift=True)
-
-# configs/finetuning-base.yaml.
-FINETUNE_CONFIG = dict(
-    use_pixelwise_augs=True, use_affine_scale=True, use_affine_shift=True,
-    finetune=True, optimizer="RAdam", lr_gen=5e-4, lr_dis=8e-4,
-    criterions="adversarial, featmat, idt_embed, perceptual, dice",
-    img_dir="images-cropped", kp_dir="keypoints-cropped",
-    segm_dir="segmentation-cropped", bboxes_dir="/non/existent/file",
-    num_devices=1, num_workers=1, log_frequency_images=9999999,
-    log_frequency_fixed_images=15, fixed_val_ids=[0], num_epochs=140,
-    save_frequency=0)
-
-# --config_name: the configs the port carries
-CONFIGS = {"default": META_CONFIG, "finetuning-base": FINETUNE_CONFIG}
-
 # --param_sharding (latentpose_tpu/config/core_args.py)
 PARAM_SHARDING = ("replicated", "fsdp")
 
@@ -205,57 +131,17 @@ _VGG_CRITERIA = ("idt_embed", "perceptual")
 
 
 def build_parser():
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    flag = argparse.BooleanOptionalAction
-    parser.add_argument("--config_name", "--config", default=None)
-    parser.add_argument("--checkpoint_path", default=None)
-    parser.add_argument("--finetune", action=flag, default=None)
-    parser.add_argument("--device", default="cuda",
-                        help="torch device to train on")
-    for name in ("dataloader", "generator", "embedder", "discriminator",
-                 "criterions", "metrics", "experiments_dir",
-                 "experiment_name", "vgg_weights_dir", "compute_dtype",
-                 "transfer_dtype", "grad_dtype", "optimizer", "data_root",
-                 "img_dir", "segm_dir", "kp_dir", "bboxes_dir",
-                 "train_split_path", "val_split_path", "saver",
-                 "profile_dir", "embed_padding", "gen_padding",
-                 "dis_padding", "average_function", "gan_type",
-                 "voxceleb1_crop_type"):
-        parser.add_argument(f"--{name}", default=None)
-    parser.add_argument("--param_sharding", choices=PARAM_SHARDING,
-                        default=None)
-    parser.add_argument("--args_to_ignore", "--args-to-ignore", default=None)
-    for name in ("batch_size", "num_epochs", "random_seed", "save_frequency",
-                 "num_devices", "grad_accum_steps", "synthetic_num_labels",
-                 "num_enc_frames", "log_frequency_loss",
-                 "log_frequency_images", "log_frequency_fixed_images",
-                 "image_size", "num_channels", "max_num_channels",
-                 "embed_channels", "pose_embedding_size", "dis_num_blocks",
-                 "gen_num_residual_blocks", "num_workers", "prefetch_size",
-                 "n_frames_for_encoder", "batch_size_inference",
-                 "num_visuals_per_img", "profile_steps",
-                 "embed_num_blocks", "gen_num_downsample_blocks",
-                 "gen_constant_input_size", "X2Face_num_identity_images",
-                 "simple_embedder_width"):
-        parser.add_argument(f"--{name}", type=int, default=None)
-    parser.add_argument("--fixed_val_ids", type=int, action="append",
-                        default=None)
-    for name in ("lr_gen", "lr_dis", "beta1", "l1_weight", "fm_weight",
-                 "dice_weight"):
-        parser.add_argument(f"--{name}", type=float, default=None)
-    for name in ("allow_random_vgg", "set_eval_mode_in_train", "skip_eval",
-                 "explicit_grad_reduce", "weights_running_average",
-                 "use_pixelwise_augs", "use_affine_scale",
-                 "use_affine_shift", "draw_oval", "logging",
-                 "detailed_metrics", "set_eval_mode_in_test",
-                 "synthetic_stickmen"):
-        parser.add_argument(f"--{name}", action=flag, default=None)
+    """The JAX train CLI's core parser, ``--device`` and the flags of the
+    port's one runner, ``holycow`` (the loop's and the wire's: a resumed
+    checkpoint that names no runner still takes ``--transfer_dtype``);
+    each selected plugin adds its own flags while the args resolve."""
+    parser = config.build_core_parser()
+    parser.add("--device", type=str, default="cuda",
+               help="torch device to train on")
+    parser.add("--args-to-ignore", "--args_to_ignore", type=str,
+               default=parser.get_default("args_to_ignore"))
+    config.add_plugin_args(parser, "runners", "holycow")
     return parser
-
-
-def _refuse(what, item):
-    raise NotImplementedError(f"{what} is not ported to PyTorch yet "
-                              f"(ROADMAP.md {item})")
 
 
 def checkpoint_is_finetuned(path) -> bool:
@@ -265,58 +151,39 @@ def checkpoint_is_finetuned(path) -> bool:
     return bool(json.loads(meta_path.read_text()).get("finetune", False))
 
 
-def _resolve(argv):
+def _resolve(argv, custom_args=None):
     """(args, default args): every level, and every level but the flags
     (the JAX CLI's parse of an empty command line, which names the
-    experiment)."""
-    cli = build_parser().parse_args(argv)
-    config = {}
-    if cli.config_name:
-        if cli.config_name not in CONFIGS:
-            _refuse(f"--config_name {cli.config_name} (the port carries "
-                    f"{sorted(CONFIGS)})", "A.21")
-        config = CONFIGS[cli.config_name]
-    saved = ckpt_lib.peek_args(cli.checkpoint_path) \
-        if cli.checkpoint_path else {}
-    flags = {k: v for k, v in vars(cli).items() if v is not None}
-
-    def levels(defaults):
-        base = {**defaults, **saved, **config}
-        return base, {**base, **flags}
-
-    base, args = levels(DEFAULTS)
-    plugin = {}
-    for flag in ("embedder", "generator", "discriminator", "dataloader"):
-        plugin.update(PLUGIN_DEFAULTS.get((flag, args[flag]), {}))
-    if plugin:
-        base, args = levels({**DEFAULTS, **plugin})
-    if cli.fixed_val_ids:
-        args["fixed_val_ids"] = list(base["fixed_val_ids"]) \
-            + cli.fixed_val_ids
-    for level in (args, base):
-        level.update(finetune=bool(level["finetune"]),
-                     checkpoint_path=cli.checkpoint_path or "")
-    if not args["experiment_name"]:
-        args["experiment_name"] = args["config_name"]
-    if args["finetune"] and not cli.checkpoint_path:
+    experiment).  ``custom_args``: a caller's level above the config."""
+    args, default, _, _ = config.get_args_and_modules(
+        build_parser(), custom_args=custom_args, argv=argv)
+    defaults = config.plugin_defaults()
+    for level in (args, default):
+        for key, value in defaults.items():
+            if not hasattr(level, key):
+                setattr(level, key, copy.deepcopy(value))
+        level.finetune = bool(level.finetune)
+    if args.finetune and not args.checkpoint_path:
         raise ValueError("--finetune needs --checkpoint_path, a meta-trained "
                          "or fine-tuned checkpoint")
-    if cli.checkpoint_path and checkpoint_is_finetuned(cli.checkpoint_path) \
-            and not args["finetune"]:
-        raise ValueError(f"{cli.checkpoint_path} is a fine-tuned checkpoint: "
+    if args.checkpoint_path and checkpoint_is_finetuned(args.checkpoint_path) \
+            and not args.finetune:
+        raise ValueError(f"{args.checkpoint_path} is a fine-tuned checkpoint: "
                          "it resumes with --finetune")
-    return types.SimpleNamespace(**args), types.SimpleNamespace(**base)
+    return args, default
 
 
-def resolve_args(argv=None):
+def resolve_args(argv=None, custom_args=None):
     """The args namespace of a run (see the module docstring), with
-    everything the port does not run refused."""
-    args, _ = _resolve(argv)
+    everything the port does not run refused.  ``custom_args``: the JAX
+    resolver's level 4, {arg: value} above the config and below the
+    flags."""
+    args, _ = _resolve(argv, custom_args)
     for flag in ("generator", "embedder", "discriminator", "dataloader"):
         if not getattr(args, flag):
             raise ValueError(f"no --{flag}: name it, resume a checkpoint "
                              "that carries it, or take a config "
-                             f"(--config_name, one of {sorted(CONFIGS)})")
+                             "(--config_name NAME for configs/NAME.yaml)")
 
     for flag, values in (("compute_dtype", holycow.DTYPES),
                          ("transfer_dtype", ("float32", "uint8"))):
@@ -414,18 +281,21 @@ def load_checkpoint(args, device) -> TrainState:
                                         "embedding")))
     if embed is not None:       # the none discriminator has no rows
         args.num_labels = int(embed.shape[0])
-    models = build_models(args)
+    models = {part: registry.empty_net(kind, getattr(args, part), args,
+                                       device)
+              for part, kind in (("embedder", "embedders"),
+                                 ("generator", "generators"),
+                                 ("discriminator", "discriminators"))}
     leaves = {}
     if finetuned:
         models["discriminator"].embed = SNEmbed(1, embed.shape[1],
-                                                sn_eps=1e-12)
+                                                sn_eps=1e-12).to(device)
         # the checkpoint's per-avatar leaves (finetune_embedding, or
         # FSTH's finetune_affine), filled by load_train_state
         leaves = {name: torch.zeros(flat[f"params{ckpt_lib.SEP}{name}"]
                                     .shape, device=device)
                   for name in FINETUNE_LEAVES
                   if f"params{ckpt_lib.SEP}{name}" in flat}
-    models = {k: m.to(device) for k, m in models.items()}
     images = flat.get(f"params{ckpt_lib.SEP}{convert.IDENTITY_IMAGES}")
     state = TrainState(models=models, ema_params={},
                        **{k: v.requires_grad_() for k, v in leaves.items()})
@@ -529,11 +399,9 @@ def save(args, state):
     path = None
     with parallel.gathered(state, whole=True):
         if parallel.is_main():
-            meta = {k: (str(v) if isinstance(v, Path) else v)
-                    for k, v in vars(args).items()}
             path = ckpt_lib.save_checkpoint(
                 args.experiment_dir, convert.export_train_state(state),
-                meta, iteration=state.step, finetune=state.finetune)
+                vars(args), iteration=state.step, finetune=state.finetune)
     parallel.barrier()
     return parallel.broadcast_object(path)
 

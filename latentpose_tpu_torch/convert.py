@@ -6,6 +6,7 @@ so each leaf maps by its module's type:
 - conv kernel HWIO <-> OIHW weight (a depthwise (3, 3, 1, C) becomes
   (C, 1, 3, 3) by the same transpose); dense kernel (in, out) <-> Linear
   weight (out, in); the generator's constant (1, S, S, C) <-> (1, C, S, S);
+  ``SelfAttention``'s ``gamma`` as it is;
 - flax BatchNorm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` <->
   BatchNorm2d weight, bias and running statistics;
 - ``spectral`` ``u``/``v`` <-> the spectral-norm buffers; the spectral-norm
@@ -36,7 +37,7 @@ import torch
 import torch.nn as nn
 
 from latentpose_tpu_torch.checkpoint import SEP
-from latentpose_tpu_torch.nn.blocks import InstanceNormAffine
+from latentpose_tpu_torch.nn.blocks import InstanceNormAffine, SelfAttention
 from latentpose_tpu_torch.ops.spectral_norm import SNConv, SNDense, SNEmbed
 from latentpose_tpu_torch.runners.optim import SetToZero
 
@@ -83,6 +84,8 @@ def _rules(model):
         if isinstance(mod, InstanceNormAffine):
             rules += [(t + "weight", "params", j + "weight", _SAME),
                       (t + "bias", "params", j + "bias", _SAME)]
+        if isinstance(mod, SelfAttention):
+            rules.append((t + "gamma", "params", j + "gamma", _SAME))
         if "constant" in dict(mod.named_parameters(recurse=False)):
             rules.append((t + "constant", "params", j + "constant", _CONSTANT))
     covered = {r[0] for r in rules}
@@ -100,15 +103,34 @@ def _key(collection, part, leaf):
     return SEP.join(p for p in (collection, part, leaf) if p)
 
 
-def _to_torch(flat, key, to_torch, shape):
+def _to_torch(flat, key, to_torch, shape, device=None):
+    """The array ``key`` in the torch layout, a new tensor (npz arrays are
+    read-only); for ``device`` the card, copied there as it is and
+    transposed there, which the host's strided copy is slower at."""
     if key not in flat:
         raise KeyError(f"checkpoint has no {key}")
     arr = np.asarray(flat[key], np.float32)
-    if to_torch is not None:
-        arr = arr.transpose(to_torch)
-    if arr.shape != tuple(shape):
-        raise ValueError(f"{key}: shape {arr.shape} does not fit {tuple(shape)}")
-    return torch.tensor(arr)   # a copy: npz arrays are read-only
+    if to_torch is not None and device is not None and device.type == "cuda":
+        t = torch.tensor(arr, device=device).permute(*to_torch).contiguous()
+    else:
+        t = torch.tensor(arr if to_torch is None else arr.transpose(to_torch))
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{key}: shape {tuple(t.shape)} does not fit "
+                         f"{tuple(shape)}")
+    return t
+
+
+def _to_jax(tensor, to_jax):
+    """``tensor`` as a C-contiguous array in the JAX layout.  A tensor on
+    the card is transposed there: the host's strided copy of a conv
+    kernel's layout took most of a checkpoint's save."""
+    t = tensor.detach()
+    if to_jax is not None and t.is_cuda:
+        t, to_jax = t.permute(*to_jax).contiguous(), None
+    arr = t.cpu().numpy()
+    if to_jax is not None:
+        arr = arr.transpose(to_jax)
+    return np.ascontiguousarray(arr)
 
 
 def load_into(model, flat, part: str, params: str = "params") -> set:
@@ -119,7 +141,8 @@ def load_into(model, flat, part: str, params: str = "params") -> set:
     used = set()
     for tkey, coll, leaf, (to_torch, _) in _rules(model):
         key = _key(params if coll == "params" else coll, part, leaf)
-        state[tkey] = _to_torch(flat, key, to_torch, state[tkey].shape)
+        state[tkey] = _to_torch(flat, key, to_torch, state[tkey].shape,
+                                state[tkey].device)
         used.add(key)
     model.load_state_dict(state, strict=True)
     return used
@@ -144,10 +167,7 @@ def export_ema(model, part: str, ema) -> dict:
     flat = {}
     for tkey, coll, leaf, (_, to_jax) in _rules(model):
         if coll == "params":
-            arr = ema[tkey].detach().cpu().numpy()
-            if to_jax is not None:
-                arr = arr.transpose(to_jax)
-            flat[_key("ema_params", part, leaf)] = np.ascontiguousarray(arr)
+            flat[_key("ema_params", part, leaf)] = _to_jax(ema[tkey], to_jax)
     return flat
 
 
@@ -194,7 +214,8 @@ def load_optimizer_states(flat, state) -> set:
             for name, moment in (("mu", mu), ("nu", nu)):
                 key = SEP.join((head, name, path))
                 with torch.no_grad():
-                    moment.copy_(_to_torch(flat, key, to_torch, moment.shape))
+                    moment.copy_(_to_torch(flat, key, to_torch, moment.shape,
+                                           moment.device))
                 used.add(key)
     return used
 
@@ -210,11 +231,7 @@ def export_optimizer_states(state) -> dict:
         flat[SEP.join((head, "count"))] = np.asarray(opt.count, np.int32)
         for (path, _, to_jax), mu, nu in zip(layout, opt.mu, opt.nu):
             for name, moment in (("mu", mu), ("nu", nu)):
-                arr = moment.detach().cpu().numpy()
-                if to_jax is not None:
-                    arr = arr.transpose(to_jax)
-                flat[SEP.join((head, name, path))] = \
-                    np.ascontiguousarray(arr)
+                flat[SEP.join((head, name, path))] = _to_jax(moment, to_jax)
     return flat
 
 
@@ -284,11 +301,9 @@ def export(model, part: str, params=("params", "ema_params")) -> dict:
     state = model.state_dict()
     flat = {}
     for tkey, coll, leaf, (_, to_jax) in _rules(model):
-        arr = state[tkey].detach().cpu().numpy()
-        if to_jax is not None:
-            arr = arr.transpose(to_jax)
+        arr = _to_jax(state[tkey], to_jax)
         for c in (params if coll == "params" else (coll,)):
-            flat[_key(c, part, leaf)] = np.ascontiguousarray(arr)
+            flat[_key(c, part, leaf)] = arr
     return flat
 
 

@@ -16,6 +16,8 @@ theirs).
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 
 from latentpose_tpu_torch.data.common import voxceleb
@@ -106,6 +108,32 @@ def render_face_u8(label: int, frame: int, image_size: int):
     img, segm = render_face(label, frame, image_size)
     return tuple((x * 255.0 + 0.5).astype(np.uint8)
                  for x in (img, segm, img * segm))
+
+
+# the process's renders, shared by its datasets (a render of a 256² frame
+# takes ~20 ms on a host core), read-only
+_RENDERS = collections.OrderedDict()
+_RENDERS_KEPT = 1024
+
+
+def _rendered(label: int, frame: int, image_size: int, u8: bool):
+    """(image, segm, target) of a frame, f32 or the wire's uint8, from the
+    process's renders."""
+    key = (label, frame, image_size, u8)
+    if key in _RENDERS:
+        _RENDERS.move_to_end(key)
+        return _RENDERS[key]
+    if u8:
+        out = render_face_u8(label, frame, image_size)
+    else:
+        img, segm = render_face(label, frame, image_size)
+        out = img, segm, img * segm
+    for arr in out:
+        arr.setflags(write=False)
+    _RENDERS[key] = out
+    while len(_RENDERS) > _RENDERS_KEPT:
+        _RENDERS.popitem(last=False)
+    return out
 
 
 def synthetic_keypoints(label: int, frame: int, image_size: int):
@@ -231,12 +259,8 @@ class SyntheticDataLoader:
         """(image, segm, target) of a frame, f32 or the wire's uint8."""
         key = (label, frame % 32)
         if key not in self._cache:
-            if self.u8:
-                self._cache[key] = render_face_u8(label, frame,
-                                                  self.image_size)
-            else:
-                img, segm = render_face(label, frame, self.image_size)
-                self._cache[key] = img, segm, img * segm
+            self._cache[key] = _rendered(label, frame % 32, self.image_size,
+                                         self.u8)
         return self._cache[key]
 
     def _stickman(self, label, frame):

@@ -32,7 +32,8 @@ import torch
 
 from latentpose_tpu_torch.ops.resize import (resize_area, resize_cubic,
                                              resize_linear)
-from latentpose_tpu_torch.utils.weights import (find_weights_file,
+from latentpose_tpu_torch.utils.weights import (empty_module,
+                                                find_weights_file,
                                                 load_flax_weights,
                                                 missing_weights_error)
 
@@ -185,8 +186,8 @@ class ArcFaceBackend:
         from latentpose_tpu_torch.eval.arcface import ArcFaceR100
         self.device = torch.device(device)
         self.timer = timer or StageTimer()
-        self.model = load_flax_weights(ArcFaceR100(), weights_path).to(
-            self.device).eval()
+        self.model = load_flax_weights(
+            empty_module(ArcFaceR100, self.device), weights_path).eval()
         self.flip = flip
         logger.info("ArcFace backend active (%s)", weights_path)
 
@@ -249,8 +250,8 @@ class FANBackend:
         from latentpose_tpu_torch.eval.fan import FAN, heatmaps_to_landmarks
         self.device = torch.device(device)
         self.timer = timer or StageTimer()
-        self.model = load_flax_weights(FAN(), weights_path).to(
-            self.device).eval()
+        self.model = load_flax_weights(
+            empty_module(FAN, self.device), weights_path).eval()
         self._to_landmarks = heatmaps_to_landmarks
         logger.info("FAN backend active (%s)", weights_path)
 

@@ -31,7 +31,8 @@ import torch
 
 from latentpose_tpu_torch.data.native_loader import NativeBatchLoader
 from latentpose_tpu_torch.ops import resize
-from latentpose_tpu_torch.utils.weights import (find_weights_file,
+from latentpose_tpu_torch.utils.weights import (empty_module,
+                                                find_weights_file,
                                                 load_flax_weights)
 
 
@@ -274,8 +275,8 @@ class S3FDDetector:
         from latentpose_tpu_torch.preprocess import s3fd
         self.s3fd = s3fd
         self.device = torch.device(device)
-        self.model = load_flax_weights(s3fd.S3FD(), weights_path).to(
-            self.device).eval()
+        self.model = load_flax_weights(
+            empty_module(s3fd.S3FD, self.device), weights_path).eval()
         self.candidates = 0
 
     def heads(self, images_uint8):

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from latentpose_tpu_torch.ops.resize import resize_linear
-from latentpose_tpu_torch.utils.weights import (find_weights_file,
+from latentpose_tpu_torch.utils.weights import (empty_module,
+                                                find_weights_file,
                                                 load_flax_weights)
 
 logger = logging.getLogger("latentpose_tpu_torch.preprocess.segmentation")
@@ -74,8 +75,8 @@ class GraphonomyBackend:
         from latentpose_tpu_torch.preprocess.graphonomy import (Graphonomy,
                                                                 person_mask)
         self.device = torch.device(device)
-        self.model = load_flax_weights(Graphonomy(), weights_path).to(
-            self.device).eval()
+        self.model = load_flax_weights(
+            empty_module(Graphonomy, self.device), weights_path).eval()
         self._person_mask = person_mask
         logger.info("Graphonomy backend active (%s)", weights_path)
 

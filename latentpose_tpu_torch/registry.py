@@ -53,6 +53,16 @@ def load_wrapper(kind: str, name: str):
     return importlib.import_module(f"{package}.{name}").Wrapper
 
 
+def empty_net(kind: str, name: str, args, device):
+    """Plugin ``name``'s network for ``args`` on ``device`` with its
+    weights left uninitialised (``utils/weights.py`` ``empty_module``), for
+    a checkpoint to overwrite whole: the seeded init of a full-width model
+    took seconds a build."""
+    from latentpose_tpu_torch.utils.weights import empty_module
+    return empty_module(lambda: load_wrapper(kind, name).get_net(args),
+                        device)
+
+
 def names(kind: str):
     """The names of ``kind``'s plugins."""
     return _KINDS[kind][1]

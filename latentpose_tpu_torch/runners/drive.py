@@ -92,16 +92,20 @@ class DriveModule(nn.Module):
 class SelfContainedDriveModule(nn.Module):
     """The drive step of a self-contained generator (X2Face): a wire batch
     of driver frames and the avatar's identity images (1, N, H, W, 3) ->
-    (rgbs (B, H, W, 3) f32, None).  Frames and images are cast to
-    ``dtype`` as the JAX drive casts them (the generator then computes in
-    f32, as flax promotes them)."""
+    (rgbs (B, H, W, 3) f32, None).  The images may be a buffer
+    (``identity_images``, as the export holds them) or each call's.
+    Frames and images are cast to ``dtype`` as the JAX drive casts them
+    (the generator then computes in f32, as flax promotes them)."""
 
-    def __init__(self, generator, dtype=torch.float32):
+    def __init__(self, generator, dtype=torch.float32, identity_images=None):
         super().__init__()
         self.generator = generator
+        self.register_buffer("identity_images", identity_images)
         self.dtype = dtype
 
-    def forward(self, pose_frames, identity_images):
+    def forward(self, pose_frames, identity_images=None):
+        if identity_images is None:
+            identity_images = self.identity_images
         if pose_frames.dtype == torch.uint8:
             x = (pose_frames.float() / 255.0).to(self.dtype)
         else:

@@ -24,6 +24,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from latentpose_tpu_torch.utils.npz import read_npz
+
 _REPO_ROOT = Path(__file__).resolve().parents[2]
 
 
@@ -66,8 +68,7 @@ def load_flat_npz_variables(path_or_dict):
     """
     flat = path_or_dict
     if not isinstance(flat, dict):
-        with np.load(path_or_dict) as raw:
-            flat = {k: raw[k] for k in raw.files}
+        flat = read_npz(path_or_dict)
     variables = {}
 
     def insert(collection, parts, leaf, value):
@@ -171,6 +172,41 @@ def flax_from_state_dict(module):
         out[flax] = np.ascontiguousarray(
             value if perm is None else np.transpose(value, perm))
     return out
+
+
+class _SkipRandomInit(torch.overrides.TorchFunctionMode):
+    """A module's constructor with its random initialisers' draws left out:
+    an in-place draw leaves the tensor as it was made (uninitialised), a
+    random tensor is an uninitialised one; no generator advances."""
+
+    DRAWS = {torch.Tensor.normal_, torch.Tensor.uniform_} | {
+        getattr(torch.nn.init, name) for name in (
+            "normal_", "uniform_", "kaiming_normal_", "kaiming_uniform_",
+            "xavier_normal_", "xavier_uniform_", "trunc_normal_",
+            "orthogonal_")}
+    FACTORIES = {torch.randn, torch.rand}
+    KEEP = ("dtype", "device", "layout", "requires_grad", "pin_memory")
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in self.DRAWS:
+            return args[0] if args else kwargs["tensor"]
+        if func in self.FACTORIES:
+            return torch.empty(*args, **{k: v for k, v in kwargs.items()
+                                         if k in self.KEEP})
+        return func(*args, **kwargs)
+
+
+def empty_module(build, device="cpu"):
+    """``build()``'s module made on ``device`` with its random initialisers
+    left out, for weights loaded next to overwrite every parameter and
+    buffer: the seeded init of a full-width model took seconds a build.
+    (A build on the meta device instead sends its ops through PyTorch's
+    Python references, which import ``torch._dynamo``: seconds in a fresh
+    process.)"""
+    with torch.device(device), _SkipRandomInit():
+        module = build()
+    return module.to(device)    # what a constructor made from host arrays
 
 
 def load_flax_weights(module, path_or_dict):

@@ -3,7 +3,8 @@ CLIs: X2Face (meta-train with the ``none`` discriminator and ``l1_rgb``,
 its identity-image "fine-tune", drive), FAbNet+ and X2Face+ (meta-train
 with ragan and rgan, ê and a fine-tune step, drive through the frozen pose
 encoder), ``simple_conv`` and ``no_pose_encoder``, ``--quantize``, the
-export refusal, and the FFHQ crop through ``crop_as_in_dataset`` and
+export of the three families' avatars (against eager drive, the JAX CLI's
+StableHLO artifact and its ``.json``), and the FFHQ crop through ``crop_as_in_dataset`` and
 ``preprocess_dataset``.
 
 The checkpoints the port writes are read back by the JAX package array
@@ -15,6 +16,7 @@ one bottleneck a stage in both packages).  Every checkpoint written is
 deleted with its fixture."""
 
 import functools
+import json
 import shutil
 import types
 
@@ -27,6 +29,8 @@ from flax import serialization
 
 from latentpose_tpu import checkpoint as jckpt
 from latentpose_tpu import registry as jregistry
+from latentpose_tpu.cli import drive as jdrive_cli
+from latentpose_tpu.cli import export as jexport
 from latentpose_tpu.checkpoint import _flatten
 from latentpose_tpu.models.embedders import FAbNet_pretrained_embResNeXt \
     as jfab
@@ -290,11 +294,6 @@ def test_x2face_quantize_as_the_jax_cli(x2face_run, workdir):
                      "--quantize", "int8_static", *CPU])
 
 
-def test_export_refuses_an_ablation_avatar(x2face_run):
-    with pytest.raises(NotImplementedError, match="A.19"):
-        texport.main([str(x2face_run[1]), *CPU])
-
-
 # --- the pretrained-pose families ---------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -418,6 +417,103 @@ def test_every_registry_name_loads_and_no_refusal_names_a19():
     with pytest.raises(ValueError, match="gan_type"):
         tcli.resolve_args([*FLAGSHIP, *SYNTHETIC, "--embedder", "X2Face",
                            "--gan_type", "wgan", *CPU])
+
+
+# --- export of the three families' avatars ---------------------------------
+
+EXPORT_BATCH = 2
+
+
+@pytest.fixture(scope="module")
+def avatars(x2face_run, pretrained_runs):
+    return {"FAbNet+": (pretrained_runs("FAbNet_pretrained_embResNeXt")[1],
+                        64),
+            "X2Face+": (pretrained_runs("X2Face_pretrained_embResNeXt")[1],
+                        64),
+            "X2Face": (x2face_run[1], 32)}
+
+
+@pytest.fixture(scope="module")
+def exported(avatars, workdir):
+    """``exported(name)``: the port CLI's f32 artifact of an avatar on the
+    float32 wire, loaded, its ``.json`` and its path; made once."""
+    made = {}
+
+    def get(name):
+        if name not in made:
+            out = texport.main([
+                str(avatars[name][0]), "--destination",
+                str(workdir / f"export_{name}.pt2"), "--export_batch_size",
+                str(EXPORT_BATCH), "--transfer_dtype", "float32",
+                "--compute_dtype", "float32", *CPU])
+            made[name] = (texport.load_serving_artifact(out),
+                          json.loads(open(out + ".json").read()), out)
+        return made[name]
+
+    return get
+
+
+@pytest.mark.parametrize("name", ["FAbNet+", "X2Face+", "X2Face"])
+def test_ablation_artifact_equals_eager_drive(avatars, exported, name):
+    """The reloaded ``.pt2`` gives what eager drive gives, bit for bit; the
+    pretrained-pose families keep one AdaIN operator a norm in front of
+    their pose module, X2Face none and no mask."""
+    path, size = avatars[name]
+    serve, meta, out = exported(name)
+    args = tdrive.resolve_args([str(path), "--compute_dtype", "float32",
+                                *CPU])
+    models, state = tdrive.load_finetuned(args, torch.device("cpu"))
+    frames = torch.from_numpy(_frames(EXPORT_BATCH, size))
+    want = tdrive_lib.make_drive_fn(models, args)(state, frames)
+    got = serve(frames)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    calls = [n for n in torch.export.load(out).graph.nodes
+             if n.op == "call_function"
+             and n.target == torch.ops.latentpose.adain_fused.default]
+    if name == "X2Face":
+        assert got[1] is None and want[1] is None
+        assert meta["outputs"] == ["fake_rgbs", None] and not calls
+    else:
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+        assert meta["outputs"] == ["fake_rgbs", "fake_segm"]
+        assert len(calls) == len(models["generator"].adain_features)
+
+
+@pytest.mark.parametrize("name", ["FAbNet+", "X2Face+", "X2Face"])
+def test_ablation_artifact_matches_the_jax_cli(avatars, exported, name,
+                                               monkeypatch):
+    """The port's f32 artifact within 1e-4 of the JAX CLI's StableHLO
+    artifact of the same avatar on the same frames, and the ``.json`` the
+    JAX CLI writes, but for its platform, its size and X2Face's mask (the
+    JAX artifact returns ones there, the port's None).  The JAX CLI
+    restores the avatar into the skeleton ``_jax_drive`` uses."""
+    path, size = avatars[name]
+    leaves = {k.split("::")[1]: v for k, v in tckpt.load_arrays(path).items()
+              if k.startswith("params::finetune_")}
+    state, _, models, _ = _jax_state(path, leaves, finetune=True)
+    monkeypatch.setattr(jdrive_cli, "load_finetuned",
+                        lambda a, m: (models, state))
+    _, tmeta, _ = exported(name)
+    jdest = jexport.main([str(path), "--destination",
+                          str(path.parent / f"{name}.stablehlo"),
+                          "--export_batch_size", str(EXPORT_BATCH),
+                          "--transfer_dtype", "float32", "--compute_dtype",
+                          "float32"])
+    jserve = jax.export.deserialize(bytearray(open(jdest, "rb").read()))
+    jmeta = json.loads(open(jdest + ".json").read())
+    frames = _frames(EXPORT_BATCH, size)
+    want = jserve.call(jnp.asarray(frames))
+    got = exported(name)[0](torch.from_numpy(frames))
+    _close(got[0].numpy(), np.asarray(want[0]), name)
+    if name == "X2Face":
+        assert got[1] is None and np.all(np.asarray(want[1]) == 1)
+    else:
+        _close(got[1].numpy(), np.asarray(want[1]), name)
+    assert set(tmeta) == set(jmeta)
+    for key in set(jmeta) - {"platforms", "bytes", "outputs"}:
+        assert tmeta[key] == jmeta[key], key
+    assert tmeta["outputs"] == (jmeta["outputs"] if name != "X2Face"
+                                else [jmeta["outputs"][0], None])
 
 
 # --- the FFHQ crop through the CLIs -------------------------------------------

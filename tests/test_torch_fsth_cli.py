@@ -53,6 +53,20 @@ class _ShapeInit:
         return getattr(self._module, name)
 
 
+def _without(argv, *flags):
+    """``argv`` without ``flags`` and their values: a flag that the run's
+    selection does not register is refused, as by the JAX CLI."""
+    out, skip = [], False
+    for a in argv:
+        if skip and not a.startswith("--"):
+            skip = False
+            continue
+        skip = a in flags
+        if not skip:
+            out.append(a)
+    return out
+
+
 def _train(argv, tmp_path, name):
     _, path = tcli.main([*argv, "--experiments_dir", str(tmp_path),
                          "--experiment_name", name])
@@ -162,8 +176,8 @@ def test_port_checkpoints_load_into_the_jax_package(fsth_run, which):
 
 
 def test_cli_fsth_plus_fine_tunes_the_identity(tmp_path):
-    meta = _train([*TINY, *SYNTHETIC, "--generator", "FSTH_plus"], tmp_path,
-                  "meta")
+    meta = _train([*_without(TINY, "--gen_num_downsample_blocks"),
+                   *SYNTHETIC, "--generator", "FSTH_plus"], tmp_path, "meta")
     ft = _train(["--finetune", "--checkpoint_path", str(meta), "--device",
                  "cpu"], tmp_path, "ft")
     arrays = tckpt.load_arrays(ft)
@@ -226,8 +240,16 @@ def test_cli_trains_fsth_on_a_landmark_tree(tmp_path, dataloader):
 def test_cli_refuses_the_second_slice(flags, item):
     """The second A.19 slice (``none``, ``no_pose_encoder``, X2Face, its
     dataset) was refused here until it was ported; now its names
-    resolve (``tests/test_torch_ablation_cli.py`` trains them)."""
-    argv = [*TINY, *SYNTHETIC, "--generator", "FSTH", *flags]
+    resolve (``tests/test_torch_ablation_cli.py`` trains them), each
+    without the flags of the plugin it replaces."""
+    unregistered = {
+        "--discriminator": ["--dis_num_blocks"],
+        "--generator": ["--gen_num_downsample_blocks",
+                        "--gen_num_residual_blocks"],
+        "--dataloader": ["--synthetic_stickmen", "--synthetic_num_labels",
+                         "--num_enc_frames"]}.get(flags[0], [])
+    argv = _without([*TINY, *SYNTHETIC, "--generator", "FSTH", *flags],
+                    *unregistered)
     args = tcli.resolve_args(argv)
     assert getattr(args, flags[0][2:]) == flags[1]
 

@@ -585,15 +585,22 @@ def test_meta_loader_is_bit_identical():
 
 
 def test_meta_config_equals_the_config_file():
-    """META_CONFIG is configs/default.yaml (yaml is absent where the card
-    is)."""
+    """The port reads configs/default.yaml (without yaml, which is absent
+    where the card is) as yaml reads it, and the resolved args take its
+    numbers through the options' types, as the JAX CLI does."""
     import yaml
     from pathlib import Path
-    cfg = yaml.safe_load((Path(__file__).resolve().parent.parent / "configs"
-                          / "default.yaml").read_text())
-    cfg = {k: float(v) if k.endswith("_weight") else v
-           for k, v in cfg.items()}      # YAML 1.1 reads 3e-2 as a string
-    assert cfg == tcli.META_CONFIG
+    from latentpose_tpu_torch import config as tconfig
+    configs = Path(__file__).resolve().parent.parent / "configs"
+    cfg = yaml.safe_load((configs / "default.yaml").read_text())
+    got = tconfig.load_yaml_config("default", configs)
+    assert got == cfg and all(type(got[k]) is type(v) for k, v in cfg.items())
+    assert cfg["perc_weight"] == "3e-2"     # YAML 1.1: no dot, no float
+    args = tcli.resolve_args(["--config_name", "default", "--dataloader",
+                              "synthetic"])
+    assert (args.perc_weight, args.idt_embed_weight, args.batch_size) == \
+        (3e-2, 0.6e-2, 8)
+    assert args.use_pixelwise_augs and args.runner == "holycow"
 
 
 def test_cli_meta_trains_from_a_fresh_init_and_resumes(tmp_path):

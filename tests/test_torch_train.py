@@ -441,19 +441,29 @@ def test_weights_search_order_matches_jax(where, tmp_path, monkeypatch):
 # --- the CLI -----------------------------------------------------------------
 
 def test_finetune_defaults_equal_the_config_file():
-    """FINETUNE_CONFIG is configs/finetuning-base.yaml (yaml is absent where
-    the card is)."""
+    """The port reads configs/finetuning-base.yaml (without yaml, which is
+    absent where the card is) as yaml reads it, and the resolved args take
+    its numbers through the options' types, as the JAX CLI does."""
     import yaml
+    from latentpose_tpu_torch import config as tconfig
     cfg = yaml.safe_load((REPO / "configs" / "finetuning-base.yaml")
                          .read_text())
+    got = tconfig.load_yaml_config("finetuning-base", REPO / "configs")
+    assert got == cfg and all(type(got[k]) is type(v) for k, v in cfg.items())
+    assert cfg["lr_gen"] == "5e-4"      # YAML 1.1: no dot, no float
+    args, _, _, _ = tconfig.get_args_and_modules(
+        tcli.build_parser(), argv=["--config_name", "finetuning-base",
+                                   *NAMES_FOR_CONFIG])
+    assert (args.lr_gen, args.lr_dis, args.fixed_val_ids) == \
+        (5e-4, 8e-4, [0])
 
-    def number(v):      # YAML 1.1 reads 5e-4 as a string; argparse's
-        try:            # type=float turns it into a number in the JAX CLI
-            return float(v) if isinstance(v, str) else v
-        except ValueError:
-            return v
 
-    assert {k: number(v) for k, v in cfg.items()} == tcli.FINETUNE_CONFIG
+NAMES_FOR_CONFIG = ["--generator",
+                    "vector_pose_unsupervised_segmentation_noBottleneck",
+                    "--embedder",
+                    "unsupervised_pose_separate_embResNeXt_segmentation",
+                    "--discriminator", "no_landmarks", "--dataloader",
+                    "synthetic"]
 
 
 @pytest.mark.parametrize("flags,item,error", [

@@ -339,8 +339,11 @@ def test_cli_trains_in_bf16_on_the_wire_and_resumes(where, tree, tmp_path):
 
     tholycow.make_train_step = recording
     try:
+        # --num_enc_frames is the synthetic loader's: the VoxCeleb2 run's
+        # selection does not register it (refused, as by the JAX CLI)
+        tiny = TINY if where == "synthetic" else TINY[:-2]
         state, path = tcli.main(["--config_name", "default", *data, *common,
-                                 *TINY, *MODES])
+                                 *tiny, *MODES])
         assert state.step == 2 and not state.finetune
         _read_with_jax(path)
         state, path = tcli.main([*data, *common, "--checkpoint_path",
@@ -371,11 +374,14 @@ def test_cli_trains_in_bf16_on_the_wire_and_resumes(where, tree, tmp_path):
         assert p.dtype == torch.float32
 
 
-def test_cli_takes_only_the_two_dtypes_of_each_flag(tmp_path):
-    for flags in (["--compute_dtype", "float16"],
-                  ["--transfer_dtype", "bfloat16"]):
-        with pytest.raises(ValueError, match="one of"):
-            _tiny_args(tmp_path, *flags)
+def test_cli_takes_only_the_two_dtypes_of_each_flag(tmp_path, capsys):
+    # --compute_dtype has the JAX core parser's choices, so argparse
+    # refuses it; --transfer_dtype (the runner's, no choices) the CLI
+    with pytest.raises(SystemExit):
+        _tiny_args(tmp_path, "--compute_dtype", "float16")
+    assert "invalid choice: 'float16'" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="one of"):
+        _tiny_args(tmp_path, "--transfer_dtype", "bfloat16")
     args = _tiny_args(tmp_path, *MODES)
     assert (args.compute_dtype, args.transfer_dtype) == ("bfloat16", "uint8")
     assert tcli.build_dataloader(args).get_batch(0)[0]["enc_rgbs"].dtype \
